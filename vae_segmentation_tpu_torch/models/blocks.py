@@ -1,0 +1,219 @@
+"""Conv building blocks in the logical channels-last representation
+[B, D, H, W, C] (counterpart of vae_segmentation_tpu/models/blocks.py).
+
+Structure (reference joint_model.py):
+  * ConvNormAct = conv3^3 + InstanceNorm + ReLU               (:101-112)
+  * DoubleConv  = 3 x (conv3^3 + InstanceNorm + ReLU)         (:35-52)
+  * Down        = stride-2 2^3 conv (channel-preserving) + DoubleConv (:126-136)
+  * Up          = stride-2 2^3 ConvTranspose + DoubleConv      (:114-124)
+
+Every 3^3 conv is K1 (``ops.conv3``), every Down entry K2 and every Up entry
+K3 (``ops.bridges``). The fusion points are the JAX TPU path's
+(blocks.py:954-979, unet.py:92-120, vae.py:116-165): InstanceNorm
+statistics come from K1's stats epilogue, an intra-DoubleConv norm+ReLU is
+the next conv's prologue, and a deferred stage-final norm (``defer=True``)
+rides into the consumer's prologue. Norms that feed a skip-add or a stage
+boundary are applied here as plain elementwise ops.
+
+Parameters keep the reference's torch ``state_dict`` keys and shapes
+(models/torch_compat.py:8-28 of the JAX package). Leaf modules convert
+their weight to the layout their kernel reads once, when moved to a device
+or loaded, not on every call. The JAX package's space-to-depth fold and
+W-pack (ops/s2d.py) are not ported: they only filled the TPU's 128-lane
+tiles.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+
+from vae_segmentation_tpu_torch.ops import bridges, conv3 as conv3_ops
+
+DEFAULT_FMAPS: Tuple[int, ...] = (8, 16, 32, 64, 128, 256)
+Affine = Tuple[torch.Tensor, torch.Tensor]
+
+
+def torch_uniform_init(shape: Sequence[int], fan_in: int,
+                       generator: Optional[torch.Generator]) -> torch.Tensor:
+    """U(-1/sqrt(fan_in), 1/sqrt(fan_in)): what torch's default init gives
+    conv/linear weights (kaiming_uniform_(a=sqrt(5))) and their biases."""
+    bound = 1.0 / math.sqrt(fan_in)
+    return torch.empty(tuple(shape)).uniform_(-bound, bound,
+                                              generator=generator)
+
+
+def affine_from_stats(st: torch.Tensor, n_spatial: int,
+                      eps: float = 1e-5) -> Affine:
+    """InstanceNorm (scale, shift), each [B, C] f32, from a conv's
+    [B, 2, C] (sum, sumsq) stats (blocks.py:352-369): biased variance,
+    eps 1e-5, as torch's InstanceNorm3d."""
+    mean = st[:, 0] / n_spatial
+    var = st[:, 1] / n_spatial - mean * mean
+    rstd = torch.rsqrt(torch.clamp(var, min=0.0) + eps)
+    return rstd, -mean * rstd
+
+
+def apply_affine_relu(x: torch.Tensor, aff: Affine) -> torch.Tensor:
+    """relu(x * s + t) in f32, stored in x.dtype: a norm applied where no
+    kernel prologue can take it."""
+    s, t = aff
+    y = torch.relu(x.float() * s[:, None, None, None, :]
+                   + t[:, None, None, None, :])
+    return y.to(x.dtype)
+
+
+def _refresh_hook(module, _incompatible_keys) -> None:
+    module.refresh_kernel_weight()
+
+
+class _KernelConv(nn.Module):
+    """A conv whose ``weight`` is kept in torch layout (for state_dicts) and,
+    on a CUDA device, also in its kernel's layout (``_kw``)."""
+
+    def __init__(self, weight: torch.Tensor, bias: torch.Tensor):
+        super().__init__()
+        self.weight = nn.Parameter(weight)
+        self.bias = nn.Parameter(bias)
+        self._kw: Optional[torch.Tensor] = None
+        self.register_load_state_dict_post_hook(_refresh_hook)
+
+    @staticmethod
+    def kernel_layout(weight: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def refresh_kernel_weight(self) -> None:
+        """Re-derive the kernel-layout weight; call after changing the
+        weight in place (moves and state_dict loads do it themselves)."""
+        self._kw = self.kernel_layout(self.weight) if self.weight.is_cuda \
+            else None
+
+    def _apply(self, fn, recurse=True):
+        out = super()._apply(fn, recurse)
+        self.refresh_kernel_weight()
+        return out
+
+
+class Conv3(_KernelConv):
+    """3^3 SAME conv (torch Conv3d weight [O, I, 3, 3, 3]) through K1."""
+
+    def __init__(self, cin: int, cout: int,
+                 generator: Optional[torch.Generator] = None):
+        fan_in = 27 * cin
+        super().__init__(torch_uniform_init((cout, cin, 3, 3, 3), fan_in,
+                                            generator),
+                         torch_uniform_init((cout,), fan_in, generator))
+
+    kernel_layout = staticmethod(conv3_ops.kernel_weight)
+
+    def forward(self, x: torch.Tensor, pre: Optional[Affine] = None,
+                stats: bool = False, softmax: bool = False):
+        return conv3_ops.conv3(x, self.weight, self.bias, self._kw, pre,
+                               stats, softmax)
+
+
+class DownConv(_KernelConv):
+    """Channel-preserving 2^3 stride-2 conv (torch Conv3d [C, C, 2, 2, 2])
+    through K2."""
+
+    def __init__(self, c: int, generator: Optional[torch.Generator] = None):
+        super().__init__(torch_uniform_init((c, c, 2, 2, 2), 8 * c, generator),
+                         torch_uniform_init((c,), 8 * c, generator))
+
+    kernel_layout = staticmethod(bridges.down_kernel_weight)
+
+    def forward(self, x: torch.Tensor, pre: Optional[Affine] = None):
+        return bridges.down_k2s2(x, self.weight, self.bias, self._kw, pre)
+
+
+class TConv2(_KernelConv):
+    """Channel-preserving 2^3 stride-2 ConvTranspose (torch ConvTranspose3d
+    [C, C, 2, 2, 2]) through K3."""
+
+    def __init__(self, c: int, generator: Optional[torch.Generator] = None):
+        # torch takes a ConvTranspose's fan_in from weight dim 1: 8 * C_out
+        super().__init__(torch_uniform_init((c, c, 2, 2, 2), 8 * c, generator),
+                         torch_uniform_init((c,), 8 * c, generator))
+
+    kernel_layout = staticmethod(bridges.up_kernel_weight)
+
+    def forward(self, x: torch.Tensor):
+        return bridges.up_k2s2(x, self.weight, self.bias, self._kw)
+
+
+def _n_spatial(x: torch.Tensor) -> int:
+    return x.shape[1] * x.shape[2] * x.shape[3]
+
+
+class ConvNormAct(nn.Module):
+    """conv3^3 + InstanceNorm + ReLU (reference ``Conv``). Returns the raw
+    conv output and its norm affine: the norm+ReLU is applied by the
+    consumer (the down1 entry's K2 prologue), so the normalized tensor is
+    never stored."""
+
+    def __init__(self, cin: int, cout: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.conv = nn.ModuleDict({"0": Conv3(cin, cout, generator)})
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Affine]:
+        y, st = self.conv["0"](x, stats=True)
+        return y, affine_from_stats(st, _n_spatial(y))
+
+
+class DoubleConv(nn.Module):
+    """3 x (conv3^3 + InstanceNorm + ReLU); the reference's ``DoubleConv``
+    is a triple conv. Each norm's affine comes from the conv's stats
+    epilogue and each norm+ReLU after the first two convs is the next
+    conv's prologue. defer=True returns (raw, affine) for the chain-final
+    norm instead of applying it."""
+
+    _KEYS = ("0", "3", "6")  # reference indices (norm/ReLU at 1, 2, 4, ...)
+
+    def __init__(self, cin: int, cout: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.conv = nn.ModuleDict({
+            "0": Conv3(cin, cout, generator),
+            "3": Conv3(cout, cout, generator),
+            "6": Conv3(cout, cout, generator)})
+
+    def forward(self, x: torch.Tensor, defer: bool = False):
+        pre = None
+        for key in self._KEYS:
+            x, st = self.conv[key](x, pre=pre, stats=True)
+            pre = affine_from_stats(st, _n_spatial(x))
+        return (x, pre) if defer else apply_affine_relu(x, pre)
+
+
+class Down(nn.Module):
+    """K2 stride-2 conv (channel-preserving) then DoubleConv(cin -> cout).
+    pre: the producing stage's deferred norm affine, applied as K2's
+    prologue."""
+
+    def __init__(self, cin: int, cout: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.conv = nn.ModuleDict({"0": DownConv(cin, generator),
+                                   "1": DoubleConv(cin, cout, generator)})
+
+    def forward(self, x: torch.Tensor, pre: Optional[Affine] = None):
+        return self.conv["1"](self.conv["0"](x, pre=pre))
+
+
+class Up(nn.Module):
+    """K3 stride-2 ConvTranspose (channel-preserving) then
+    DoubleConv(cin -> cout)."""
+
+    def __init__(self, cin: int, cout: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.conv = nn.ModuleDict({"0": TConv2(cin, generator),
+                                   "1": DoubleConv(cin, cout, generator)})
+
+    def forward(self, x: torch.Tensor, defer: bool = False):
+        return self.conv["1"](self.conv["0"](x), defer=defer)
+
