@@ -5,8 +5,9 @@ GPU and check it. Run from the repository root:
     python3 chip_smoke.py [--seed 0] [--cases 3] [--out PATH]
 
 Phases, each printed as JSON records:
-  1. card: ``nvidia-smi`` name and power limit; the kernels' nvcc build.
-  2. kernels: one Joint forward of the main path runs through the plain
+  1. card: ``nvidia-smi`` name and power limit; the kernels' nvcc build
+     (one nvcc per source, all at once).
+  2. kernels: one Joint forward of the eval path runs through the plain
      PyTorch versions (f32 math, TF32 off) with hooks recording every
      kernel-backed call (58 + 9 + 9). Each call's kernel then runs on that
      call's recorded inputs against its recorded plain output: y max abs
@@ -15,8 +16,9 @@ Phases, each printed as JSON records:
      varying order). Each distinct (kernel, shape, options) is timed beside
      the plain version and one cuDNN call (bf16, channels_last_3d; a
      yardstick only, the port never calls it). ``bound_ms`` is the larger
-     of the bytes over 3.35 TB/s and the operations over 989 TFLOP/s (bf16).
-  3. main path: synthetic cases (from --seed) and a seed-initialised
+     of the bytes over 3.35 TB/s and the operations over 989 TFLOP/s (bf16;
+     67 TFLOP/s for the two f32 elementwise kernels).
+  3. eval path: synthetic cases (from --seed) and a seed-initialised
      full-width Joint saved as a port checkpoint, then the port's target CLI
      ``--test_only`` at 128^3 on cuda. Checks: score JSON, each Dice in
      [0, 1], launches 58 / 9 / 9 per Joint forward, and the whole Joint
@@ -27,7 +29,38 @@ Phases, each printed as JSON records:
      only the f32 summation order of its convs changes.
   4. profile: device time by kernel family over a few forwards
      (``torch.profiler``) and the device's busy share of the forward.
-  5. the ``kernels`` line, then the last line
+  5. train-step kernels: one adaptation train step (batch 2, 128^3, MC
+     dropout 0.5, VAE frozen) runs on the plain path while every kernel
+     wrapper's call is recorded, forward and backward (conv3 as forward
+     and as dx conv with its ``post`` epilogue, conv3_dk, both bridges and
+     their backwards, softmax_vjp, dice_sums). Each call's kernel then runs
+     on the recorded inputs against the recorded plain outputs: bf16
+     outputs within 1e-2 * max|want|, f32 sums (dk, db, ds/dt, Dice sums)
+     within ``F32_TOL`` of their tensor's largest element. Each distinct
+     call is timed beside its plain version and one library call
+     (``aten.convolution_backward`` with the matching output mask for the
+     backward rows, ``aten._softmax_backward_data`` for softmax_vjp; none
+     for dice_sums).
+  6. train path: step 1 on the kernel path against the plain path (same
+     weights, batch and dropout masks): loss terms and every Seg gradient
+     tensor within ``DRIFT_MULTIPLE`` times the plain path's own drift
+     under reordered f32 sums, for the full dh loss and for the
+     pseudo-label loss alone (whose gradient stays inside the Seg and is
+     better conditioned with random weights), and for the backward alone
+     across the frozen VAE: one student forward on the kernel path, then
+     the backward of the reconstruction Dice, whose gradient reaches the
+     Seg only through the VAE, run on that one graph by the kernels, by
+     their plain versions and by the reordered plain versions (a fixed
+     linear map, so the three agree closely); then 3 steps through
+     ``make_adapt_step``
+     (launch counts per step derived from the model, finite losses, Seg
+     moved, VAE and teacher did not, the EMA moves the teacher's Seg only,
+     and after a write through ``weight.data`` every module hands its
+     kernel the new weight), ``step_ms``, the host's ``enqueue_ms``, peak memory, the
+     device's busy share of a step (under the profiler and against the
+     unprofiled ``step_ms``); then the port's target CLI trains two outer epochs (the first
+     takes no step, as the reference) on synthetic cases with ``--no_aug``.
+  7. the ``kernels`` line (eight kernels), then the last line
      ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero without the last line. Without a CUDA GPU
 it exits 2 and prints no result. All records also go to --out (JSON,
@@ -52,7 +85,15 @@ from unittest import mock
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor cores
+F32_FLOPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
 PER_FORWARD = {"conv3": 58, "down_k2s2": 9, "up_k2s2": 9}
+KERNEL_NAMES = ("conv3", "down_k2s2", "up_k2s2", "conv3_dk", "down_k2s2_bwd",
+                "up_k2s2_bwd", "softmax_vjp", "dice_sums")
+# f32 sums of a backward kernel (dk, db, ds/dt, Dice sums): max abs error
+# over the tensor's largest element (atomics add in a varying order;
+# measured up to 2e-5 on an H100 over one train step at 128^3, batch 2)
+F32_TOL = 2e-4
+TRAIN_BATCH, TRAIN_LR, TRAIN_LAMBDA = 2, 1e-3, 1.0
 # kernel-vs-plain mean abs difference of the Joint's probabilities, over the
 # plain path's drift from itself under reordered f32 sums
 DRIFT_MULTIPLE = 4.0
@@ -67,6 +108,24 @@ SOURCES = {
                   "upbridge.py:533 (_run_down_fwd_pre)"),
     "up_k2s2": ("vae_segmentation_tpu_torch/ops/kernels/csrc/bridge.cu",
                 "vae_segmentation_tpu/ops/pallas/upbridge.py:119 (_run_fwd)"),
+    "conv3_dk": ("vae_segmentation_tpu_torch/ops/kernels/csrc/conv3_dk.cu",
+                 "vae_segmentation_tpu/ops/pallas/stencil3.py:631 "
+                 "(_run_dk_grouped); vae_segmentation_tpu/ops/pallas/"
+                 "stencil3.py:777 (_run_dk)"),
+    "down_k2s2_bwd": ("vae_segmentation_tpu_torch/ops/kernels/csrc/"
+                      "bridge_bwd.cu",
+                      "vae_segmentation_tpu/ops/pallas/upbridge.py:342 "
+                      "(_run_down_bwd); vae_segmentation_tpu/ops/pallas/"
+                      "upbridge.py:552 (_run_down_bwd_pre)"),
+    "up_k2s2_bwd": ("vae_segmentation_tpu_torch/ops/kernels/csrc/"
+                    "bridge_bwd.cu",
+                    "vae_segmentation_tpu/ops/pallas/upbridge.py:143 "
+                    "(_run_bwd)"),
+    "softmax_vjp": ("vae_segmentation_tpu_torch/ops/kernels/csrc/losses.cu",
+                    "vae_segmentation_tpu/ops/pallas/softmaxvjp.py:64 "
+                    "(softmax_group_vjp)"),
+    "dice_sums": ("vae_segmentation_tpu_torch/ops/kernels/csrc/losses.cu",
+                  "vae_segmentation_tpu/ops/pallas/dicesums.py:73 (_run)"),
 }
 
 
@@ -134,26 +193,59 @@ def _split_sums(fn, F):
     return run
 
 
+def kernel_ops() -> list:
+    """(kernel name, module, wrapper attribute, plain version) of every
+    kernel wrapper the port launches."""
+    from vae_segmentation_tpu_torch.ops import bridges, conv3, losses
+
+    return [("conv3", conv3, "conv3_op", conv3.conv3_plain),
+            ("conv3_dk", conv3, "conv3_dk", conv3.conv3_dk_plain),
+            ("down_k2s2", bridges, "down_k2s2_op", bridges.down_k2s2_plain),
+            ("up_k2s2", bridges, "up_k2s2_op", bridges.up_k2s2_plain),
+            ("down_k2s2_bwd", bridges, "down_k2s2_bwd",
+             bridges.down_k2s2_bwd_plain),
+            ("up_k2s2_bwd", bridges, "up_k2s2_bwd",
+             bridges.up_k2s2_bwd_plain),
+            ("softmax_vjp", losses, "softmax_vjp", losses.softmax_vjp_plain),
+            ("dice_sums", losses, "dice_sums", losses.dice_sums_plain)]
+
+
+def _plain_args(plain, args: dict) -> dict:
+    """The wrapper's bound arguments that its plain version takes (all but
+    the kernel-layout weight and the need_* switches)."""
+    return {k: v for k, v in args.items()
+            if k in inspect.signature(plain).parameters}
+
+
 @contextmanager
-def plain_ops(reordered: bool = False):
-    """Within: every kernel wrapper the models call runs its plain PyTorch
-    version instead (f32 math on the same bf16 values). reordered=True
-    also splits each plain conv's input channels in two halves: the plain
-    path with another f32 summation order."""
+def plain_ops(reordered: bool = False, record: list = None):
+    """Within: every kernel wrapper runs its plain PyTorch version instead
+    (f32 math on the same bf16 values), forward and backward: the models
+    and the autograd Functions stay as they are. reordered=True also splits
+    each plain conv's input channels in two halves: the plain path with
+    another f32 summation order. With `record`, every call is appended as
+    {'kernel', 'args' (the wrapper's bound arguments), 'out'}."""
     import torch.nn.functional as F
 
     from vae_segmentation_tpu_torch.ops import bridges, conv3
 
-    def drop_kweight(plain):
-        return lambda x, w, b, kweight=None, *rest: plain(x, w, b, *rest)
+    def plain_wrapper(name, real, plain):
+        sig = inspect.signature(real)
+
+        def run(*args, **kwargs):
+            bound = sig.bind(*args, **kwargs)
+            bound.apply_defaults()
+            out = plain(**_plain_args(plain, bound.arguments))
+            if record is not None:
+                record.append({"kernel": name, "args": dict(bound.arguments),
+                               "out": out})
+            return out
+        return run
 
     with ExitStack() as stack:
-        for mod, name, plain in ((conv3, "conv3", conv3.conv3_plain),
-                                 (bridges, "down_k2s2",
-                                  bridges.down_k2s2_plain),
-                                 (bridges, "up_k2s2", bridges.up_k2s2_plain)):
-            stack.enter_context(
-                mock.patch.object(mod, name, drop_kweight(plain)))
+        for name, mod, attr, plain in kernel_ops():
+            stack.enter_context(mock.patch.object(
+                mod, attr, plain_wrapper(name, getattr(mod, attr), plain)))
         if reordered:
             ns = types.SimpleNamespace(
                 conv3d=_split_sums(F.conv3d, F),
@@ -200,7 +292,7 @@ def _fns(torch, name, m, x, pre, stats, softmax):
 
     from vae_segmentation_tpu_torch.ops import bridges, conv3
 
-    w, b, kw = m.weight, m.bias, m._kw
+    w, b, kw = m.weight, m.bias, m.kernel_weight()
     wl = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
     bl = b.to(torch.bfloat16)
     xl = x.permute(0, 4, 1, 2, 3)  # NDHWC data seen as channels_last_3d
@@ -333,10 +425,20 @@ def forward_ms(torch, model, image, reps: int = 5) -> float:
     return sorted(times)[len(times) // 2]
 
 
+FAMILIES = (("conv3_dk_kernel", "conv3_dk"), ("conv3_kernel", "conv3"),
+            ("down_dx_kernel", "down_k2s2_bwd"),
+            ("up_dx_kernel", "up_k2s2_bwd"),
+            ("bridge_dk_kernel", "bridge_dk"), ("down_kernel", "down_k2s2"),
+            ("up_kernel", "up_k2s2"), ("softmax_vjp_c2_kernel", "softmax_vjp"),
+            ("softmax_vjp_kernel", "softmax_vjp"),
+            ("dice_sums_kernel", "dice_sums"))
+
+
 def _family(name: str) -> str:
-    for kernel, family in (("conv3", "conv3"), ("down", "down_k2s2"),
-                           ("up", "up_k2s2")):
-        if re.search(rf"\b{kernel}_kernel\b", name):
+    """The kernel family of a profiler event (``bridge_dk`` is the dk/db
+    kernel that both bridge backwards share)."""
+    for kernel, family in FAMILIES:
+        if re.search(rf"\b{kernel}\b", name):
             return family
     # cuBLAS on Hopper names its GEMMs nvjet_*
     if any(k in name.lower() for k in ("gemm", "gemv", "nvjet", "cutlass")):
@@ -344,23 +446,22 @@ def _family(name: str) -> str:
     return "other"
 
 
-def profile_forward(torch, model, image, reps: int = 5) -> dict:
-    """Phase 4: device ms per forward by kernel family (kernel events of
-    ``torch.profiler``), host-clock wall ms per forward, and their ratio,
-    the device's busy share."""
+def profile_run(torch, fn, reps: int, phase: str) -> dict:
+    """Device ms per call of fn() by kernel family (kernel events of
+    ``torch.profiler``), host-clock wall ms per call, and their ratio, the
+    device's busy share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad():
-        model(image)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                model(image)
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0) / reps
+        wall_ms = 1e3 * (time.perf_counter() - t0) / reps
     by_family, other = {}, []
     for ev in prof.key_averages():
         # kernels only: a CPU op's device time repeats its kernels'
@@ -372,10 +473,312 @@ def profile_forward(torch, model, image, reps: int = 5) -> dict:
         if f == "other":
             other.append([ms, ev.key[:80]])
     device_ms = sum(by_family.values())
-    return {"phase": "profile", "reps": reps, "wall_ms": wall_ms,
+    return {"phase": phase, "reps": reps, "wall_ms": wall_ms,
             "device_ms": device_ms, "busy_share": device_ms / wall_ms,
             "device_ms_by_family": by_family,
             "largest_other": sorted(other, reverse=True)[:5]}
+
+
+def profile_forward(torch, model, image, reps: int = 5) -> dict:
+    """Phase 4: where the eval forward's device time goes."""
+    def forward():
+        with torch.no_grad():
+            model(image)
+    return profile_run(torch, forward, reps, "profile")
+
+
+# ---- the train step: every kernel call, forward and backward
+
+
+def describe(rec: dict) -> dict:
+    """What distinguishes one recorded kernel call: kernel, role, input
+    shape, output channels and options."""
+    a, k = rec["args"], rec["kernel"]
+    if k == "softmax_vjp":
+        return {"kernel": k, "shape": list(a["y"].shape)}
+    if k == "dice_sums":
+        return {"kernel": k, "shape": list(a["pred"].shape),
+                "targets": len(a["targets"])}
+    d = {"kernel": k, "shape": list(a["x"].shape),
+         "pre": a.get("pre") is not None}
+    if k == "conv3_dk":
+        d["cout"] = a["gy"].shape[-1]
+        return d
+    d["cout"] = a["kweight"].shape[-1]
+    if k == "conv3":
+        d.update(role="fwd" if a["bias"] is not None else "dx",
+                 stats=bool(a["stats"]), softmax=bool(a["softmax"]),
+                 post=a["post"] is not None)
+    if k.endswith("_bwd"):
+        d.update(need_dx=bool(a["need_dx"]), need_dk=bool(a["need_dk"]))
+    return d
+
+
+def op_work(d: dict) -> tuple:
+    """(bytes, flops, peak flop/s) of one described call: every input read
+    once, every output written once; bf16 volumes and weights, f32 bias,
+    affines and sums. The convs count against the bf16 tensor-core peak,
+    the two elementwise kernels against the f32 peak."""
+    k, shape = d["kernel"], d["shape"]
+    b, c = shape[0], shape[-1]
+    n = 1
+    for e in shape[:-1]:
+        n *= e                      # voxels of the input, batch included
+    if k == "softmax_vjp":
+        return 3 * 2 * n * c, 4 * n * c, F32_FLOPS_PER_S
+    if k == "dice_sums":
+        t = d["targets"]
+        return (2 * n * c * (1 + t) + 4 * b * (1 + 2 * t) * c,
+                n * c * (1 + 3 * t), F32_FLOPS_PER_S)
+    cout, pre = d["cout"], d["pre"]
+    aff = 8 * b * c if pre else 0
+    if k in ("conv3", "down_k2s2", "up_k2s2"):
+        nbytes, flops = work_of(k, shape, c, cout, pre, d.get("stats", False))
+        if d.get("post"):           # reads the forward's x, s, t; writes dst
+            nbytes += 2 * n * cout + 16 * b * cout
+        return nbytes, flops, BF16_FLOPS_PER_S
+    if k == "conv3_dk":
+        return (2 * n * c + 2 * n * cout + 4 * 27 * c * cout + 4 * cout + aff,
+                2 * n * 27 * c * cout, BF16_FLOPS_PER_S)
+    dx, dk = d["need_dx"], d["need_dk"]
+    # x is the fine grid for down (n voxels, n / 8 of gy), the coarse grid
+    # for up (n voxels, 8 n of gy); 8 Cin Cout MACs per coarse voxel each
+    # for dx and for dk
+    coarse, n_gy = (n // 8, n // 8) if k == "down_k2s2_bwd" else (n, 8 * n)
+    reads_x = dk or pre
+    nbytes = (2 * n_gy * cout + 2 * 8 * c * cout + aff
+              + (2 * n * c if reads_x else 0)
+              + ((2 * n * c + (8 * b * c if pre else 0)) if dx else 0)
+              + ((4 * 8 * c * cout + 4 * cout) if dk else 0))
+    return nbytes, 2 * coarse * 8 * c * cout * (int(dx) + int(dk)), \
+        BF16_FLOPS_PER_S
+
+
+def _outputs(out) -> list:
+    """The tensors of a wrapper's result, in order (None kept)."""
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+def compare_call(torch, d: dict, got, want) -> dict:
+    """Errors of one kernel call against the recorded plain result: bf16
+    outputs within 1e-2 of the largest |want| (softmax probabilities 1e-2
+    abs), f32 sums within F32_TOL of their tensor's largest element; a
+    forward conv with stats keeps phase 2's rule. Outputs the kernel was
+    told to skip (None) are not compared."""
+    if d["kernel"] == "conv3" and d.get("stats"):
+        return _compare(torch, "conv3", False, got, want)
+    rec = {"max_abs_err": 0.0, "bf16_rel_err": 0.0, "f32_rel_err": 0.0,
+           "rel_err_by_output": [], "ok": True}
+    for g, w in zip(_outputs(got), _outputs(want)):
+        if g is None:
+            rec["rel_err_by_output"].append(None)
+            continue
+        err = (g.float() - w.float()).abs().max().item()
+        scale = max(w.float().abs().max().item(), 1e-30)
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["rel_err_by_output"].append(err / scale)
+        if g.dtype == torch.float32:
+            rec["f32_rel_err"] = max(rec["f32_rel_err"], err / scale)
+            ok = err <= F32_TOL * scale
+        else:
+            rec["bf16_rel_err"] = max(rec["bf16_rel_err"], err / scale)
+            ok = err <= (1e-2 if d.get("softmax") else 1e-2 * scale)
+        rec["ok"] = rec["ok"] and ok and bool(torch.isfinite(g).all())
+    return rec
+
+
+def _worst_rel(rec: dict) -> float:
+    """The largest relative error of a compared call."""
+    return max(rec.get("bf16_rel_err", 0.0), rec.get("f32_rel_err", 0.0),
+               rec.get("stats_sum_err", 0.0), rec.get("stats_sumsq_rel", 0.0),
+               rec["max_abs_err"] if "bf16_rel_err" not in rec else 0.0)
+
+
+def _library_fn(torch, d: dict, a: dict):
+    """One library call that computes what the described call computes
+    (bf16, channels_last_3d), or None: F.conv3d / conv_transpose3d for the
+    forwards, aten.convolution_backward with the matching output mask for
+    the backwards, aten._softmax_backward_data for softmax_vjp. No single
+    call computes the 1 + 2K fused sums of dice_sums."""
+    import torch.nn.functional as F
+
+    k = d["kernel"]
+    if k == "softmax_vjp":
+        return lambda: torch.ops.aten._softmax_backward_data(
+            a["g"], a["y"], -1, torch.bfloat16)
+    if k == "dice_sums":
+        return None
+
+    def cl(t):                      # NDHWC data seen as channels_last_3d
+        return t.permute(0, 4, 1, 2, 3)
+
+    def wl(w):
+        return w.detach().to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last_3d)
+
+    def bwd(gy, x, w, cout, stride, pad, transposed, mask):
+        return lambda: torch.ops.aten.convolution_backward(
+            cl(gy), cl(x), w, [cout], [stride] * 3, [pad] * 3, [1] * 3,
+            transposed, [0] * 3, 1, mask)
+
+    x = a["x"]
+    if k == "conv3" and d["role"] == "fwd":
+        w, bias = wl(a["weight"]), a["bias"].to(torch.bfloat16)
+        return lambda: F.conv3d(cl(x), w, bias, padding=1)
+    if k == "conv3":
+        # the dx conv: x is the cotangent gy, weight the flipped transpose
+        w = wl(a["weight"].flip(2, 3, 4).transpose(0, 1))
+        fwd_x = a["post"][0] if a["post"] is not None else \
+            torch.empty(*x.shape[:-1], d["cout"], dtype=x.dtype,
+                        device=x.device)
+        return bwd(x, fwd_x, w, x.shape[-1], 1, 1, False,
+                   [True, False, False])
+    if k == "conv3_dk":
+        w = wl(torch.empty(d["cout"], x.shape[-1], 3, 3, 3, device=x.device))
+        return bwd(a["gy"], x, w, d["cout"], 1, 1, False,
+                   [False, True, True])
+    w = wl(a["weight"])
+    if k == "down_k2s2":
+        bias = a["bias"].to(torch.bfloat16)
+        return lambda: F.conv3d(cl(x), w, bias, stride=2)
+    if k == "up_k2s2":
+        bias = a["bias"].to(torch.bfloat16)
+        return lambda: F.conv_transpose3d(cl(x), w, bias, stride=2)
+    mask = [d["need_dx"], d["need_dk"], d["need_dk"]]
+    return bwd(a["gy"], x, w, d["cout"], 2, 0, k == "up_k2s2_bwd", mask)
+
+
+def check_step_calls(torch, calls, log, failures) -> dict:
+    """Phase 5: every kernel call of the recorded train step, kernel on the
+    plain path's inputs against the plain path's outputs; each distinct
+    call also timed (kernel, plain, library) and bounded. Returns per-kernel
+    totals over the step."""
+    real = {name: (getattr(mod, attr), plain)
+            for name, mod, attr, plain in kernel_ops()}
+    keys = {}
+    with torch.no_grad():
+        for c in calls:
+            d = describe(c)
+            rec = compare_call(torch, d, real[d["kernel"]][0](**c["args"]),
+                               c["out"])
+            k = keys.setdefault(json.dumps(d, sort_keys=True),
+                                {"count": 0, "first": c, "desc": d,
+                                 "ok": True, "worst": rec})
+            k["count"] += 1
+            k["ok"] = k["ok"] and rec["ok"]
+            if _worst_rel(rec) >= _worst_rel(k["worst"]):
+                k["worst"] = rec
+    torch.cuda.synchronize()
+
+    totals = {}
+    for k in keys.values():
+        d, a = k["desc"], k["first"]["args"]
+        wrapper, plain = real[d["kernel"]]
+        pargs = _plain_args(plain, a)
+        library = _library_fn(torch, d, a)
+        rec = {"phase": "step_kernel", **d, "calls_per_step": k["count"],
+               **k["worst"], "ok": k["ok"]}
+        with torch.no_grad():
+            rec["kernel_ms"] = cuda_ms(torch, lambda: wrapper(**a))
+            rec["plain_ms"] = cuda_ms(torch, lambda: plain(**pargs),
+                                      budget_ms=20.0, max_reps=10)
+            rec["library_ms"] = None if library is None \
+                else cuda_ms(torch, library)
+        nbytes, flops, peak = op_work(d)
+        rec["bytes"], rec["flops"] = nbytes, flops
+        bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / peak
+        rec["bound_ms"] = max(bytes_ms, ops_ms)
+        rec["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        emit(rec, log)
+        if not rec["ok"]:
+            failures.append(f"train step: {d} disagrees with its plain "
+                            "version")
+        name = d["kernel"] + ("" if d.get("role", "fwd") == "fwd" else "/dx")
+        t = totals.setdefault(name, dict(
+            err=0.0, bf16_rel_err=0.0, f32_rel_err=0.0, kernel_ms=0.0,
+            plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
+            ops_ms=0.0, calls=0))
+        n = k["count"]
+        t["err"] = max(t["err"], rec["max_abs_err"])
+        for f in ("bf16_rel_err", "f32_rel_err"):
+            t[f] = max(t[f], rec.get(f, 0.0))
+        t["calls"] += n
+        for f in ("kernel_ms", "plain_ms", "bound_ms"):
+            t[f] += n * rec[f]
+        t["library_ms"] = None if library is None \
+            else t["library_ms"] + n * rec["library_ms"]
+        t["bytes_ms"] += n * bytes_ms
+        t["ops_ms"] += n * ops_ms
+    return totals
+
+
+# ---- the train path
+
+
+def expected_step_launches(joint) -> dict:
+    """Kernel launches of one adaptation step (no KL term, one MC pass),
+    derived from the model: the teacher's Seg forward, the student's Joint
+    forward, a dx conv for every conv but the Seg's entry conv (the image
+    needs no gradient), a weight gradient for the Seg's convs only (the VAE
+    is frozen; its bridges' backwards skip dk and db), the softmax VJP of
+    both heads and one fused Dice-sums pass."""
+    from vae_segmentation_tpu_torch.models.blocks import (
+        Conv3, DownConv, TConv2)
+
+    def count(net, cls):
+        return sum(isinstance(m, cls) for m in net.modules())
+
+    conv = [count(net, Conv3) for net in (joint.Seg, joint.Vae)]
+    down = [count(net, DownConv) for net in (joint.Seg, joint.Vae)]
+    up = [count(net, TConv2) for net in (joint.Seg, joint.Vae)]
+    return {"conv3": conv[0] + sum(conv) + sum(conv) - 1,
+            "down_k2s2": down[0] + sum(down), "up_k2s2": up[0] + sum(up),
+            "conv3_dk": conv[0], "down_k2s2_bwd": sum(down),
+            "up_k2s2_bwd": sum(up), "softmax_vjp": 2, "dice_sums": 1}
+
+
+def expected_backward_launches(joint) -> dict:
+    """Kernel launches of the backward alone of one student forward: what
+    ``expected_step_launches`` counts less the forwards and the Dice sums."""
+    step, fwd = expected_step_launches(joint), PER_FORWARD
+    seg_conv = step["conv3_dk"]
+    return {**{k: 0 for k in KERNEL_NAMES},
+            "conv3": step["conv3"] - seg_conv - fwd["conv3"],
+            "conv3_dk": seg_conv, "down_k2s2_bwd": step["down_k2s2_bwd"],
+            "up_k2s2_bwd": step["up_k2s2_bwd"], "softmax_vjp": 2}
+
+
+def stale_kernel_weights(torch, *models) -> list:
+    """Names of the kernel-backed modules whose next launch would read
+    other values than ``weight`` holds: each module has launched before,
+    then its weight is negated through ``weight.data``, a write that no
+    version counter sees, and the layout it hands its kernel must be
+    ``kernel_layout`` of the new weight. The weight is negated back."""
+    stale = []
+    for i, model in enumerate(models):
+        for name, m in model.named_modules():
+            if not hasattr(m, "kernel_weight"):
+                continue
+            old = m.kernel_weight().clone()
+            m.weight.data.neg_()
+            new = m.kernel_weight()
+            if not torch.equal(new, m.kernel_layout(m.weight)) \
+                    or torch.equal(new, old):
+                stale.append(f"{i}:{name}")
+            m.weight.data.neg_()
+    return stale
+
+
+def _rel_l2(a, b) -> float:
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def grad_drift(got: dict, want: dict) -> dict:
+    """Relative L2 error per Seg gradient tensor. The biases under an
+    InstanceNorm are left out: their gradient is zero in exact arithmetic,
+    so what any path computes there is round-off."""
+    return {k: _rel_l2(got[k].float(), w.float()) for k, w in want.items()
+            if not (k.endswith(".bias") and "out_block" not in k)}
 
 
 def _mean_abs(a, b) -> float:
@@ -397,6 +800,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     from vae_segmentation_tpu_torch import ops
+    from vae_segmentation_tpu_torch import train as T
     from vae_segmentation_tpu_torch.cli import target_main
     from vae_segmentation_tpu_torch.core.checkpoint import save_checkpoint
     from vae_segmentation_tpu_torch.data.pipeline import (
@@ -440,6 +844,9 @@ def main() -> int:
         save_checkpoint(os.path.join(work, "3dmodel", "smoke",
                                      "best_model.ckpt"),
                         epoch=0, model=model)
+        save_checkpoint(os.path.join(work, "3dmodel", "smoke_seg",
+                                     "best_model.ckpt"),
+                        epoch=0, model=model.Seg)
         model = model.to("cuda").eval()
         with open(manifest) as f:
             entries = json.load(f)["NIH_val"]
@@ -474,7 +881,7 @@ def main() -> int:
         finally:
             os.chdir(cwd)
         launches = ops.launch_counts()
-        want = {k: v * args.cases for k, v in PER_FORWARD.items()}
+        want = {k: PER_FORWARD.get(k, 0) * args.cases for k in KERNEL_NAMES}
         score_path = os.path.join(work, "tensorboard", "smoke",
                                   "score_0.json")
         scores = {}
@@ -545,22 +952,322 @@ def main() -> int:
               "finite": finite, "shapes_ok": shapes_ok, "ok": main_ok}, log)
         # ---- 4. where the forward's device time goes
         emit(profile_forward(torch, model, image), log)
+        eval_launches = launches
+
+        # ---- 5. every kernel call of one adaptation train step
+        train_data = os.path.join(work, "data_train")
+        with open(write_synthetic_dataset(
+                train_data, n_train=2 * TRAIN_BATCH, n_val=0, size=128,
+                seed=args.seed + 1)) as f:
+            train_entries = json.load(f)["NIH_train"]
+        lists = os.path.join(work, "lists.json")
+        with open(lists, "w") as f:
+            json.dump({"NIH_train": train_entries, "NIH_val": entries}, f)
+        train_ds = CaseDataset(train_entries, train_data,
+                               parse_pan_index("1"))
+        train_cases = [train_ds[i] for i in range(2 * TRAIN_BATCH)]
+        batches = []
+        for i in range(0, len(train_cases), TRAIN_BATCH):
+            part = train_cases[i:i + TRAIN_BATCH]
+            batches.append((
+                intensity_normalize(torch.stack(
+                    [torch.from_numpy(c["image"]) for c in part]).cuda()),
+                torch.stack([torch.from_numpy(c["label"])
+                             for c in part]).cuda()))
+        state0 = {k: v.detach().clone()
+                  for k, v in model.state_dict().items()}
+        step = T.make_adapt_step(T.AdaptConfig(
+            n_class=2, domain_loss_type=8, vae_mont_number=1))
+        # the pseudo-label loss alone: its gradient stays inside the Seg
+        seg_step = T.make_adapt_step(T.AdaptConfig(n_class=2,
+                                                   only_pseudo=True))
+        sched = T.default_sched(TRAIN_LAMBDA)
+
+        def fresh(lr=TRAIN_LR):
+            """(student, teacher, optimizer, dropout generator) at the seed
+            weights: SGD momentum 0.9 on the Seg, the VAE frozen."""
+            kw = dict(n_class=2, dim=128, bottleneck=16384)
+            student = Joint(vae_decoder_dropout=0.5, **kw).to("cuda")
+            teacher = Joint(**kw).to("cuda")
+            for net in (student, teacher):
+                net.load_state_dict(state0)
+            for p_ in teacher.parameters():
+                p_.requires_grad_(False)
+            opt = T.optim.sgd(T.optim.freeze_vae(student), lr)
+            gen = torch.Generator(device="cuda").manual_seed(args.seed)
+            return student, teacher, opt, gen
+
+        def step1(step_fn=step):
+            """Loss terms and gradients of step 1 from the seed weights,
+            with the same batch and dropout masks on every path. The
+            learning rate is 0, so that the weights a recorded call holds
+            stay the ones it ran with."""
+            student, teacher, opt, gen = fresh(lr=0.0)
+            aux = step_fn(student, teacher, opt, *batches[0], gen, sched)
+            grads = {k: p_.grad.detach().clone()
+                     for k, p_ in student.named_parameters()
+                     if p_.grad is not None}
+            torch.cuda.synchronize()
+            return {k: v.item() for k, v in aux.items()}, grads
+
+        calls = []
+        with plain_ops(record=calls):
+            aux_p, grads_p = step1()
+        per_step = {k: 0 for k in KERNEL_NAMES}
+        for c in calls:
+            per_step[c["kernel"]] += 1
+        expected_step = expected_step_launches(model)
+        if per_step != expected_step:
+            failures.append(f"kernel calls per train step {per_step} != "
+                            f"{expected_step}")
+        step_totals = check_step_calls(torch, calls, log, failures)
+        del calls
+        torch.cuda.empty_cache()
+
+        # ---- 6. the train path
+        with plain_ops(reordered=True):
+            aux_r, grads_r = step1()
+            seg_r = step1(seg_step)[1]
+        with plain_ops():
+            seg_p = step1(seg_step)[1]
+        seg_k = step1(seg_step)[1]
+        ops.reset_launch_counts()
+        aux_k, grads_k = step1()
+        step1_launches = ops.launch_counts()
+        loss_keys = ("recon_loss", "dice_loss_fake", "dice_loss",
+                     "final_loss")
+        loss_err = {k: abs(aux_k[k] - aux_p[k]) for k in loss_keys}
+        loss_drift = {k: abs(aux_r[k] - aux_p[k]) for k in loss_keys}
+        # a scalar's drift can be small by chance: hold each term to the
+        # largest drift among the terms, and to 1e-3 at least
+        loss_gate = max(DRIFT_MULTIPLE * max(loss_drift.values()), 1e-3)
+        err, drift = grad_drift(grads_k, grads_p), grad_drift(grads_r, grads_p)
+        median = sorted(drift.values())[len(drift) // 2]
+        # likewise a tensor is held to its own drift or the median tensor's
+        worst = {k: err[k] / max(drift[k], median) for k in err}
+        # with random weights the full loss's gradient, which crosses the
+        # VAE, is decorrelated by any f32 reordering (relative L2 error
+        # near sqrt 2 on every path), so that gate alone says little; the
+        # pseudo-label loss's gradient is better conditioned
+        seg_err, seg_drift = grad_drift(seg_k, seg_p), grad_drift(seg_r, seg_p)
+        seg_median = sorted(seg_drift.values())[len(seg_drift) // 2]
+        seg_worst = {k: seg_err[k] / max(seg_drift[k], seg_median)
+                     for k in seg_err}
+        # the backward alone, across the frozen VAE: one student forward on
+        # the kernel path, then the reconstruction Dice's backward (pred
+        # detached on its own side, so the gradient reaches the Seg only
+        # through the VAE) three times on that one graph. With the saved
+        # activations and masks fixed the backward is one linear map, so
+        # this gate is well conditioned where the whole step's is not.
+        student, _, _, gen = fresh(lr=0.0)
+        pred, recon = student(batches[0][0][..., None], dropout=True,
+                              generator=gen)[:2]
+        recon_loss = 1.0 - L.multi_soft_dice(
+            pred.detach(), (recon,), eps=L.EVAL_EPS)[0][:, 1:2].mean()
+        names, params = zip(*[(k, p_) for k, p_ in student.named_parameters()
+                              if p_.requires_grad])
+
+        def backward():
+            grads = torch.autograd.grad(recon_loss, params, retain_graph=True)
+            torch.cuda.synchronize()
+            return dict(zip(names, grads))
+
+        ops.reset_launch_counts()
+        bwd_k = backward()
+        bwd_launches = ops.launch_counts()
+        bwd_expected = expected_backward_launches(model)
+        with plain_ops():
+            bwd_p = backward()
+        with plain_ops(reordered=True):
+            bwd_r = backward()
+        bwd_err, bwd_drift = grad_drift(bwd_k, bwd_p), grad_drift(bwd_r, bwd_p)
+        bwd_median = sorted(bwd_drift.values())[len(bwd_drift) // 2]
+        bwd_worst = {k: bwd_err[k] / max(bwd_drift[k], bwd_median)
+                     for k in bwd_err}
+        bwd_ok = (bwd_launches == bwd_expected
+                  and all(k.startswith("Seg.") for k in names)
+                  and all(bool(torch.isfinite(g).all())
+                          and (bool(g.any()) or not k.endswith(".weight"))
+                          for k, g in bwd_k.items())
+                  and all(v <= DRIFT_MULTIPLE for v in bwd_worst.values()))
+        del student, pred, recon, recon_loss, params, bwd_k, bwd_p, bwd_r
+        step1_ok = (
+            step1_launches == expected_step and bwd_ok
+            and sorted(grads_k) == sorted(grads_p)
+            and all(k.startswith("Seg.") for k in grads_k)
+            and all(bool(torch.isfinite(g).all()) for g in grads_k.values())
+            and all(v <= loss_gate for v in loss_err.values())
+            and all(v <= DRIFT_MULTIPLE for v in worst.values())
+            and all(v <= DRIFT_MULTIPLE for v in seg_worst.values()))
+        if not step1_ok:
+            failures.append("train step 1 with kernels disagrees with the "
+                            "plain path")
+        emit({"phase": "train_step1", "launches": step1_launches,
+              "launches_expected": expected_step, "losses_kernels": aux_k,
+              "losses_plain": aux_p, "losses_reordered": aux_r,
+              "loss_err": loss_err, "loss_drift": loss_drift,
+              "loss_gate": loss_gate, "grad_tensors": len(err),
+              "grad_rel_l2_kernel_vs_plain": err,
+              "grad_rel_l2_plain_vs_reordered": drift,
+              "worst_ratio": max(worst.values()),
+              "median_ratio": sorted(worst.values())[len(worst) // 2],
+              "pseudo_only_grad_rel_l2_kernel_vs_plain": seg_err,
+              "pseudo_only_grad_rel_l2_plain_vs_reordered": seg_drift,
+              "pseudo_only_worst_ratio": max(seg_worst.values()),
+              "vae_backward_launches": bwd_launches,
+              "vae_backward_launches_expected": bwd_expected,
+              "vae_backward_grad_rel_l2_kernel_vs_plain": bwd_err,
+              "vae_backward_grad_rel_l2_plain_vs_reordered": bwd_drift,
+              "vae_backward_worst_ratio": max(bwd_worst.values()),
+              "vae_backward_ok": bwd_ok,
+              "drift_multiple": DRIFT_MULTIPLE, "ok": step1_ok}, log)
+        del grads_p, grads_r, grads_k, seg_p, seg_r, seg_k
+
+        student, teacher, opt, gen = fresh()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, enqueue_ms, step_losses, step_launches, stale = \
+            [], [], [], [], []
+        for i in range(3):
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            aux = step(student, teacher, opt, *batches[i % 2], gen, sched)
+            # the step returns without waiting for the card: the host's
+            # share of a step is the time to enqueue it
+            enqueue_ms.append(1e3 * (time.perf_counter() - t0))
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            step_launches.append(ops.launch_counts())
+            step_losses.append({k: v.item() for k, v in aux.items()})
+            if i == 0:
+                stale += stale_kernel_weights(torch, student, teacher)
+        peak_bytes = torch.cuda.max_memory_allocated()
+        now = student.state_dict()
+        seg_moved = all(not torch.equal(v, state0[k]) for k, v in now.items()
+                        if k.startswith("Seg.") and k.endswith(".weight"))
+        vae_still = all(torch.equal(v, state0[k]) for k, v in now.items()
+                        if k.startswith("Vae."))
+        teacher_still = all(torch.equal(v, state0[k])
+                            for k, v in teacher.state_dict().items())
+        alpha = 0.995
+        T.ema_update_seg(teacher, student, alpha)
+        ema_ok = all(
+            torch.allclose(v, alpha * state0[k] + (1 - alpha) * now[k],
+                           rtol=1e-6, atol=1e-8)
+            and not torch.equal(v, state0[k]) if k.endswith(".weight")
+            and k.startswith("Seg.") else
+            (k.startswith("Seg.") or torch.equal(v, state0[k]))
+            for k, v in teacher.state_dict().items())
+        stale += stale_kernel_weights(torch, student, teacher)
+        finite = all(v == v and abs(v) != float("inf")
+                     for rec in step_losses for v in rec.values())
+        steps_ok = (all(c == expected_step for c in step_launches)
+                    and finite and seg_moved and vae_still and teacher_still
+                    and ema_ok and not stale)
+        if not steps_ok:
+            failures.append("the 3 adaptation steps failed a check")
+        emit({"phase": "train_steps", "batch": TRAIN_BATCH, "lr": TRAIN_LR,
+              "step_ms": sorted(step_ms)[1], "step_ms_all": step_ms,
+              "enqueue_ms": sorted(enqueue_ms)[1],
+              "losses": step_losses, "launches_per_step": step_launches,
+              "launches_expected": expected_step,
+              "peak_memory_bytes": peak_bytes, "finite": finite,
+              "seg_moved": seg_moved, "vae_unchanged": vae_still,
+              "teacher_unchanged_before_ema": teacher_still,
+              "ema_moved_teacher_seg_only": ema_ok,
+              "stale_kernel_weights": stale, "ok": steps_ok}, log)
+        prof = profile_run(
+            torch, lambda: step(student, teacher, opt, *batches[0], gen,
+                                sched), 2, "profile_step")
+        # the profiler slows the host: also the device time over the
+        # unprofiled step time
+        prof["busy_share_of_step_ms"] = prof["device_ms"] / sorted(step_ms)[1]
+        emit(prof, log)
+        del student, teacher, opt
+        torch.cuda.empty_cache()
+
+        # two outer epochs of the CLI's training loop: the first takes no
+        # step, the second one step per batch after one EMA update
+        ops.reset_launch_counts()
+        os.chdir(work)
+        try:
+            t0 = time.time()
+            best = target_main.main([
+                "smoke_train", "--method", "domain_adaptation", "--no_aug",
+                "--load_prefix", "smoke_seg", "--load_prefix_vae", "smoke",
+                "--save_root", os.path.join(work, "3dmodel"),
+                "--train_list", "NIH_train",
+                "--val_list", "NIH_val", "--data_root", train_data,
+                "--val_data_root", data, "--data_path", lists,
+                "-b", str(TRAIN_BATCH), "--val_batch", "1",
+                "--eval_epoch", "1", "--save_epoch", "1", "--max_epoch", "2",
+                "--num_workers", "2", "--domain_loss_type", "8",
+                "--lambda_vae", str(TRAIN_LAMBDA), "--lr_seg", str(TRAIN_LR),
+                "--vae_decoder_dropout", "0.5", "--pseudo_save_epoch", "1",
+                "--device", "cuda"])
+            torch.cuda.synchronize()
+            train_cli_s = time.time() - t0
+        finally:
+            os.chdir(cwd)
+        cli_launches = ops.launch_counts()
+        cli_steps = len(train_cases) // TRAIN_BATCH
+        cli_expected = {
+            k: cli_steps * expected_step[k]
+            + 2 * args.cases * PER_FORWARD.get(k, 0) for k in KERNEL_NAMES}
+        epoch_scores = []
+        for epoch in (0, 1):
+            path = os.path.join(work, "tensorboard", "smoke_train",
+                                f"score_{epoch}.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    epoch_scores.append(json.load(f))
+        saved = [n for n in ("best_model.ckpt", "model_epoch1.ckpt",
+                             "model_epoch2.ckpt")
+                 if os.path.exists(os.path.join(work, "3dmodel",
+                                                "smoke_train", n))]
+        cli_ok = (cli_launches == cli_expected and len(epoch_scores) == 2
+                  and all(len(sc) == args.cases
+                          and all(0.0 <= v <= 1.0 for v in sc.values())
+                          for sc in epoch_scores)
+                  and len(saved) == 3 and 0.0 <= best <= 1.0)
+        if not cli_ok:
+            failures.append("the CLI's training loop failed a check")
+        emit({"phase": "train_cli", "seconds": train_cli_s, "steps": cli_steps,
+              "best_dice": best, "scores": epoch_scores, "saved": saved,
+              "launches": cli_launches, "launches_expected": cli_expected,
+              "ok": cli_ok}, log)
+        train_launches = {
+            k: cli_launches[k] + sum(c[k] for c in step_launches)
+            for k in KERNEL_NAMES}
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 5. summary lines
+    # ---- 7. summary lines: K1-K3 per eval forward (phase 2), the backward
+    # and loss kernels per train step (phase 5)
     kernels = []
-    for name in ("conv3", "down_k2s2", "up_k2s2"):
-        t = totals.get(name, {})
+    for name in KERNEL_NAMES:
+        t = totals.get(name) or step_totals.get(name, {})
         source, replaces = SOURCES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches.get(name, 0),
-            "max_abs_err": t.get("err"), "ms": t.get("kernel_ms"),
+            "replaces": replaces,
+            "launches": eval_launches[name] + train_launches[name],
+            "launches_eval_path": eval_launches[name],
+            "launches_train_path": train_launches[name],
+            "max_abs_err": t.get("err"),
+            "max_rel_err_bf16": t.get("bf16_rel_err"),
+            "max_rel_err_f32": t.get("f32_rel_err"),
+            "ms": t.get("kernel_ms"),
             "plain_ms": t.get("plain_ms"), "bound_ms": t.get("bound_ms"),
             "bound_by": "bytes" if t.get("bytes_ms", 0) >= t.get("ops_ms", 0)
             else "operations",
-            "library_ms": t.get("library_ms")})
+            "library_ms": t.get("library_ms"),
+            "per": "eval forward, batch 1" if name in totals
+            else f"train step, batch {TRAIN_BATCH}"})
+        if train_launches[name] == 0 or \
+                (name in PER_FORWARD and eval_launches[name] == 0):
+            failures.append(f"{name} was never launched on its main path")
+    emit({"phase": "step_totals", "per_kernel": step_totals}, log)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump({"records": log, "kernels": kernels, "failures": failures,

@@ -1,7 +1,9 @@
 """Card-only tests of the port's CUDA kernels (marker ``cuda``): each kernel
 against its plain PyTorch version at ragged shapes the main path does not
 reach (tiles cut by the volume edge, odd channel counts, 3 classes), the
-launch counters, and the wrappers' input checks. They skip without a GPU.
+launch counters, the wrappers' input checks, and the gradients of each
+``torch.autograd.Function`` (backward kernels) against autograd through the
+plain forward. They skip without a GPU.
 This file imports torch only, so it also runs on a machine without JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -10,7 +12,7 @@ This file imports torch only, so it also runs on a machine without JAX:
 import pytest
 import torch
 
-from vae_segmentation_tpu_torch.ops import bridges, conv3
+from vae_segmentation_tpu_torch.ops import bridges, conv3, losses
 
 pytestmark = pytest.mark.cuda
 
@@ -92,3 +94,232 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
         conv3.conv3(x.bfloat16(), w, bias)
     with pytest.raises(ValueError):  # weight layout of another kernel
         bridges.down_k2s2(x.bfloat16(), w, bias, conv3.kernel_weight(w))
+
+
+@pytest.mark.parametrize("write", ["data", "no_grad", "load"])
+def test_modules_hand_their_kernels_the_weight_as_it_is_now(gen, write):
+    """A leaf module's kernel reads the weight's current values after any
+    kind of write, also one through ``.data`` that no version counter sees:
+    the kernel's output follows the plain version's, which reads ``weight``
+    itself."""
+    from vae_segmentation_tpu_torch.models.blocks import Conv3
+
+    m = Conv3(8, 8, torch.Generator().manual_seed(0)).cuda()
+    x = _rnd(gen, 1, 6, 6, 6, 8).bfloat16()
+    with torch.no_grad():
+        first = m(x)
+        if write == "data":
+            m.weight.data.neg_()
+        elif write == "no_grad":
+            m.weight.neg_()
+        else:
+            m.load_state_dict({"weight": -m.weight.detach().clone(),
+                               "bias": m.bias.detach().clone()})
+        got = m(x)
+    want = conv3.conv3_plain(x, m.weight, m.bias)
+    _close(got, want, 1e-2)
+    assert (got.float() - first.float()).abs().max().item() > 0.1
+
+
+# ---- backward kernels
+
+
+def _rel(got, want):
+    """max abs error over the largest |want|."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("shape,cout,pre", [
+    ((2, 5, 9, 19, 3), 5, True),      # ragged tiles, odd channels
+    ((1, 3, 17, 7, 1), 8, False),     # the 1-channel entry conv
+    ((1, 8, 8, 16, 16), 2, True),     # a head: Cout 2
+    ((2, 4, 4, 4, 24), 48, False),    # a deep stage
+])
+def test_conv3_backward_kernels_match_plain(gen, shape, cout, pre):
+    """conv3_dk (dk, db) and K1's post epilogue (dx, ds, dt) against their
+    plain versions: dx bf16 within 1e-2 of max|dx|, f32 sums within 1e-3
+    of their largest element (atomics reorder them)."""
+    b, cin = shape[0], shape[-1]
+    x = _rnd(gen, *shape).bfloat16()
+    gy = _rnd(gen, *shape[:-1], cout).bfloat16()
+    w = _rnd(gen, cout, cin, 3, 3, 3, scale=(27 * cin) ** -0.5)
+    aff = (_rnd(gen, b, cin).abs() + 0.5, _rnd(gen, b, cin, scale=0.3)) \
+        if pre else None
+    before = conv3.conv3_dk.launches
+    dk, db = conv3.conv3_dk(x, gy, aff)
+    torch.cuda.synchronize()
+    assert conv3.conv3_dk.launches == before + 1
+    dk_p, db_p = conv3.conv3_dk_plain(x, gy, aff)
+    assert _rel(dk, dk_p) <= 1e-3 and _rel(db, db_p) <= 1e-3
+    w_t = w.flip(2, 3, 4).transpose(0, 1)
+    kw_t = conv3.kernel_weight(w).flip(0).transpose(1, 2).contiguous()
+    assert torch.equal(kw_t, conv3.kernel_weight(w_t))
+    post = None if aff is None else (x, *aff)
+    got = conv3.conv3_op(gy, w_t, None, kw_t, post=post)
+    want = conv3.conv3_plain(gy, w_t, None, post=post)
+    if pre:
+        assert _rel(got[0], want[0]) <= 1e-2 and _rel(got[1], want[1]) <= 1e-3
+    else:
+        assert _rel(got, want) <= 1e-2
+
+
+@pytest.mark.parametrize("up,shape,cout,pre", [
+    (False, (2, 6, 10, 4, 3), 5, True), (False, (1, 8, 8, 8, 16), 16, False),
+    (False, (1, 16, 16, 16, 8), 8, True), (True, (2, 3, 5, 2, 3), 5, False),
+    (True, (1, 4, 4, 4, 32), 32, False)])
+def test_bridge_backward_kernels_match_plain(gen, up, shape, cout, pre):
+    b, d, h, w_, cin = shape
+    x = _rnd(gen, *shape).bfloat16()
+    aff = (_rnd(gen, b, cin).abs() + 0.5, _rnd(gen, b, cin, scale=0.3)) \
+        if pre else None
+    if up:
+        gy = _rnd(gen, b, 2 * d, 2 * h, 2 * w_, cout).bfloat16()
+        w = _rnd(gen, cin, cout, 2, 2, 2, scale=(8 * cout) ** -0.5)
+        got = bridges.up_k2s2_bwd(x, gy, w, bridges.up_kernel_weight(w))
+        want = bridges.up_k2s2_bwd_plain(x, gy, w)
+    else:
+        gy = _rnd(gen, b, d // 2, h // 2, w_ // 2, cout).bfloat16()
+        w = _rnd(gen, cout, cin, 2, 2, 2, scale=(8 * cin) ** -0.5)
+        got = bridges.down_k2s2_bwd(x, gy, w, bridges.down_kernel_weight(w),
+                                    aff)
+        want = bridges.down_k2s2_bwd_plain(x, gy, w, aff)
+    assert _rel(got[0], want[0]) <= 1e-2
+    assert _rel(got[1], want[1]) <= 1e-3 and _rel(got[2], want[2]) <= 1e-3
+    if pre:
+        assert _rel(got[3], want[3]) <= 1e-3
+    # a frozen weight: only dx is computed; an input without gradient
+    # (the first trainable layer under --fix_layer): only dk and db
+    kw = (bridges.up_kernel_weight if up else bridges.down_kernel_weight)(w)
+    only_dx = bridges._launch_bwd("bridge", up, x, gy, kw, aff, True, False)
+    assert only_dx[1] is None and torch.equal(only_dx[0], got[0])
+    only_dk = bridges._launch_bwd("bridge", up, x, gy, kw, aff, False, True)
+    assert only_dk[0] is None and only_dk[3] is None
+    assert _rel(only_dk[1], want[1]) <= 1e-3
+    assert _rel(only_dk[2], want[2]) <= 1e-3
+
+
+@pytest.mark.parametrize("shape", [(2, 7, 9, 11, 2), (1, 5, 6, 7, 3),
+                                   (2, 4, 4, 4, 8)])
+def test_loss_kernels_match_plain(gen, shape):
+    y = torch.softmax(_rnd(gen, *shape), dim=-1).bfloat16()
+    g = _rnd(gen, *shape).bfloat16()
+    got = losses.softmax_vjp(g, y)
+    want = losses.softmax_vjp_plain(g, y)
+    assert _rel(got, want) <= 1e-2
+    targets = [torch.softmax(_rnd(gen, *shape), dim=-1).bfloat16()
+               for _ in range(3)]
+    for k in (1, 2, 3):
+        before = losses.dice_sums.launches
+        sums = losses.dice_sums(y, targets[:k])
+        assert losses.dice_sums.launches == before + 1
+        assert sums.shape == (shape[0], 1 + 2 * k, shape[-1])
+        assert _rel(sums, losses.dice_sums_plain(y, targets[:k])) <= 1e-4
+
+
+def _grads(fn, inputs):
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    outs = out if isinstance(out, tuple) else (out,)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    loss = sum((o.float() * torch.randn(o.shape, device="cuda",
+                                        generator=gen)).sum() for o in outs)
+    loss.backward()
+    return [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("stats,softmax", [(True, False), (False, True)])
+def test_conv3_function_gradients(gen, stats, softmax):
+    """The whole backward of the K1 Function on the card (stats cotangent
+    fold, softmax VJP, dx with post, dk) against autograd through the
+    plain forward, in bf16 at 5e-2 of each gradient's largest element."""
+    b, cin, cout = 2, 8, 2 if softmax else 16
+    x = _rnd(gen, b, 6, 10, 20, cin).bfloat16()
+    w = _rnd(gen, cout, cin, 3, 3, 3, scale=(27 * cin) ** -0.5)
+    bias = _rnd(gen, cout)
+    s, t = _rnd(gen, b, cin).abs() + 0.5, _rnd(gen, b, cin, scale=0.3)
+
+    def kernel(x, w, bias, s, t):
+        return conv3.conv3(x, w, bias, conv3.kernel_weight(w), (s, t), stats,
+                           softmax)
+
+    def plain(x, w, bias, s, t):
+        return conv3.conv3_plain(x, w, bias, (s, t), stats, softmax)
+
+    before = (conv3.conv3.launches, conv3.conv3_dk.launches)
+    got = _grads(kernel, (x, w, bias, s, t))
+    assert (conv3.conv3.launches, conv3.conv3_dk.launches) == \
+        (before[0] + 2, before[1] + 1)
+    want = _grads(plain, (x, w, bias, s, t))
+    for name, g_, w_ in zip(("dx", "dw", "db", "ds", "dt"), got, want):
+        assert _rel(g_, w_) <= 5e-2, name
+
+
+def test_bridge_function_gradients(gen):
+    b, c = 2, 8
+    x = _rnd(gen, b, 8, 8, 12, c).bfloat16()
+    wd = _rnd(gen, c, c, 2, 2, 2, scale=(8 * c) ** -0.5)
+    bias = _rnd(gen, c)
+    s, t = _rnd(gen, b, c).abs() + 0.5, _rnd(gen, b, c, scale=0.3)
+    got = _grads(lambda x, w, bias, s, t: bridges.down_k2s2(
+        x, w, bias, bridges.down_kernel_weight(w), (s, t)),
+        (x, wd, bias, s, t))
+    want = _grads(lambda x, w, bias, s, t: bridges.down_k2s2_plain(
+        x, w, bias, (s, t)), (x, wd, bias, s, t))
+    for g_, w_ in zip(got, want):
+        assert _rel(g_, w_) <= 5e-2
+    got = _grads(lambda x, w, bias: bridges.up_k2s2(
+        x, w, bias, bridges.up_kernel_weight(w)), (x, wd, bias))
+    want = _grads(lambda x, w, bias: bridges.up_k2s2_plain(x, w, bias),
+                  (x, wd, bias))
+    for g_, w_ in zip(got, want):
+        assert _rel(g_, w_) <= 5e-2
+
+
+def test_multi_soft_dice_gradients(gen):
+    shape = (2, 6, 7, 8, 2)
+    pred, recon, pseudo = (torch.softmax(_rnd(gen, *shape), dim=-1).bfloat16()
+                           for _ in range(3))
+
+    def kernel(p, r):
+        return tuple(losses.multi_soft_dice(p, (r, pseudo)))
+
+    def plain(p, r):
+        return (losses.soft_dice_per_class(p, r),
+                losses.soft_dice_per_class(p, pseudo))
+
+    for g_, w_ in zip(_grads(kernel, (pred, recon)),
+                      _grads(plain, (pred, recon))):
+        assert _rel(g_, w_) <= 2e-2
+
+
+def test_fix_layer_kl_step_on_the_card(gen):
+    """One adaptation step with --kl, --fix_layer and Adam at a small size:
+    only Seg.up5 and Seg.out_block move; the backward launches a weight
+    gradient for their four convs only and stops at Seg.up5's bridge (the
+    VAE's five Down and five Up bridges and that one)."""
+    from vae_segmentation_tpu_torch import ops, train as T
+    from vae_segmentation_tpu_torch.models import Joint
+
+    kw = dict(n_class=2, dim=16, fmaps=(4, 8, 8, 16, 16, 32), bottleneck=32)
+    student = Joint(vae_decoder_dropout=0.5,
+                    generator=torch.Generator().manual_seed(0), **kw).cuda()
+    teacher = Joint(**kw).cuda()
+    T.copy_params(teacher, student)
+    before = {k: v.clone() for k, v in student.state_dict().items()}
+    opt = T.optim.build(T.optim.freeze_all_but_seg_head(student), True, 1e-3)
+    step = T.make_adapt_step(T.AdaptConfig(n_class=2, domain_loss_type=8,
+                                           kl=True))
+    image = _rnd(gen, 2, 32, 32, 32, scale=0.5)
+    label = (torch.rand(2, 32, 32, 32, device="cuda", generator=gen)
+             > 0.7).float()
+    ops.reset_launch_counts()
+    aux = step(student, teacher, opt, image, label, gen, T.default_sched(1.0))
+    counts = ops.launch_counts()
+    assert all(torch.isfinite(v) for v in aux.values()) and aux["kl_loss"] > 0
+    assert counts["conv3_dk"] == 4
+    assert (counts["up_k2s2_bwd"], counts["down_k2s2_bwd"]) == (6, 5)
+    for k, v in student.state_dict().items():
+        head = k.startswith(("Seg.up5.", "Seg.out_block."))
+        assert torch.equal(v, before[k]) != head or \
+            (head and k.endswith(".bias")), k

@@ -180,8 +180,11 @@ def test_cpu_tensors_use_plain_versions_and_build_nothing(rng):
     assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
     bridges.down_k2s2(x, _t(rng.normal(size=(2, 2, 2, 2, 2))), torch.zeros(2))
     bridges.up_k2s2(x, _t(rng.normal(size=(2, 2, 2, 2, 2))), torch.zeros(2))
-    assert port_ops.launch_counts() == {"conv3": 0, "down_k2s2": 0,
-                                        "up_k2s2": 0}
+    counts = port_ops.launch_counts()
+    assert sorted(counts) == sorted([
+        "conv3", "down_k2s2", "up_k2s2", "conv3_dk", "down_k2s2_bwd",
+        "up_k2s2_bwd", "softmax_vjp", "dice_sums"])
+    assert set(counts.values()) == {0}
     assert build.loaded() == []
     with pytest.raises(ValueError):
         conv3.conv3(x, w, torch.zeros(2), stats=True, softmax=True)

@@ -1,16 +1,25 @@
 """Target-domain CLI of the port (counterpart of vae_segmentation_tpu/cli/
-target_main.py). Ported so far: the evaluation of a trained Joint model,
+target_main.py), ``--method domain_adaptation``:
 
     python -m vae_segmentation_tpu_torch.cli.target_main <prefix> \\
-        --method domain_adaptation --test_only --load_prefix_joint <p> \\
-        [--val_batch N] [--device cuda|cpu] ...
+        --method domain_adaptation --no_aug \\
+        --load_prefix <seg> --load_prefix_vae <vae> \\
+        --domain_loss_type 8 --vae_decoder_dropout 0.5 ... [--device cpu]
 
-which loads ``<save_root>/<p>/best_model.ckpt`` (a port or reference torch
-checkpoint), runs one ROI crop per validation case through Joint on the
-device, and writes the per-case binary Dice to
-``tensorboard/<prefix>/score_0.json`` in the JAX CLI's format. Every other
-method or flag combination raises NotImplementedError naming the ROADMAP
-item that will port it.
+trains the student Joint with the live-teacher adaptation step
+(``train/steps.py``): teacher <- student copy at the start, no step in outer
+epoch 0, the EMA teacher update on the reference's cadence, a loss line per
+step, the crop evaluation after every outer epoch with
+``tensorboard/<prefix>/score_<epoch>.json`` and the best and periodic
+checkpoints under ``<save_root>/<prefix>/``. With ``--test_only
+--load_prefix_joint <p>`` it only evaluates ``<save_root>/<p>/
+best_model.ckpt`` (a port or reference torch checkpoint) and writes
+``score_0.json``. It runs on ``--device cuda`` unless told otherwise.
+
+Training needs ``--no_aug`` for now: the ingest is the intensity
+normalization alone. The device warp, ``--pseudo_list``, ``--resume``,
+``--val_finetune`` and every other method raise NotImplementedError naming
+the ROADMAP item that will port them.
 """
 
 from __future__ import annotations
@@ -24,17 +33,21 @@ import numpy as np
 import torch
 
 from vae_segmentation_tpu_torch.core.checkpoint import (
-    checkpoint_path, load_checkpoint)
+    checkpoint_path, load_checkpoint, save_checkpoint)
 from vae_segmentation_tpu_torch.core.config import (
     TargetConfig, parse_target_args)
 from vae_segmentation_tpu_torch.core.device import resolve_device
 from vae_segmentation_tpu_torch.data.manifest import filedict_from_json
 from vae_segmentation_tpu_torch.data.pipeline import (
-    CaseDataset, intensity_normalize, iterate_batches)
+    CaseDataset, TrainLoader, intensity_normalize, iterate_batches)
 from vae_segmentation_tpu_torch.data.transforms import parse_pan_index
 from vae_segmentation_tpu_torch.eval.evaluate import (
     make_joint_eval_step, run_eval)
-from vae_segmentation_tpu_torch.models import Joint, load_state
+from vae_segmentation_tpu_torch.models import (
+    Joint, load_component, load_state)
+from vae_segmentation_tpu_torch.train import (
+    AdaptConfig, copy_params, default_sched, ema_update_seg, make_adapt_step,
+    optim)
 
 
 def bottleneck_for(patch_size, top_fmaps: int = 256) -> int:
@@ -53,22 +66,35 @@ def _check_supported(cfg: TargetConfig) -> None:
 
     if cfg.method != "domain_adaptation":
         todo(f"--method {cfg.method}",
-             "item 4 (vae_train) / item 10 (the other methods)")
-    if not cfg.test_only or cfg.pseudo_list is not None:
-        todo("training (the adaptation step)", "item 2")
-    if not cfg.load_prefix_joint or cfg.load_prefix or cfg.load_prefix_vae \
-            or cfg.load_prefix_encoder or cfg.resume:
-        todo("loading anything but --load_prefix_joint", "item 2")
+             "item 5 (vae_train) / item 11 (the other methods)")
     if cfg.val_finetune != 0:
-        todo("--val_finetune (ft1 test-time training)", "item 3")
+        todo("--val_finetune (ft1 test-time training)", "item 4")
     if cfg.eval_mode != "crop":
-        todo(f"--eval_mode {cfg.eval_mode}", "item 5")
+        todo(f"--eval_mode {cfg.eval_mode}", "item 6")
     if cfg.spatial_shards != 1:
-        todo("--spatial_shards", "item 8")
+        todo("--spatial_shards", "item 9")
     if cfg.analysis_figure_name is not None or cfg.save_eval_result \
             or cfg.save_more_reference or cfg.profile_dir is not None:
         todo("eval figures, npy dumps, TensorBoard panels and profiling",
-             "item 10")
+             "item 11")
+    if cfg.load_prefix_encoder:
+        todo("--load_prefix_encoder", "item 11")
+    if cfg.test_only:
+        if not cfg.load_prefix_joint or cfg.load_prefix \
+                or cfg.load_prefix_vae or cfg.pseudo_list is not None \
+                or cfg.resume:
+            todo("--test_only with anything but --load_prefix_joint",
+                 "item 3")
+        return
+    if not cfg.no_aug or cfg.aug_host:
+        todo("training without --no_aug (the device warp of "
+             "data/augment.py)", "item 3")
+    if cfg.pseudo_list is not None:
+        todo("--pseudo_list (source replay)", "item 3")
+    if cfg.resume:
+        todo("--resume", "item 3")
+    if cfg.vae_forward_scale != 0.0:
+        todo("--vae_forward_scale (the sampled latent)", "item 5")
 
 
 def _batches(ds: CaseDataset, batch_size: int, device: torch.device
@@ -80,8 +106,100 @@ def _batches(ds: CaseDataset, batch_size: int, device: torch.device
         yield batch
 
 
+def _adapt_cfg(cfg: TargetConfig, n_class: int) -> AdaptConfig:
+    return AdaptConfig(
+        n_class=n_class, domain_loss_type=cfg.domain_loss_type,
+        only_pseudo=cfg.only_pseudo,
+        use_confident_binarize=cfg.use_confident_binarize, kl=cfg.kl,
+        vae_mont_number=cfg.vae_mont_number,
+        turn_enabled=cfg.turn_epoch != -1)
+
+
+def _epoch_sched(cfg: TargetConfig, epoch: int, lambda_vae: float) -> Dict:
+    sched = default_sched(lambda_vae)
+    if cfg.lambda_vae_warmup > 0:
+        sched["warmup_scale"] = 1.0 if epoch >= cfg.lambda_vae_warmup \
+            else epoch / cfg.lambda_vae_warmup
+    if cfg.turn_epoch != -1:
+        sched["turn_phase"] = (epoch // cfg.turn_epoch) % 2
+    return sched
+
+
+def _load(cfg: TargetConfig, prefix: str, name: str = "best_model.ckpt"):
+    path = checkpoint_path(cfg.save_root, prefix, name)
+    print(f"Loading checkpoint {path}")
+    return load_checkpoint(path)
+
+
+def _build_models(cfg: TargetConfig, n_class: int, device: torch.device):
+    """(student, teacher) after the load matrix of main_target.py:355-394
+    and the teacher <- student copy (:383-384, 427-433)."""
+    kw = dict(n_class=n_class, dim=128,
+              bottleneck=bottleneck_for(cfg.patch_size))
+    model = Joint(vae_decoder_dropout=cfg.vae_decoder_dropout,
+                  seg_dropout=cfg.seg_dropout,
+                  generator=torch.Generator().manual_seed(cfg.seed), **kw)
+    teacher = Joint(**kw)
+    copy_params(teacher, model)
+    print("Loading prefix.")
+    if cfg.load_prefix:
+        load_component(teacher if cfg.from_scratch else model,
+                       _load(cfg, cfg.load_prefix, cfg.checkpoint_name),
+                       "Seg")
+    if cfg.load_prefix_vae:
+        ck = _load(cfg, cfg.load_prefix_vae)
+        if cfg.from_scratch:
+            load_component(teacher, ck, "Vae")
+        load_component(model, ck, "Vae")
+    if cfg.load_prefix_joint:
+        load_state(model, _load(cfg, cfg.load_prefix_joint))
+    if cfg.test_only or not cfg.from_scratch:
+        copy_params(teacher, model)
+    for p in teacher.parameters():
+        p.requires_grad_(False)
+    return model.to(device), teacher.to(device)
+
+
+def _print_line(epoch: int, eval_epoch: int, idx: int, metrics: Dict) -> None:
+    vals = ", ".join("%.4f" % float(metrics[k]) for k in
+                     ("recon_loss", "dice_loss_fake", "dice_loss"))
+    print("[%3d, %3d] loss: %s" % ((epoch + 1) * eval_epoch, idx + 1, vals))
+
+
+def _train_epoch(cfg: TargetConfig, epoch: int, loader: TrainLoader, step,
+                 model, teacher, optimizer, generator, lambda_vae: float,
+                 device: torch.device) -> float:
+    """One outer epoch of adaptation steps; returns lambda_vae after the
+    --tag decay."""
+    sched = _epoch_sched(cfg, epoch, lambda_vae)
+    # EMA cadence (main_target.py:508-509): once per inner dataset pass (the
+    # list is replicated eval_epoch x), or every iteration
+    ema_interval = max(len(loader) // cfg.eval_epoch, 1) \
+        if cfg.pseudo_save_epoch != 0 else None
+    for idx, batch in enumerate(loader):
+        if epoch == 0:
+            continue  # epoch-0 skip (main_target.py:506)
+        if ema_interval is not None and \
+                epoch % max(cfg.pseudo_save_epoch // cfg.eval_epoch, 1) == 0 \
+                and (cfg.update_every_iteration or idx % ema_interval == 0):
+            if not cfg.update_every_iteration:
+                print("Updating Network")
+            ema_update_seg(teacher, model, cfg.alpha)
+            if cfg.tag:
+                lambda_vae = cfg.alpha * lambda_vae
+                sched = _epoch_sched(cfg, epoch, lambda_vae)
+        image = intensity_normalize(
+            torch.from_numpy(batch["image"]).to(device))
+        label = torch.from_numpy(batch["label"]).to(device)
+        metrics = step(model, teacher, optimizer, image, label, generator,
+                       sched)
+        _print_line(epoch, cfg.eval_epoch, idx, metrics)
+    return lambda_vae
+
+
 def run(cfg: TargetConfig) -> float:
-    """Evaluate the Joint checkpoint; returns the mean Dice over cases."""
+    """Train (or with --test_only just evaluate) the Joint; returns the
+    best mean validation Dice (the mean Dice with --test_only)."""
     _check_supported(cfg)
     device = resolve_device(cfg.device)
     np.random.seed(cfg.seed)
@@ -91,25 +209,62 @@ def run(cfg: TargetConfig) -> float:
     patch = tuple(cfg.patch_size)
 
     print("Building model.")
-    model = Joint(n_class=n_class, dim=128, bottleneck=bottleneck_for(patch))
-    path = checkpoint_path(cfg.save_root, cfg.load_prefix_joint)
-    print(f"Loading checkpoint {path}")
-    load_state(model, load_checkpoint(path))
-    model.to(device).eval()
-
-    ds = CaseDataset(filedict_from_json(cfg.data_path, cfg.val_list, 1),
-                     cfg.val_data_root, mask_index=mask_index,
-                     output_size=patch)
-    step = make_joint_eval_step(model, n_class)
-    print("Start evaluation")
-    t0 = time.time()
-    dsc, scores = run_eval(_batches(ds, cfg.val_batch, device), step)
+    model, teacher = _build_models(cfg, n_class, device)
+    val_ds = CaseDataset(filedict_from_json(cfg.data_path, cfg.val_list, 1),
+                         cfg.val_data_root, mask_index=mask_index,
+                         output_size=patch)
+    eval_step = make_joint_eval_step(model, n_class)
     os.makedirs(cfg.display_path, exist_ok=True)
-    with open(os.path.join(cfg.display_path, "score_0.json"), "w") as f:
-        json.dump({str(k): v for k, v in scores.items()}, f)
-    print("Time: {}".format(time.time() - t0))
-    print("epoch 1 validation result: %f over %d cases." % (dsc, len(scores)))
-    return dsc
+
+    loader = step = optimizer = generator = None
+    if not cfg.test_only:
+        print("Loading data.")
+        train_ds = CaseDataset(
+            filedict_from_json(cfg.data_path, cfg.train_list, cfg.eval_epoch),
+            cfg.data_root, mask_index=mask_index, output_size=patch,
+            shift=cfg.shift)
+        loader = TrainLoader(train_ds, cfg.batch_size, seed=cfg.seed,
+                             num_workers=cfg.num_workers)
+        trainable = optim.freeze_all_but_seg_head(model) if cfg.fix_layer \
+            else optim.freeze_vae(model)
+        optimizer = optim.build(trainable, cfg.adam, cfg.lr_seg,
+                                weight_decay=cfg.weight_decay)
+        step = make_adapt_step(_adapt_cfg(cfg, n_class))
+        generator = torch.Generator(device=device).manual_seed(cfg.seed)
+        print("Start training")
+
+    lambda_vae = cfg.lambda_vae  # host-mutable (--tag decay)
+    best = 0.0
+    for epoch in range(cfg.outer_epochs):
+        if not cfg.test_only:
+            lambda_vae = _train_epoch(cfg, epoch, loader, step, model,
+                                      teacher, optimizer, generator,
+                                      lambda_vae, device)
+        print("Start evaluation")
+        t0 = time.time()
+        dsc, scores = run_eval(_batches(val_ds, cfg.val_batch, device),
+                               eval_step)
+        with open(os.path.join(cfg.display_path, f"score_{epoch}.json"),
+                  "w") as f:
+            json.dump({str(k): v for k, v in scores.items()}, f)
+        print("Time: {}".format(time.time() - t0))
+        if cfg.test_only:
+            print("epoch 1 validation result: %f over %d cases."
+                  % (dsc, len(scores)))
+            return dsc
+        print("epoch %d validation result: %f, best result %f."
+              % (epoch + 1, dsc, best))
+        stamp = (epoch + 1) * cfg.eval_epoch
+        if dsc > best:
+            best = dsc
+            save_checkpoint(os.path.join(cfg.save_path, "best_model.ckpt"),
+                            epoch=stamp, model=model)
+        if (epoch + 1) % (cfg.save_epoch // cfg.eval_epoch) == 0:
+            print("saving model")
+            save_checkpoint(os.path.join(cfg.save_path,
+                                         f"model_epoch{stamp}.ckpt"),
+                            epoch=stamp, model=model)
+    return best
 
 
 def main(argv: Optional[List[str]] = None) -> float:

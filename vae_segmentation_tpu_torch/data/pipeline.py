@@ -1,9 +1,11 @@
-"""Eval input pipeline: ROI-cropped cases, plain batching, and the
+"""Input pipeline: ROI-cropped cases, the eval and train batching, and the
 intensity normalization (counterparts of vae_segmentation_tpu/data/
-pipeline.py::CaseDataset and data/augment.py::intensity_normalize)."""
+pipeline.py::CaseDataset, ::Loader and data/augment.py::
+intensity_normalize)."""
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
@@ -61,6 +63,49 @@ def iterate_batches(dataset: CaseDataset, batch_size: int
     for start in range(0, len(dataset), batch_size):
         stop = min(start + batch_size, len(dataset))
         yield _collate([dataset[i] for i in range(start, stop)])
+
+
+class TrainLoader:
+    """The trainers' loader (shuffle=True, drop_last=True,
+    main_source.py:237-241): every pass shuffles the case order with one
+    numpy generator seeded at construction, the same draws as the JAX
+    package's ``Loader``, and yields the full batches only. With
+    num_workers > 0 the cases of a batch load in that many threads and the
+    next batch loads while the caller works on the current one."""
+
+    def __init__(self, dataset: CaseDataset, batch_size: int, seed: int = 0,
+                 num_workers: int = 0):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.num_workers = num_workers
+        self.rng = np.random.default_rng(seed)
+
+    def __len__(self) -> int:
+        return len(self.dataset) // self.batch_size
+
+    def batch_indices(self) -> List[np.ndarray]:
+        """The next pass's batches of case indices (advances the shuffle)."""
+        order = np.arange(len(self.dataset))
+        self.rng.shuffle(order)
+        return [order[i * self.batch_size:(i + 1) * self.batch_size]
+                for i in range(len(self))]
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        batches = self.batch_indices()
+        if self.num_workers <= 0:
+            for idx in batches:
+                yield _collate([self.dataset[int(i)] for i in idx])
+            return
+        with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
+            def submit(idx):
+                return [pool.submit(self.dataset.__getitem__, int(i))
+                        for i in idx]
+
+            pending = submit(batches[0]) if batches else None
+            for nxt in batches[1:] + [None]:
+                current, pending = pending, \
+                    (submit(nxt) if nxt is not None else None)
+                yield _collate([f.result() for f in current])
 
 
 def intensity_normalize(images: torch.Tensor) -> torch.Tensor:

@@ -16,11 +16,13 @@ rides into the consumer's prologue. Norms that feed a skip-add or a stage
 boundary are applied here as plain elementwise ops.
 
 Parameters keep the reference's torch ``state_dict`` keys and shapes
-(models/torch_compat.py:8-28 of the JAX package). Leaf modules convert
-their weight to the layout their kernel reads once, when moved to a device
-or loaded, not on every call. The JAX package's space-to-depth fold and
-W-pack (ops/s2d.py) are not ported: they only filled the TPU's 128-lane
-tiles.
+(models/torch_compat.py:8-28 of the JAX package). On a CUDA device a leaf
+module derives the layout its kernel reads (bf16, tap-major) from ``weight``
+on every call and keeps no copy, so no write to the weight, however made
+(an optimizer step, an EMA update, a load, a write through ``.data``), can
+leave a kernel reading old values. The JAX package's space-to-depth fold
+and W-pack (ops/s2d.py) are not ported: they only filled the TPU's
+128-lane tiles.
 """
 
 from __future__ import annotations
@@ -66,35 +68,25 @@ def apply_affine_relu(x: torch.Tensor, aff: Affine) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def _refresh_hook(module, _incompatible_keys) -> None:
-    module.refresh_kernel_weight()
-
-
 class _KernelConv(nn.Module):
-    """A conv whose ``weight`` is kept in torch layout (for state_dicts) and,
-    on a CUDA device, also in its kernel's layout (``_kw``)."""
+    """A conv whose ``weight`` is kept in torch layout (for state_dicts and
+    the optimizer) and handed to its kernel in the kernel's layout."""
 
     def __init__(self, weight: torch.Tensor, bias: torch.Tensor):
         super().__init__()
         self.weight = nn.Parameter(weight)
         self.bias = nn.Parameter(bias)
-        self._kw: Optional[torch.Tensor] = None
-        self.register_load_state_dict_post_hook(_refresh_hook)
 
     @staticmethod
     def kernel_layout(weight: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
-    def refresh_kernel_weight(self) -> None:
-        """Re-derive the kernel-layout weight; call after changing the
-        weight in place (moves and state_dict loads do it themselves)."""
-        self._kw = self.kernel_layout(self.weight) if self.weight.is_cuda \
-            else None
-
-    def _apply(self, fn, recurse=True):
-        out = super()._apply(fn, recurse)
-        self.refresh_kernel_weight()
-        return out
+    def kernel_weight(self) -> Optional[torch.Tensor]:
+        """The weight in the kernel's layout (None on the CPU), derived
+        from ``weight`` as it is now: one small permute-and-cast per call,
+        nothing cached, so nothing can go stale."""
+        w = self.weight
+        return self.kernel_layout(w) if w.is_cuda else None
 
 
 class Conv3(_KernelConv):
@@ -111,8 +103,8 @@ class Conv3(_KernelConv):
 
     def forward(self, x: torch.Tensor, pre: Optional[Affine] = None,
                 stats: bool = False, softmax: bool = False):
-        return conv3_ops.conv3(x, self.weight, self.bias, self._kw, pre,
-                               stats, softmax)
+        return conv3_ops.conv3(x, self.weight, self.bias,
+                               self.kernel_weight(), pre, stats, softmax)
 
 
 class DownConv(_KernelConv):
@@ -126,7 +118,8 @@ class DownConv(_KernelConv):
     kernel_layout = staticmethod(bridges.down_kernel_weight)
 
     def forward(self, x: torch.Tensor, pre: Optional[Affine] = None):
-        return bridges.down_k2s2(x, self.weight, self.bias, self._kw, pre)
+        return bridges.down_k2s2(x, self.weight, self.bias,
+                                 self.kernel_weight(), pre)
 
 
 class TConv2(_KernelConv):
@@ -141,7 +134,21 @@ class TConv2(_KernelConv):
     kernel_layout = staticmethod(bridges.up_kernel_weight)
 
     def forward(self, x: torch.Tensor):
-        return bridges.up_k2s2(x, self.weight, self.bias, self._kw)
+        return bridges.up_k2s2(x, self.weight, self.bias,
+                               self.kernel_weight())
+
+
+def mc_dropout(x: torch.Tensor, rate: float,
+               generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Functional MC dropout, active whenever rate > 0: the semantics of
+    torch ``F.dropout(p, training=True)`` as used for decoder and Seg MC
+    sampling (joint_model.py:256-264, 379-387; counterpart of the JAX
+    package's ``blocks.mc_dropout``). The keep mask is drawn from
+    ``generator``, which must live on x's device."""
+    if not rate:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def _n_spatial(x: torch.Tensor) -> int:

@@ -5,7 +5,8 @@ counterpart of vae_segmentation_tpu/models/unet.py).
 skip-adds after up3 and up4 (joint_model.py:380-382), 3^3 conv head with
 the class softmax in K1's epilogue. The in_block's norm+ReLU is the down1
 entry's prologue and up5's final norm+ReLU the head's prologue
-(unet.py:92-120 of the JAX package). MC dropout is not ported yet.
+(unet.py:92-120 of the JAX package); with MC dropout active the norm is
+applied inline and the softmax follows the head's own dropout.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ import torch
 import torch.nn as nn
 
 from vae_segmentation_tpu_torch.models.blocks import (
-    DEFAULT_FMAPS, Conv3, ConvNormAct, Down, Up)
+    DEFAULT_FMAPS, Conv3, ConvNormAct, Down, Up, apply_affine_relu,
+    mc_dropout)
 
 
 class SegUNet(nn.Module):
@@ -42,14 +44,23 @@ class SegUNet(nn.Module):
         self.up5 = Up(f[1], f[0], g)
         self.out_block = Conv3(f[0], n_class, g)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dropout: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """dropout > 0: MC dropout after each decoder stage and around the
+        head conv, before the softmax (joint_model.py:379-387)."""
+        def drop(h):
+            return mc_dropout(h, dropout, generator)
+
         x1, aff1 = self.in_block(x.to(self.dtype))
         x2 = self.down1(x1, pre=aff1)
         x3 = self.down2(x2)
         x4 = self.down3(x3)
         x5 = self.down4(x4)
-        h = self.up2(x5)
-        h = self.up3(h) + x3
-        h = self.up4(h) + x2
+        h = drop(self.up2(x5))
+        h = drop(self.up3(h) + x3)
+        h = drop(self.up4(h) + x2)
         h, aff5 = self.up5(h, defer=True)
-        return self.out_block(h, pre=aff5, softmax=True)
+        if not dropout:
+            return self.out_block(h, pre=aff5, softmax=True)
+        h = drop(self.out_block(drop(apply_affine_relu(h, aff5))))
+        return torch.softmax(h.float(), dim=-1).to(self.dtype)

@@ -5,8 +5,9 @@ of vae_segmentation_tpu/models/vae.py).
 flatten to the bottleneck (16384 at 128^3, as the reference's
 ``x.view(B, -1)`` of NCDHW), fc_mean / fc_std (ReLU std) -> latent 128,
 fc2 decode, 5 Up stages, softmax head. The dense layers are plain
-``F.linear`` products in the compute dtype. Only the deterministic forward
-is ported (``if_random=False``, no decoder dropout).
+``F.linear`` products in the compute dtype. The latent is deterministic
+(``if_random=False``; the sampled latent arrives with ``vae_train``); the
+decoder's MC dropout is ported (joint_model.py:255-264).
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from vae_segmentation_tpu_torch.models.blocks import (
-    DEFAULT_FMAPS, Conv3, ConvNormAct, Down, Up, torch_uniform_init)
+    DEFAULT_FMAPS, Conv3, ConvNormAct, Down, Up, apply_affine_relu,
+    mc_dropout, torch_uniform_init)
 
 
 def _linear(cin: int, cout: int, generator) -> nn.Linear:
@@ -88,24 +90,32 @@ class ShapeVAE(nn.Module):
         std = torch.relu(self._dense(self.fc_std, flat).float())
         return mean, std
 
-    def decode(self, z: torch.Tensor) -> torch.Tensor:
+    def decode(self, z: torch.Tensor, dropout: float = 0.0,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Latent [B, dim] -> probabilities [B, D, H, W, n_class]
-        (joint_model.py:252-266)."""
+        (joint_model.py:252-266). dropout > 0 is the MC decoder dropout
+        after every Up stage, drawn from ``generator``; up5's deferred norm
+        is then applied inline before the last dropout instead of riding
+        into the head's prologue (vae.py:141-165 of the JAX package)."""
         h = self.unflatten(self._dense(self.fc2, z))
         for up in (self.up1, self.up2, self.up3, self.up4):
-            h = up(h)
+            h = mc_dropout(up(h), dropout, generator)
         h, aff = self.up5(h, defer=True)
+        if dropout:
+            h = mc_dropout(apply_affine_relu(h, aff), dropout, generator)
+            aff = None
         return self.out_block(h, pre=aff, softmax=True)
 
     def forward(self, x: torch.Tensor, if_random: bool = False,
                 scale: float = 0.0, mid_input: bool = False,
-                dropout: float = 0.0):
+                dropout: float = 0.0,
+                generator: Optional[torch.Generator] = None):
         """(recon, mean, std), or recon alone with mid_input (x a latent)."""
-        if if_random or dropout:
+        if if_random:
             raise NotImplementedError(
-                "sampled latents and decoder dropout arrive with the "
-                "vae_train and adaptation steps (ROADMAP queue 1)")
+                "sampled latents arrive with vae_train (ROADMAP queue 1, "
+                "item 5)")
         if mid_input:
-            return self.decode(x)
+            return self.decode(x, dropout, generator)
         mean, std = self.encode(x)
-        return self.decode(mean), mean, std
+        return self.decode(mean, dropout, generator), mean, std

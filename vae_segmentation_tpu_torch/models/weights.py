@@ -94,14 +94,34 @@ def from_jax_params(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(v) for k, v in flat.items()}
 
 
-def load_state(model: torch.nn.Module, state: Any) -> torch.nn.Module:
-    """Load a state_dict, a ``{'model_state_dict': ...}`` checkpoint dict
-    or a path to one (reference and port checkpoints alike, with or
-    without DataParallel's ``module.`` prefix) into `model`, strictly."""
+def _state_dict(state: Any) -> Dict[str, torch.Tensor]:
+    """A state_dict, a ``{'model_state_dict': ...}`` checkpoint dict or a
+    path to one -> plain {key: tensor} without DataParallel's ``module.``
+    prefix."""
     if isinstance(state, (str, bytes)) or hasattr(state, "__fspath__"):
         state = torch.load(state, map_location="cpu", weights_only=True)
     sd = state.get("model_state_dict", state)
-    sd = {k[len("module."):] if k.startswith("module.") else k:
-          torch.as_tensor(v) for k, v in sd.items()}
-    model.load_state_dict(sd, strict=True)
+    return {k[len("module."):] if k.startswith("module.") else k:
+            torch.as_tensor(v) for k, v in sd.items()}
+
+
+def load_state(model: torch.nn.Module, state: Any) -> torch.nn.Module:
+    """Load a state_dict, a checkpoint dict or a path to one (reference and
+    port checkpoints alike) into `model`, strictly."""
+    model.load_state_dict(_state_dict(state), strict=True)
+    return model
+
+
+def load_component(model: torch.nn.Module, state: Any,
+                   name: str) -> torch.nn.Module:
+    """Load only the submodule `name` ('Seg' or 'Vae') of a composite
+    `model`, strictly (--load_prefix / --load_prefix_vae,
+    main_target.py:355-394): from a composite checkpoint its ``<name>.*``
+    keys, from a checkpoint of that network alone every key."""
+    sd = _state_dict(state)
+    prefix = name + "."
+    if any(k.startswith(prefix) for k in sd):
+        sd = {k[len(prefix):]: v for k, v in sd.items()
+              if k.startswith(prefix)}
+    getattr(model, name).load_state_dict(sd, strict=True)
     return model

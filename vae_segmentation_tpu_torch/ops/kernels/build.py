@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into
-``ops/kernels/build/lib<name>-<hash>.so`` (the hash is of the source, so an
-edited source never loads a stale library), then opened with ``ctypes``.
+``ops/kernels/build/lib<name>-<hash>.so`` (the hash is of the source and
+the shared ``*.cuh`` headers, so an edited source never loads a stale
+library), then opened with ``ctypes``.
 Building happens at first use, never at import: a process that only runs
 CPU tensors never looks for ``nvcc``. ``build_all()`` starts one ``nvcc``
 per source at once and waits for all of them.
@@ -27,18 +28,31 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # exported C functions and their argument types, per source file
 SIGNATURES = {
     "conv3": {
-        "vaeseg_conv3": [_P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _I, _P],
+        "vaeseg_conv3": [_P] * 10 + [_I] * 7 + [_P],
+        "vaeseg_error_string": [_I],
+    },
+    "conv3_dk": {
+        "vaeseg_conv3_dk": [_P] * 6 + [_I] * 6 + [_P],
         "vaeseg_error_string": [_I],
     },
     "bridge": {
         "vaeseg_down_k2s2": [_P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _P],
         "vaeseg_up_k2s2": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-        "vaeseg_bridge_error_string": [_I],
+        "vaeseg_error_string": [_I],
+    },
+    "bridge_bwd": {
+        "vaeseg_bridge_bwd": [_I] + [_P] * 9 + [_I] * 6 + [_P],
+        "vaeseg_error_string": [_I],
+    },
+    "losses": {
+        "vaeseg_softmax_vjp": [_P, _P, _P, _L, _I, _P],
+        "vaeseg_dice_sums": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _P],
+        "vaeseg_error_string": [_I],
     },
 }
 
@@ -59,7 +73,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

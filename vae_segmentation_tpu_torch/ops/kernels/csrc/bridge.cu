@@ -26,6 +26,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 struct BridgeArgs {
@@ -63,7 +65,7 @@ __global__ void down_kernel(const BridgeArgs a) {
       float xv = __bfloat162float(xp[ci]);
       if (a.s != nullptr) {
         const int sc = b * a.Cin + ci;
-        xv = fmaxf(fmaf(xv, a.s[sc], a.t[sc]), 0.f);
+        xv = fmaxf(pre_activation(xv, a.s[sc], a.t[sc]), 0.f);
       }
       const __nv_bfloat16* wr = wp + (int64_t)ci * a.Cout;
 #pragma unroll
@@ -146,7 +148,7 @@ BridgeArgs make_args(const void* x, const void* w, const void* bias,
 
 extern "C" {
 
-const char* vaeseg_bridge_error_string(int code) {
+const char* vaeseg_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

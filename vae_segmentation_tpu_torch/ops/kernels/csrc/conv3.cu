@@ -1,11 +1,13 @@
 // K1: channels-last 3^3 SAME stride-1 conv + bias for Hopper (sm_90a), with
 // an optional InstanceNorm+ReLU prologue and a stats or class-softmax
-// epilogue.
+// epilogue, or the `post` epilogue that makes it the dx conv of a backward.
 //
 // Replaces (TPU, Pallas): vae_segmentation_tpu/ops/pallas/stencil3.py
 //   _run_conv_grouped (grouped-tap conv on the s2d-folded rep; the
 //   conv3_stencil_folded[_pre] and conv3_stencil_folded_softmax[_pre]
-//   forwards) and _run_conv (27-tap conv; conv3_stencil[_pre] forwards).
+//   forwards) and _run_conv (27-tap conv; conv3_stencil[_pre] forwards),
+//   each with its `post` epilogue (_apply_post: the backward of the
+//   forward's prologue, fused into the dx conv).
 // The port computes in the logical representation, so one kernel covers
 // both: the fold and the W-pack only existed to fill the TPU's 128 lanes.
 //
@@ -14,7 +16,13 @@
 //   xn = relu(x * s[b, c] + t[b, c])  (prologue, f32; out-of-volume taps
 //                                       stay 0: SAME pads the normalized x)
 //   stats[b, 0, o] += sum y_bf16,  stats[b, 1, o] += sum y_bf16^2
-//   or y = softmax over o (Cout == n_class), f32 math, bf16 store.
+//   or y = softmax over o (Cout == n_class), f32 math, bf16 store;
+//   or post: the f32 sum g is the cotangent of relu(xs * ps + pt):
+//     gm = g where xs * ps + pt > 0 else 0,  y = gm * ps,
+//     stats[b, 0, o] += sum gm * xs (ds),  stats[b, 1, o] += sum gm (dt),
+//   over in-volume voxels only. x * s + t is two roundings (multiply, then
+//   add) wherever it is computed, so the backward's mask repeats the
+//   forward's arithmetic bit for bit.
 //
 // What bounds it on the H100: at the 128^3/64^3 stages (C = 8..16) the
 // bytes (3.35 TB/s) bound the work; at 8^3/4^3 with C = 128..256 the
@@ -35,14 +43,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 struct Conv3Args {
   const __nv_bfloat16* x;  // [B, D, H, W, Cin]
   const __nv_bfloat16* w;  // [27, Cin, Cout], tap = (kd * 3 + kh) * 3 + kw
-  const float* bias;       // [Cout]
+  const float* bias;       // [Cout], or null for none
   const float* s;          // [B, Cin] prologue scale, or null
   const float* t;          // [B, Cin] prologue shift
+  const __nv_bfloat16* xs; // post: [B, D, H, W, Cout], the forward's input
+  const float* ps;         // post: [B, Cout] scale
+  const float* pt;         // post: [B, Cout] shift
   __nv_bfloat16* y;        // [B, D, H, W, Cout]
   float* stats;            // [B, 2, Cout], zeroed by the caller, or null
   int B, D, H, W, Cin, Cout;
@@ -98,7 +111,7 @@ __global__ void conv3_kernel(const Conv3Args a) {
         v = __bfloat162float(a.x[idx]);
         if (a.s != nullptr) {
           const int sc = b * a.Cin + c0 + ci;
-          v = fmaxf(fmaf(v, a.s[sc], a.t[sc]), 0.f);
+          v = fmaxf(pre_activation(v, a.s[sc], a.t[sc]), 0.f);
         }
       }
       sx[p * cs + ci] = v;
@@ -129,7 +142,8 @@ __global__ void conv3_kernel(const Conv3Args a) {
 
   float out[COT];
 #pragma unroll
-  for (int c = 0; c < COT; ++c) out[c] = acc[c] + a.bias[co0 + c];
+  for (int c = 0; c < COT; ++c)
+    out[c] = a.bias != nullptr ? acc[c] + a.bias[co0 + c] : acc[c];
   if (a.softmax) {  // COT == Cout: the whole class vector is in this thread
     float m = out[0];
 #pragma unroll
@@ -145,6 +159,19 @@ __global__ void conv3_kernel(const Conv3Args a) {
     for (int c = 0; c < COT; ++c) out[c] *= inv;
   }
   const int64_t vox = (((int64_t)b * a.D + od) * a.H + oh) * a.W + ow;
+  float sec[COT];  // the second statistic: y^2 (stats) or gm (post)
+  if (a.xs != nullptr) {
+#pragma unroll
+    for (int c = 0; c < COT; ++c) {
+      const int sc = b * a.Cout + co0 + c;
+      const float xv = valid ? __bfloat162float(a.xs[vox * a.Cout + co0 + c]) : 0.f;
+      const float gm =
+          (valid && pre_activation(xv, a.ps[sc], a.pt[sc]) > 0.f) ? out[c] : 0.f;
+      out[c] = gm * a.ps[sc];
+      acc[c] = gm * xv;
+      sec[c] = gm;
+    }
+  }
   if (valid) {
     __nv_bfloat16* yp = a.y + vox * a.Cout + co0;
 #pragma unroll
@@ -155,9 +182,15 @@ __global__ void conv3_kernel(const Conv3Args a) {
     __syncthreads();
 #pragma unroll
     for (int c = 0; c < COT; ++c) {
-      // stats of the STORED bf16 values, as the norm that reads y sees them
-      float v = valid ? __bfloat162float(__float2bfloat16(out[c])) : 0.f;
-      float q = v * v;
+      float v, q;
+      if (a.xs != nullptr) {
+        v = acc[c];
+        q = sec[c];
+      } else {
+        // stats of the STORED bf16 values, as the norm that reads y sees them
+        v = valid ? __bfloat162float(__float2bfloat16(out[c])) : 0.f;
+        q = v * v;
+      }
       for (int off = 16; off > 0; off >>= 1) {
         v += __shfl_down_sync(0xffffffffu, v, off);
         q += __shfl_down_sync(0xffffffffu, q, off);
@@ -209,19 +242,27 @@ const char* vaeseg_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Returns cudaGetLastError() after the launch (0 on success).
+// Returns cudaGetLastError() after the launch (0 on success). bias, (s, t),
+// (xs, ps, pt) and stats may be null; with xs the post epilogue is on and
+// stats receives (ds, dt).
 int vaeseg_conv3(const void* x, const void* w, const void* bias, const void* s,
-                 const void* t, void* y, void* stats, int B, int D, int H,
-                 int W, int Cin, int Cout, int softmax, void* stream) {
+                 const void* t, const void* xs, const void* ps, const void* pt,
+                 void* y, void* stats, int B, int D, int H, int W, int Cin,
+                 int Cout, int softmax, void* stream) {
   if (B <= 0 || D <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0)
     return cudaErrorInvalidValue;
   if (softmax && stats != nullptr) return cudaErrorInvalidValue;
+  if (xs != nullptr && (softmax || stats == nullptr || ps == nullptr || pt == nullptr))
+    return cudaErrorInvalidValue;
   Conv3Args a;
   a.x = static_cast<const __nv_bfloat16*>(x);
   a.w = static_cast<const __nv_bfloat16*>(w);
   a.bias = static_cast<const float*>(bias);
   a.s = static_cast<const float*>(s);
   a.t = static_cast<const float*>(t);
+  a.xs = static_cast<const __nv_bfloat16*>(xs);
+  a.ps = static_cast<const float*>(ps);
+  a.pt = static_cast<const float*>(pt);
   a.y = static_cast<__nv_bfloat16*>(y);
   a.stats = static_cast<float*>(stats);
   a.B = B; a.D = D; a.H = H; a.W = W; a.Cin = Cin; a.Cout = Cout;
