@@ -36,7 +36,10 @@ Phases, each printed as JSON records:
      their backwards, softmax_vjp, dice_sums). Each call's kernel then runs
      on the recorded inputs against the recorded plain outputs: bf16
      outputs within 1e-2 * max|want|, f32 sums (dk, db, ds/dt, Dice sums)
-     within ``F32_TOL`` of their tensor's largest element. Each distinct
+     within ``F32_TOL`` of their tensor's largest element; conv3_dk's dk
+     and db, sums that cancel under an InstanceNorm, against their f64 value
+     instead: within ``F32_TOL`` of its largest element or no further from
+     it than twice the plain version is. Each distinct
      call is timed beside its plain version and one library call
      (``aten.convolution_backward`` with the matching output mask for the
      backward rows, ``aten._softmax_backward_data`` for softmax_vjp; none
@@ -60,7 +63,31 @@ Phases, each printed as JSON records:
      device's busy share of a step (under the profiler and against the
      unprofiled ``step_ms``); then the port's target CLI trains two outer epochs (the first
      takes no step, as the reference) on synthetic cases with ``--no_aug``.
-  7. the ``kernels`` line (eight kernels), then the last line
+  7. the reparam kernel at the vae_train shape [4, 128]: against its plain
+     version fed the kernel's own eps (latent within 1e-6 of max|latent|,
+     KL within 1e-6 relative), its eps against the plain Philox draw of the
+     same seed, the latent at scale 0 equal to mean, its draw as a standard
+     normal (2^20 draws of one call and 256 seeds of the step's shape),
+     deterministic per seed; timed beside the plain version.
+  8. vae_train kernels: one source-recipe vae_train step (batch 4 of warped
+     ground-truth masks, 128^3, reparam scale 0.35, nothing frozen) runs on
+     the plain path while every kernel call is recorded; each call's kernel
+     then runs on the recorded inputs under phase 5's rules and each
+     distinct call is timed beside its plain version and library call.
+  9. the vae_train step-1 gate: loss terms and every VAE gradient, kernel
+     path against plain path (same weights, batch and reparam seed), within
+     ``DRIFT_MULTIPLE`` times the plain path's own drift under reordered f32
+     sums; likewise the backward alone on one kernel-path forward's graph.
+ 10. 3 vae_train steps through ``make_vae_train_step`` (launch counts
+     derived from the model, reparam_kl once a step, finite losses, every
+     weight moved), ``step_ms``, ``enqueue_ms``, peak memory, the warp's
+     time, and the device time by kernel family of a profiled step.
+ 11. the chain through the CLIs with the warp on: ``source_main --method
+     vae_train`` and ``--method seg_train`` (two outer epochs each, the
+     second's first without a step), then the target CLI adapting from
+     their two checkpoints: launches per run derived from the models, score
+     JSON with every Dice in [0, 1], three checkpoints each.
+ 12. the ``kernels`` line (nine kernels), then the last line
      ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero without the last line. Without a CUDA GPU
 it exits 2 and prints no result. All records also go to --out (JSON,
@@ -88,12 +115,15 @@ BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor cores
 F32_FLOPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
 PER_FORWARD = {"conv3": 58, "down_k2s2": 9, "up_k2s2": 9}
 KERNEL_NAMES = ("conv3", "down_k2s2", "up_k2s2", "conv3_dk", "down_k2s2_bwd",
-                "up_k2s2_bwd", "softmax_vjp", "dice_sums")
+                "up_k2s2_bwd", "softmax_vjp", "dice_sums", "reparam_kl")
 # f32 sums of a backward kernel (dk, db, ds/dt, Dice sums): max abs error
 # over the tensor's largest element (atomics add in a varying order;
 # measured up to 2e-5 on an H100 over one train step at 128^3, batch 2)
 F32_TOL = 2e-4
 TRAIN_BATCH, TRAIN_LR, TRAIN_LAMBDA = 2, 1e-3, 1.0
+# the source recipes (scripts/source/*.bash): batch 4, SGD at lr 1e-2; the
+# VAE's reparam scale 0.35 (make_vae_train_step)
+VAE_BATCH, VAE_LR, VAE_SCALE = 4, 1e-2, 0.35
 # kernel-vs-plain mean abs difference of the Joint's probabilities, over the
 # plain path's drift from itself under reordered f32 sums
 DRIFT_MULTIPLE = 4.0
@@ -126,6 +156,10 @@ SOURCES = {
                     "(softmax_group_vjp)"),
     "dice_sums": ("vae_segmentation_tpu_torch/ops/kernels/csrc/losses.cu",
                   "vae_segmentation_tpu/ops/pallas/dicesums.py:73 (_run)"),
+    "reparam_kl": ("vae_segmentation_tpu_torch/ops/kernels/csrc/reparam.cu",
+                   "vae_segmentation_tpu/ops/pallas/reparam.py:91 (_run, "
+                   "the TPU's on-core draw); vae_segmentation_tpu/ops/pallas/"
+                   "reparam.py:101 (_run, off the TPU)"),
 }
 
 
@@ -196,7 +230,7 @@ def _split_sums(fn, F):
 def kernel_ops() -> list:
     """(kernel name, module, wrapper attribute, plain version) of every
     kernel wrapper the port launches."""
-    from vae_segmentation_tpu_torch.ops import bridges, conv3, losses
+    from vae_segmentation_tpu_torch.ops import bridges, conv3, losses, reparam
 
     return [("conv3", conv3, "conv3_op", conv3.conv3_plain),
             ("conv3_dk", conv3, "conv3_dk", conv3.conv3_dk_plain),
@@ -207,7 +241,9 @@ def kernel_ops() -> list:
             ("up_k2s2_bwd", bridges, "up_k2s2_bwd",
              bridges.up_k2s2_bwd_plain),
             ("softmax_vjp", losses, "softmax_vjp", losses.softmax_vjp_plain),
-            ("dice_sums", losses, "dice_sums", losses.dice_sums_plain)]
+            ("dice_sums", losses, "dice_sums", losses.dice_sums_plain),
+            ("reparam_kl", reparam, "reparam_kl_op",
+             reparam.reparam_kl_seeded_plain)]
 
 
 def _plain_args(plain, args: dict) -> dict:
@@ -431,7 +467,8 @@ FAMILIES = (("conv3_dk_kernel", "conv3_dk"), ("conv3_kernel", "conv3"),
             ("bridge_dk_kernel", "bridge_dk"), ("down_kernel", "down_k2s2"),
             ("up_kernel", "up_k2s2"), ("softmax_vjp_c2_kernel", "softmax_vjp"),
             ("softmax_vjp_kernel", "softmax_vjp"),
-            ("dice_sums_kernel", "dice_sums"))
+            ("dice_sums_kernel", "dice_sums"),
+            ("reparam_kl_kernel", "reparam_kl"))
 
 
 def _family(name: str) -> str:
@@ -494,6 +531,8 @@ def describe(rec: dict) -> dict:
     """What distinguishes one recorded kernel call: kernel, role, input
     shape, output channels and options."""
     a, k = rec["args"], rec["kernel"]
+    if k == "reparam_kl":
+        return {"kernel": k, "shape": list(a["mean"].shape)}
     if k == "softmax_vjp":
         return {"kernel": k, "shape": list(a["y"].shape)}
     if k == "dice_sums":
@@ -520,6 +559,8 @@ def op_work(d: dict) -> tuple:
     affines and sums. The convs count against the bf16 tensor-core peak,
     the two elementwise kernels against the f32 peak."""
     k, shape = d["kernel"], d["shape"]
+    if k == "reparam_kl":
+        return reparam_work(shape[0] * shape[1])
     b, c = shape[0], shape[-1]
     n = 1
     for e in shape[:-1]:
@@ -587,6 +628,45 @@ def compare_call(torch, d: dict, got, want) -> dict:
     return rec
 
 
+def conv3_dk_exact(torch, a: dict) -> tuple:
+    """dk, db of a recorded conv3_dk call in f64: the prologue rounded in
+    f32 as the kernel rounds it, each product of an f32 value and a bf16
+    cotangent exact in f64, the sums f64 (to 1e-16 of their terms)."""
+    from vae_segmentation_tpu_torch.ops import conv3
+
+    x, gy, pre = a["x"], a["gy"], a.get("pre")
+    xin = (x.float() if pre is None else conv3._affine_relu(x, pre)).double()
+    cin, cout = x.shape[-1], gy.shape[-1]
+    g = gy.double().permute(0, 4, 1, 2, 3)
+    dw = torch.nn.grad.conv3d_weight(xin.permute(0, 4, 1, 2, 3),
+                                     (cout, cin, 3, 3, 3), g, padding=1)
+    return (dw.permute(2, 3, 4, 1, 0).reshape(27, cin, cout),
+            g.sum(dim=(0, 2, 3, 4)))
+
+
+def exact_compare(torch, a: dict, got, want, rec: dict) -> dict:
+    """conv3_dk's sums against their f64 value. The weight gradient of a
+    conv under an InstanceNorm cancels far below its terms (db is zero in
+    exact arithmetic), so two f32 orders of the same sum, the kernel's and
+    the plain version's, can differ by more than F32_TOL of the result
+    while both are right to f32 rounding. Each output is held to F32_TOL of
+    its exact largest element, or to twice the plain version's own distance
+    from the exact value where that is larger: no less accurate than the
+    library's f32 sum."""
+    rec = dict(rec, exact_rel_err=[], plain_exact_rel_err=[])
+    ok = True
+    for g, w, ref in zip(got, want, conv3_dk_exact(torch, a)):
+        scale = max(ref.abs().max().item(), 1e-300)
+        ek = (g.double() - ref).abs().max().item() / scale
+        ep = (w.double() - ref).abs().max().item() / scale
+        rec["exact_rel_err"].append(ek)
+        rec["plain_exact_rel_err"].append(ep)
+        ok = ok and ek <= max(F32_TOL, 2.0 * ep) \
+            and bool(torch.isfinite(g).all())
+    rec["ok"] = ok
+    return rec
+
+
 def _worst_rel(rec: dict) -> float:
     """The largest relative error of a compared call."""
     return max(rec.get("bf16_rel_err", 0.0), rec.get("f32_rel_err", 0.0),
@@ -599,14 +679,15 @@ def _library_fn(torch, d: dict, a: dict):
     (bf16, channels_last_3d), or None: F.conv3d / conv_transpose3d for the
     forwards, aten.convolution_backward with the matching output mask for
     the backwards, aten._softmax_backward_data for softmax_vjp. No single
-    call computes the 1 + 2K fused sums of dice_sums."""
+    call computes the 1 + 2K fused sums of dice_sums, nor draws and reduces
+    as reparam_kl does."""
     import torch.nn.functional as F
 
     k = d["kernel"]
     if k == "softmax_vjp":
         return lambda: torch.ops.aten._softmax_backward_data(
             a["g"], a["y"], -1, torch.bfloat16)
-    if k == "dice_sums":
+    if k in ("dice_sums", "reparam_kl"):
         return None
 
     def cl(t):                      # NDHWC data seen as channels_last_3d
@@ -648,9 +729,10 @@ def _library_fn(torch, d: dict, a: dict):
     return bwd(a["gy"], x, w, d["cout"], 2, 0, k == "up_k2s2_bwd", mask)
 
 
-def check_step_calls(torch, calls, log, failures) -> dict:
-    """Phase 5: every kernel call of the recorded train step, kernel on the
-    plain path's inputs against the plain path's outputs; each distinct
+def check_step_calls(torch, calls, log, failures,
+                     phase: str = "step_kernel") -> dict:
+    """Phases 5 and 8: every kernel call of a recorded train step, kernel on
+    the plain path's inputs against the plain path's outputs; each distinct
     call also timed (kernel, plain, library) and bounded. Returns per-kernel
     totals over the step."""
     real = {name: (getattr(mod, attr), plain)
@@ -659,8 +741,11 @@ def check_step_calls(torch, calls, log, failures) -> dict:
     with torch.no_grad():
         for c in calls:
             d = describe(c)
-            rec = compare_call(torch, d, real[d["kernel"]][0](**c["args"]),
-                               c["out"])
+            got = real[d["kernel"]][0](**c["args"])
+            rec = compare_call(torch, d, got, c["out"])
+            if d["kernel"] == "conv3_dk":
+                rec = exact_compare(torch, c["args"], got, c["out"], rec)
+            del got
             k = keys.setdefault(json.dumps(d, sort_keys=True),
                                 {"count": 0, "first": c, "desc": d,
                                  "ok": True, "worst": rec})
@@ -676,7 +761,7 @@ def check_step_calls(torch, calls, log, failures) -> dict:
         wrapper, plain = real[d["kernel"]]
         pargs = _plain_args(plain, a)
         library = _library_fn(torch, d, a)
-        rec = {"phase": "step_kernel", **d, "calls_per_step": k["count"],
+        rec = {"phase": phase, **d, "calls_per_step": k["count"],
                **k["worst"], "ok": k["ok"]}
         with torch.no_grad():
             rec["kernel_ms"] = cuda_ms(torch, lambda: wrapper(**a))
@@ -691,8 +776,7 @@ def check_step_calls(torch, calls, log, failures) -> dict:
         rec["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
         emit(rec, log)
         if not rec["ok"]:
-            failures.append(f"train step: {d} disagrees with its plain "
-                            "version")
+            failures.append(f"{phase}: {d} disagrees with its plain version")
         name = d["kernel"] + ("" if d.get("role", "fwd") == "fwd" else "/dx")
         t = totals.setdefault(name, dict(
             err=0.0, bf16_rel_err=0.0, f32_rel_err=0.0, kernel_ms=0.0,
@@ -734,7 +818,8 @@ def expected_step_launches(joint) -> dict:
     return {"conv3": conv[0] + sum(conv) + sum(conv) - 1,
             "down_k2s2": down[0] + sum(down), "up_k2s2": up[0] + sum(up),
             "conv3_dk": conv[0], "down_k2s2_bwd": sum(down),
-            "up_k2s2_bwd": sum(up), "softmax_vjp": 2, "dice_sums": 1}
+            "up_k2s2_bwd": sum(up), "softmax_vjp": 2, "dice_sums": 1,
+            "reparam_kl": 0}
 
 
 def expected_backward_launches(joint) -> dict:
@@ -773,16 +858,189 @@ def _rel_l2(a, b) -> float:
     return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
 
 
+def norm_cancelled(key: str) -> bool:
+    """A conv bias under an InstanceNorm: its gradient is zero in exact
+    arithmetic, so what any path computes there is round-off (the heads and
+    the VAE's dense layers have no norm after them)."""
+    return key.endswith(".bias") and "out_block" not in key \
+        and not key.split(".")[-2].startswith("fc")
+
+
 def grad_drift(got: dict, want: dict) -> dict:
-    """Relative L2 error per Seg gradient tensor. The biases under an
-    InstanceNorm are left out: their gradient is zero in exact arithmetic,
-    so what any path computes there is round-off."""
+    """Relative L2 error per gradient tensor, norm-cancelled biases left
+    out."""
     return {k: _rel_l2(got[k].float(), w.float()) for k, w in want.items()
-            if not (k.endswith(".bias") and "out_block" not in k)}
+            if not norm_cancelled(k)}
 
 
 def _mean_abs(a, b) -> float:
     return (a.float() - b.float()).abs().mean().item()
+
+
+# ---- the source trainers: the reparam kernel, the vae_train step, the chain
+
+
+# operations of one reparam_kl element: Philox4x32-10 is 10 rounds of two
+# 32x32 -> 64-bit products, four xors and two key additions, counted as 100
+# integer operations at the f32 rate (the table gives no int32 rate); the
+# Box-Muller draw, the latent and the KL term about 24 f32 operations
+# (log, sqrt and cos counted as one each)
+REPARAM_OPS_PER_ELEMENT = 124
+
+
+def reparam_work(n: int) -> tuple:
+    """(bytes, operations, peak) of reparam_kl over n = B * D elements:
+    mean and std read, latent and eps written (f32), the seed and the KL."""
+    return 16 * n + 8, REPARAM_OPS_PER_ELEMENT * n, F32_FLOPS_PER_S
+
+
+def normal_law(x) -> dict:
+    """Mean, variance and two-sided tail shares of draws x (f64), each with
+    its distance from the standard normal's in standard errors."""
+    n = x.numel()
+    rec = {"n": n, "mean": x.mean().item(), "var": x.var().item()}
+    rec["mean_se"] = abs(rec["mean"]) * n ** 0.5
+    rec["var_se"] = abs(rec["var"] - 1.0) / (2.0 / n) ** 0.5
+    worst = max(rec["mean_se"], rec["var_se"])
+    for t, p in ((1.0, 0.31731), (2.0, 0.04550), (3.0, 0.0026998)):
+        share = (x.abs() > t).double().mean().item()
+        rec[f"tail_{int(t)}"] = share
+        worst = max(worst, abs(share - p) / (p * (1 - p) / n) ** 0.5)
+    rec["worst_se"] = worst
+    return rec
+
+
+def check_reparam(torch, seed: int, log, failures) -> dict:
+    """Phase 7: the reparam kernel at the vae_train shape [VAE_BATCH, 128]
+    against its plain version fed the kernel's own eps (latent within 1e-6
+    of max|latent|, KL within 1e-6 relative), its eps against the plain
+    Philox draw of the same seed (1e-5), the latent at scale 0 equal to
+    mean, its draw as a standard normal (one call of 2^20 and 256 seeds of
+    the step's shape, every statistic within 5 standard errors),
+    deterministic per seed and different across seeds; timed beside its
+    plain version (the draw included) by device time under the profiler:
+    CUDA events around repeated calls time the wrapper's host work, which
+    takes longer than the one-block kernel (both kept). Returns its totals
+    per step."""
+    from vae_segmentation_tpu_torch.ops import reparam
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (VAE_BATCH, 128)
+    mean = torch.randn(shape, generator=gen, device="cuda") * 0.7
+    std = torch.randn(shape, generator=gen, device="cuda").relu()
+    seed_t = reparam.draw_seed(gen, "cuda")
+    latent, kl, eps = reparam.reparam_kl_op(mean, std, VAE_SCALE, seed_t)
+    want_latent, want_kl = reparam.reparam_kl_plain(mean, std, VAE_SCALE,
+                                                    eps)
+    err = (latent - want_latent).abs().max().item()
+    latent_rel = err / want_latent.abs().max().item()
+    kl_rel = abs(kl.item() - want_kl.item()) / abs(want_kl.item())
+    seed_cpu = seed_t.cpu()
+    eps_err = (eps - reparam.philox_normal_plain(
+        int(seed_cpu), shape, device="cuda")).abs().max().item()
+    zero_ok = torch.equal(
+        reparam.reparam_kl_op(mean, std, 0.0, seed_t)[0], mean)
+
+    def draw(s, rows=VAE_BATCH, cols=128):
+        z = torch.zeros(rows, cols, device="cuda")
+        return reparam.reparam_kl_op(
+            z, torch.ones_like(z), 1.0,
+            torch.tensor([s], dtype=torch.int32, device="cuda"))[2]
+
+    law_one = normal_law(draw(seed + 1, 1024, 1024).double())
+    law_seeds = normal_law(torch.cat([draw(s).reshape(-1)
+                                      for s in range(256)]).double())
+    same = torch.equal(draw(5), draw(5)) and not torch.equal(draw(5),
+                                                             draw(6))
+    ok = (latent_rel <= 1e-6 and kl_rel <= 1e-6 and eps_err <= 1e-5
+          and zero_ok and same and law_one["worst_se"] <= 5.0
+          and law_seeds["worst_se"] <= 5.0
+          and bool(torch.isfinite(latent).all()))
+    def kernel():
+        return reparam.reparam_kl_op(mean, std, VAE_SCALE, seed_t)
+
+    def plain():
+        return reparam.reparam_kl_seeded_plain(mean, std, VAE_SCALE,
+                                               seed_cpu)
+
+    with torch.no_grad():
+        kernel_ms = profile_run(torch, kernel, 50, "")["device_ms"]
+        plain_ms = profile_run(torch, plain, 10, "")["device_ms"]
+        events_ms = [cuda_ms(torch, fn) for fn in (kernel, plain)]
+    nbytes, ops, peak = reparam_work(shape[0] * shape[1])
+    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / peak
+    rec = {"phase": "reparam", "shape": list(shape), "scale": VAE_SCALE,
+           "max_abs_err": err, "latent_rel_err": latent_rel,
+           "kl_rel_err": kl_rel, "kl": kl.item(),
+           "eps_vs_plain_philox": eps_err,
+           "scale0_latent_is_mean": zero_ok, "deterministic": same,
+           "law_one_call": law_one, "law_256_seeds": law_seeds,
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
+           "kernel_events_ms": events_ms[0], "plain_events_ms": events_ms[1],
+           "bytes": nbytes, "operations": ops,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "ok": ok}
+    emit(rec, log)
+    if not ok:
+        failures.append("reparam_kl disagrees with its plain version or "
+                        "its draw is not a standard normal")
+    return {"err": err, "f32_rel_err": latent_rel, "bf16_rel_err": 0.0,
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": rec["bound_ms"], "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "calls": 1}
+
+
+def _count(net, cls) -> int:
+    return sum(isinstance(m, cls) for m in net.modules())
+
+
+def forward_launches(net) -> dict:
+    """Kernel launches of one forward of a bare SegUNet or ShapeVAE."""
+    from vae_segmentation_tpu_torch.models.blocks import (
+        Conv3, DownConv, TConv2)
+
+    return {**{k: 0 for k in KERNEL_NAMES}, "conv3": _count(net, Conv3),
+            "down_k2s2": _count(net, DownConv), "up_k2s2": _count(net, TConv2)}
+
+
+def expected_source_step_launches(net, sampled: bool) -> dict:
+    """Kernel launches of one vae_train (sampled latent) or seg_train step,
+    derived from the model: its forward, a dx conv for every conv but the
+    entry conv (the one-hot mask or the image needs no gradient), a weight
+    gradient for every conv and bridge (nothing is frozen), the head's
+    softmax VJP and, for the VAE, one reparam_kl. The Dice loss is plain
+    avg_dsc: no dice_sums."""
+    fwd = forward_launches(net)
+    return {**fwd, "conv3": 2 * fwd["conv3"] - 1,
+            "conv3_dk": fwd["conv3"], "down_k2s2_bwd": fwd["down_k2s2"],
+            "up_k2s2_bwd": fwd["up_k2s2"], "softmax_vjp": 1,
+            "reparam_kl": int(sampled)}
+
+
+def scaled(counts: dict, n: int) -> dict:
+    return {k: n * v for k, v in counts.items()}
+
+
+def added(*counts) -> dict:
+    return {k: sum(c[k] for c in counts) for k in KERNEL_NAMES}
+
+
+def read_scores(work: str, prefix: str, epochs) -> list:
+    out = []
+    for epoch in epochs:
+        path = os.path.join(work, "tensorboard", prefix,
+                            f"score_{epoch}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                out.append(json.load(f))
+    return out
+
+
+def saved_checkpoints(work: str, prefix: str) -> list:
+    return [n for n in ("best_model.ckpt", "model_epoch1.ckpt",
+                        "model_epoch2.ckpt")
+            if os.path.exists(os.path.join(work, "3dmodel", prefix, n))]
 
 
 def main() -> int:
@@ -801,14 +1059,15 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from vae_segmentation_tpu_torch import ops
     from vae_segmentation_tpu_torch import train as T
-    from vae_segmentation_tpu_torch.cli import target_main
+    from vae_segmentation_tpu_torch.cli import source_main, target_main
     from vae_segmentation_tpu_torch.core.checkpoint import save_checkpoint
+    from vae_segmentation_tpu_torch.data import augment
     from vae_segmentation_tpu_torch.data.pipeline import (
         CaseDataset, intensity_normalize)
     from vae_segmentation_tpu_torch.data.synthetic import (
         write_synthetic_dataset)
     from vae_segmentation_tpu_torch.data.transforms import parse_pan_index
-    from vae_segmentation_tpu_torch.models import Joint
+    from vae_segmentation_tpu_torch.models import Joint, ShapeVAE
     from vae_segmentation_tpu_torch.ops import losses as L
     from vae_segmentation_tpu_torch.ops.kernels import build
 
@@ -1214,17 +1473,8 @@ def main() -> int:
         cli_expected = {
             k: cli_steps * expected_step[k]
             + 2 * args.cases * PER_FORWARD.get(k, 0) for k in KERNEL_NAMES}
-        epoch_scores = []
-        for epoch in (0, 1):
-            path = os.path.join(work, "tensorboard", "smoke_train",
-                                f"score_{epoch}.json")
-            if os.path.exists(path):
-                with open(path) as f:
-                    epoch_scores.append(json.load(f))
-        saved = [n for n in ("best_model.ckpt", "model_epoch1.ckpt",
-                             "model_epoch2.ckpt")
-                 if os.path.exists(os.path.join(work, "3dmodel",
-                                                "smoke_train", n))]
+        epoch_scores = read_scores(work, "smoke_train", (0, 1))
+        saved = saved_checkpoints(work, "smoke_train")
         cli_ok = (cli_launches == cli_expected and len(epoch_scores) == 2
                   and all(len(sc) == args.cases
                           and all(0.0 <= v <= 1.0 for v in sc.values())
@@ -1239,14 +1489,273 @@ def main() -> int:
         train_launches = {
             k: cli_launches[k] + sum(c[k] for c in step_launches)
             for k in KERNEL_NAMES}
+
+        # ---- 7. the reparam kernel at the vae_train shape
+        reparam_totals = check_reparam(torch, args.seed, log, failures)
+
+        # ---- 8. every kernel call of one vae_train step (batch 4, 128^3)
+        src_data = os.path.join(work, "data_source")
+        with open(write_synthetic_dataset(
+                src_data, n_train=VAE_BATCH, n_val=0, size=128,
+                seed=args.seed + 3)) as f:
+            src_entries = json.load(f)["NIH_train"]
+        src_lists = os.path.join(work, "lists_source.json")
+        with open(src_lists, "w") as f:
+            json.dump({"NIH_train": src_entries, "NIH_val": entries}, f)
+        src_ds = CaseDataset(src_entries, src_data, parse_pan_index("1"))
+        src_cases = [src_ds[i] for i in range(VAE_BATCH)]
+        src_img = torch.stack([torch.from_numpy(c["image"])
+                               for c in src_cases]).cuda()
+        src_lab = torch.stack([torch.from_numpy(c["label"])
+                               for c in src_cases]).cuda()
+        aug_gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        patch = (128, 128, 128)
+        warp_ms = cuda_ms(torch, lambda: augment.spatial_augment(
+            src_img, src_lab, aug_gen, patch_size=patch), max_reps=10)
+        # the step's batches: the ground truth of 4 cases, warped
+        vae_batches = [augment.spatial_augment(src_img, src_lab, aug_gen,
+                                               patch_size=patch)[1]
+                       for _ in range(2)]
+        warp_ok = all(set(b.unique().tolist()) <= {0.0, 1.0}
+                      and bool(b.any()) for b in vae_batches)
+        vae0 = ShapeVAE(n_class=2, dim=128, bottleneck=16384,
+                        generator=torch.Generator().manual_seed(args.seed + 2))
+        vstate0 = {k: v.detach().cuda() for k, v in vae0.state_dict().items()}
+        vae_step = T.make_vae_train_step(2, scale=VAE_SCALE)
+
+        def vae_fresh(lr):
+            """(ShapeVAE at the seed weights, SGD momentum 0.9 on all of
+            it, the generator of the reparam seeds)."""
+            vae = ShapeVAE(n_class=2, dim=128, bottleneck=16384).cuda()
+            vae.load_state_dict(vstate0)
+            return vae, T.optim.sgd(vae.parameters(), lr), \
+                torch.Generator(device="cuda").manual_seed(args.seed)
+
+        def vae_step1():
+            """Loss terms and gradients of a vae_train step 1 at lr 0 (the
+            weights a recorded call holds stay the ones it ran with), with
+            the same batch and reparam seed on every path."""
+            vae, opt, gen = vae_fresh(0.0)
+            aux = vae_step(vae, opt, vae_batches[0], gen)
+            grads = {k: p_.grad.detach().clone()
+                     for k, p_ in vae.named_parameters()}
+            torch.cuda.synchronize()
+            return {k: v.item() for k, v in aux.items()}, grads
+
+        calls = []
+        with plain_ops(record=calls):
+            vaux_p, vgrads_p = vae_step1()
+        vper_step = {k: 0 for k in KERNEL_NAMES}
+        for c in calls:
+            vper_step[c["kernel"]] += 1
+        vexpected = expected_source_step_launches(vae0, sampled=True)
+        if vper_step != vexpected:
+            failures.append(f"kernel calls per vae_train step {vper_step} "
+                            f"!= {vexpected}")
+        vae_totals = check_step_calls(torch, calls, log, failures,
+                                      phase="vae_step_kernel")
+        del calls
+        torch.cuda.empty_cache()
+
+        # ---- 9. the vae_train step-1 gradient gate
+        with plain_ops(reordered=True):
+            vaux_r, vgrads_r = vae_step1()
+        ops.reset_launch_counts()
+        vaux_k, vgrads_k = vae_step1()
+        vstep1_launches = ops.launch_counts()
+        vloss_err = {k: abs(vaux_k[k] - vaux_p[k]) / abs(vaux_p[k])
+                     for k in vaux_p}
+        vloss_drift = {k: abs(vaux_r[k] - vaux_p[k]) / abs(vaux_p[k])
+                       for k in vaux_p}
+        vloss_gate = max(DRIFT_MULTIPLE * max(vloss_drift.values()), 1e-3)
+        verr, vdrift = grad_drift(vgrads_k, vgrads_p), \
+            grad_drift(vgrads_r, vgrads_p)
+        vmedian = sorted(vdrift.values())[len(vdrift) // 2]
+        vworst = {k: verr[k] / max(vdrift[k], vmedian) for k in verr}
+        # the backward alone on one kernel-path forward's graph: with the
+        # saved activations and the sampled eps fixed it is one linear map
+        vae, _, gen = vae_fresh(0.0)
+        onehot = L.one_hot_label(vae_batches[0], 2)
+        latent, klv = vae.reparameterize(*vae.encode(onehot), VAE_SCALE, gen)
+        vloss = 1.0 - L.avg_dsc(vae.decode(latent), onehot, botindex=1,
+                                topindex=2, eps=L.SOURCE_EPS) + 2e-5 * klv
+        vnames, vparams = zip(*vae.named_parameters())
+
+        def vbackward():
+            grads = torch.autograd.grad(vloss, vparams, retain_graph=True)
+            torch.cuda.synchronize()
+            return dict(zip(vnames, grads))
+
+        ops.reset_launch_counts()
+        vb_k = vbackward()
+        vb_launches = ops.launch_counts()
+        vfwd = forward_launches(vae0)
+        vb_expected = {k: vexpected[k] - vfwd[k] for k in KERNEL_NAMES}
+        vb_expected["reparam_kl"] = 0
+        with plain_ops():
+            vb_p = vbackward()
+        with plain_ops(reordered=True):
+            vb_r = vbackward()
+        vb_err, vb_drift = grad_drift(vb_k, vb_p), grad_drift(vb_r, vb_p)
+        vb_median = sorted(vb_drift.values())[len(vb_drift) // 2]
+        vb_worst = {k: vb_err[k] / max(vb_drift[k], vb_median)
+                    for k in vb_err}
+        vb_ok = (vb_launches == vb_expected
+                 and all(bool(torch.isfinite(g).all()) for g in vb_k.values())
+                 and all(v <= DRIFT_MULTIPLE for v in vb_worst.values()))
+        del vae, latent, klv, vloss, vparams, vb_k, vb_p, vb_r, onehot
+        vstep1_ok = (
+            vstep1_launches == vexpected and vb_ok
+            and sorted(vgrads_k) == sorted(vgrads_p)
+            and all(bool(torch.isfinite(g).all()) for g in vgrads_k.values())
+            and all(v <= vloss_gate for v in vloss_err.values())
+            and all(v <= DRIFT_MULTIPLE for v in vworst.values()))
+        if not vstep1_ok:
+            failures.append("vae_train step 1 with kernels disagrees with "
+                            "the plain path")
+        emit({"phase": "vae_step1", "batch": VAE_BATCH, "scale": VAE_SCALE,
+              "launches": vstep1_launches, "launches_expected": vexpected,
+              "losses_kernels": vaux_k, "losses_plain": vaux_p,
+              "losses_reordered": vaux_r, "loss_rel_err": vloss_err,
+              "loss_rel_drift": vloss_drift, "loss_gate": vloss_gate,
+              "grad_tensors": len(verr),
+              "grad_rel_l2_kernel_vs_plain": verr,
+              "grad_rel_l2_plain_vs_reordered": vdrift,
+              "worst_ratio": max(vworst.values()),
+              "worst_tensor": max(vworst, key=vworst.get),
+              "median_ratio": sorted(vworst.values())[len(vworst) // 2],
+              "backward_launches": vb_launches,
+              "backward_launches_expected": vb_expected,
+              "backward_grad_rel_l2_kernel_vs_plain": vb_err,
+              "backward_grad_rel_l2_plain_vs_reordered": vb_drift,
+              "backward_worst_ratio": max(vb_worst.values()),
+              "backward_ok": vb_ok, "drift_multiple": DRIFT_MULTIPLE,
+              "ok": vstep1_ok}, log)
+        del vgrads_p, vgrads_r, vgrads_k
+        torch.cuda.empty_cache()
+
+        # ---- 10. three vae_train steps
+        vae, opt, gen = vae_fresh(VAE_LR)
+        torch.cuda.reset_peak_memory_stats()
+        vstep_ms, venq_ms, vlosses, vlaunches = [], [], [], []
+        for i in range(3):
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            aux = vae_step(vae, opt, vae_batches[i % 2], gen)
+            venq_ms.append(1e3 * (time.perf_counter() - t0))
+            torch.cuda.synchronize()
+            vstep_ms.append(1e3 * (time.perf_counter() - t0))
+            vlaunches.append(ops.launch_counts())
+            vlosses.append({k: v.item() for k, v in aux.items()})
+        vpeak = torch.cuda.max_memory_allocated()
+        moved = {k: not torch.equal(v, vstate0[k])
+                 for k, v in vae.state_dict().items()}
+        vmoved_ok = all(m for k, m in moved.items() if not norm_cancelled(k))
+        vfinite = all(v == v and abs(v) != float("inf")
+                      for rec in vlosses for v in rec.values())
+        vsteps_ok = (all(c == vexpected for c in vlaunches) and vfinite
+                     and vmoved_ok and warp_ok)
+        if not vsteps_ok:
+            failures.append("the 3 vae_train steps failed a check")
+        emit({"phase": "vae_train_steps", "batch": VAE_BATCH, "lr": VAE_LR,
+              "scale": VAE_SCALE, "step_ms": sorted(vstep_ms)[1],
+              "step_ms_all": vstep_ms, "enqueue_ms": sorted(venq_ms)[1],
+              "warp_ms": warp_ms, "warped_labels_binary": warp_ok,
+              "losses": vlosses, "launches_per_step": vlaunches,
+              "launches_expected": vexpected, "peak_memory_bytes": vpeak,
+              "finite": vfinite, "tensors": len(moved),
+              "moved": sum(moved.values()),
+              "norm_cancelled_biases": sum(map(norm_cancelled, moved)),
+              "norm_cancelled_biases_moved": sum(
+                  m for k, m in moved.items() if norm_cancelled(k)),
+              "every_weight_moved": vmoved_ok, "ok": vsteps_ok}, log)
+        prof = profile_run(torch, lambda: vae_step(vae, opt, vae_batches[0],
+                                                   gen), 2,
+                           "profile_vae_step")
+        prof["busy_share_of_step_ms"] = prof["device_ms"] / sorted(vstep_ms)[1]
+        emit(prof, log)
+        del vae, opt
+        torch.cuda.empty_cache()
+
+        # ---- 11. the chain through the CLIs with the warp on: vae_train,
+        # seg_train (no step in the first outer epoch), then the target CLI
+        # adapting from their two checkpoints
+        def run_cli(fn, argv):
+            ops.reset_launch_counts()
+            os.chdir(work)
+            try:
+                t0 = time.time()
+                best = fn(argv)
+                torch.cuda.synchronize()
+                return best, time.time() - t0, ops.launch_counts()
+            finally:
+                os.chdir(cwd)
+
+        src_argv = ["--save_root", os.path.join(work, "3dmodel"),
+                    "--train_list", "NIH_train", "--val_list", "NIH_val",
+                    "--data_root", src_data, "--val_data_root", data,
+                    "--data_path", src_lists, "--val_batch", "1",
+                    "--eval_epoch", "1", "--save_epoch", "1",
+                    "--max_epoch", "2", "--num_workers", "2",
+                    "--device", "cuda"]
+        seg_fwd = forward_launches(model.Seg)
+        seg_expected = expected_source_step_launches(model.Seg, sampled=False)
+        evals = 2 * args.cases          # two outer epochs, one crop a case
+        chain = {
+            "smoke_vae": (source_main.main, [
+                "smoke_vae", "--method", "vae_train", "-b", str(VAE_BATCH),
+                "--lr_seg", str(VAE_LR), *src_argv],
+                added(scaled(vexpected, 2), scaled(vfwd, evals))),
+            "smoke_seg": (source_main.main, [
+                "smoke_seg", "--method", "seg_train", "-b", str(VAE_BATCH),
+                "--lr_seg", str(VAE_LR), *src_argv],
+                added(seg_expected, scaled(seg_fwd, evals))),
+            "smoke_adapt": (target_main.main, [
+                "smoke_adapt", "--method", "domain_adaptation",
+                "--load_prefix", "smoke_seg", "--load_prefix_vae",
+                "smoke_vae", "-b", str(TRAIN_BATCH), "--domain_loss_type",
+                "8", "--lambda_vae", str(TRAIN_LAMBDA), "--lr_seg",
+                str(TRAIN_LR), "--vae_decoder_dropout", "0.5",
+                "--pseudo_save_epoch", "1", *src_argv],
+                added(scaled(expected_step, VAE_BATCH // TRAIN_BATCH),
+                      {k: evals * PER_FORWARD.get(k, 0)
+                       for k in KERNEL_NAMES})),
+        }
+        chain_rec, chain_ok = {}, True
+        chain_launches = {k: 0 for k in KERNEL_NAMES}
+        for prefix, (fn, argv, want_launches) in chain.items():
+            best, secs, got = run_cli(fn, argv)
+            scores = read_scores(work, prefix, (0, 1))
+            saved = saved_checkpoints(work, prefix)
+            ok = (got == want_launches and len(scores) == 2
+                  and all(len(sc) == args.cases
+                          and all(0.0 <= v <= 1.0 for v in sc.values())
+                          for sc in scores)
+                  and len(saved) == 3 and 0.0 <= best <= 1.0)
+            chain_ok = chain_ok and ok
+            chain_launches = added(chain_launches, got)
+            chain_rec[prefix] = {"seconds": secs, "best_dice": best,
+                                 "scores": scores, "saved": saved,
+                                 "launches": got,
+                                 "launches_expected": want_launches,
+                                 "ok": ok}
+        if not chain_ok:
+            failures.append("the chain vae_train -> seg_train -> "
+                            "domain_adaptation failed a check")
+        emit({"phase": "source_chain", "runs": chain_rec, "ok": chain_ok},
+             log)
+        train_launches = added(train_launches, chain_launches, *vlaunches)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 7. summary lines: K1-K3 per eval forward (phase 2), the backward
-    # and loss kernels per train step (phase 5)
+    # ---- 12. summary lines: K1-K3 per eval forward (phase 2), the backward
+    # and loss kernels per adaptation step (phase 5), reparam_kl per
+    # vae_train step (phase 7)
     kernels = []
     for name in KERNEL_NAMES:
-        t = totals.get(name) or step_totals.get(name, {})
+        t = totals.get(name) or step_totals.get(name) \
+            or (reparam_totals if name == "reparam_kl" else {})
         source, replaces = SOURCES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -1263,11 +1772,14 @@ def main() -> int:
             else "operations",
             "library_ms": t.get("library_ms"),
             "per": "eval forward, batch 1" if name in totals
-            else f"train step, batch {TRAIN_BATCH}"})
+            else f"vae_train step, batch {VAE_BATCH}"
+            if name == "reparam_kl"
+            else f"adaptation step, batch {TRAIN_BATCH}"})
         if train_launches[name] == 0 or \
                 (name in PER_FORWARD and eval_launches[name] == 0):
             failures.append(f"{name} was never launched on its main path")
     emit({"phase": "step_totals", "per_kernel": step_totals}, log)
+    emit({"phase": "vae_step_totals", "per_kernel": vae_totals}, log)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump({"records": log, "kernels": kernels, "failures": failures,

@@ -106,6 +106,7 @@ def test_cli_unported_methods_raise(workdir):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         target_main.main(argv)
     argv = [a for a in _argv(workdir, "--device", "cpu") if a != "--test_only"]
+    argv[2] = "discriminator_train"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         target_main.main(argv)
 

@@ -12,7 +12,7 @@ This file imports torch only, so it also runs on a machine without JAX:
 import pytest
 import torch
 
-from vae_segmentation_tpu_torch.ops import bridges, conv3, losses
+from vae_segmentation_tpu_torch.ops import bridges, conv3, losses, reparam
 
 pytestmark = pytest.mark.cuda
 
@@ -323,3 +323,104 @@ def test_fix_layer_kl_step_on_the_card(gen):
         head = k.startswith(("Seg.up5.", "Seg.out_block."))
         assert torch.equal(v, before[k]) != head or \
             (head and k.endswith(".bias")), k
+
+
+# ---- the reparam + KL kernel (kernels/csrc/reparam.cu)
+
+
+def _seed(value):
+    return torch.tensor([value], dtype=torch.int32, device="cuda")
+
+
+@pytest.mark.parametrize("b,d,kl_rel", [(4, 128, 1e-6), (3, 7, 1e-6),
+                                        (64, 1000, 1e-5)])
+def test_reparam_kernel_matches_plain(gen, b, d, kl_rel):
+    """latent and KL against the plain version on the kernel's own eps, and
+    that eps against the plain Philox draw of the same seed."""
+    mean = _rnd(gen, b, d, scale=0.7)
+    std = _rnd(gen, b, d).relu()            # exact zeros, as a ReLU gives
+    before = reparam.reparam_kl.launches
+    latent, kl, eps = reparam.reparam_kl_op(mean, std, 0.35, _seed(12345))
+    torch.cuda.synchronize()
+    assert reparam.reparam_kl.launches == before + 1
+    want_latent, want_kl = reparam.reparam_kl_plain(mean, std, 0.35, eps)
+    assert (latent - want_latent).abs().max().item() \
+        <= 1e-6 * want_latent.abs().max().item()
+    assert abs(kl.item() - want_kl.item()) <= kl_rel * abs(want_kl.item())
+    plain_eps = reparam.philox_normal_plain(12345, (b, d), device="cuda")
+    assert (eps - plain_eps).abs().max().item() <= 1e-5
+    zero = reparam.reparam_kl_op(mean, std, 0.0, _seed(12345))[0]
+    assert torch.equal(zero, mean)
+
+
+def test_reparam_kernel_draws_a_standard_normal(gen):
+    """One million draws from one call and 256 seeds of the train step's
+    [4, 128]: mean, variance and tail shares within 5 standard errors;
+    deterministic per seed, different across seeds."""
+    big = reparam.reparam_kl_op(torch.zeros(1024, 1024, device="cuda"),
+                                torch.ones(1024, 1024, device="cuda"), 1.0,
+                                _seed(7))[2].double()
+    m, s = torch.zeros(4, 128, device="cuda"), torch.ones(4, 128,
+                                                           device="cuda")
+    seeds = torch.cat([reparam.reparam_kl_op(m, s, 1.0, _seed(i))[2]
+                       .reshape(-1) for i in range(256)]).double()
+    for x in (big, seeds):
+        n = x.numel()
+        assert abs(x.mean().item()) < 5 / n ** 0.5
+        assert abs(x.var().item() - 1.0) < 5 * (2.0 / n) ** 0.5
+        for t, p in ((1.0, 0.31731), (2.0, 0.04550), (3.0, 0.0026998)):
+            share = (x.abs() > t).double().mean().item()
+            assert abs(share - p) < 5 * (p * (1 - p) / n) ** 0.5, (t, share)
+    a = reparam.reparam_kl_op(m, s, 1.0, _seed(3))[2]
+    assert torch.equal(a, reparam.reparam_kl_op(m, s, 1.0, _seed(3))[2])
+    assert not torch.equal(a, reparam.reparam_kl_op(m, s, 1.0, _seed(4))[2])
+
+
+def test_reparam_function_gradients(gen):
+    mean = _rnd(gen, 4, 128).requires_grad_()
+    std = _rnd(gen, 4, 128).relu().requires_grad_()
+    g_latent = _rnd(gen, 4, 128)
+    latent, kl, eps = reparam.reparam_kl(mean, std, 0.35, _seed(99))
+    got = torch.autograd.grad((latent * g_latent).sum() + 0.3 * kl,
+                              (mean, std))
+    p_latent, p_kl = reparam.reparam_kl_plain(mean, std, 0.35, eps)
+    want = torch.autograd.grad((p_latent * g_latent).sum() + 0.3 * p_kl,
+                               (mean, std))
+    for g_, w_ in zip(got, want):
+        assert _rel(g_, w_) <= 1e-6
+
+
+def test_reparam_wrapper_rejects_what_the_kernel_does_not_take(gen):
+    mean, std = _rnd(gen, 4, 128), _rnd(gen, 4, 128).relu()
+    with pytest.raises(ValueError):
+        reparam.reparam_kl_op(mean.double(), std, 0.35, _seed(1))
+    with pytest.raises(ValueError):
+        reparam.reparam_kl_op(mean, std.t().contiguous().t(), 0.35, _seed(1))
+    with pytest.raises(ValueError):
+        reparam.reparam_kl_op(mean, std, 0.35, _seed(1).long())
+
+
+def test_vae_train_step_on_the_card(gen):
+    """One vae_train step at a small size: every weight moves (a conv bias
+    under an InstanceNorm has a zero gradient in exact arithmetic), the
+    reparam kernel launches once and each of the 32 convs launches its
+    weight gradient."""
+    from vae_segmentation_tpu_torch import ops, train as T
+    from vae_segmentation_tpu_torch.models import ShapeVAE
+
+    vae = ShapeVAE(n_class=2, dim=16, fmaps=(4, 8, 8, 16, 16, 32),
+                   bottleneck=256,
+                   generator=torch.Generator().manual_seed(0)).cuda()
+    before = {k: v.clone() for k, v in vae.state_dict().items()}
+    opt = T.optim.sgd(vae.parameters(), 1e-2)
+    label = (torch.rand(2, 64, 64, 64, device="cuda", generator=gen)
+             > 0.7).float()
+    ops.reset_launch_counts()
+    aux = T.make_vae_train_step(2)(vae, opt, label, gen)
+    counts = ops.launch_counts()
+    assert all(torch.isfinite(v) for v in aux.values())
+    assert counts["reparam_kl"] == 1 and counts["conv3_dk"] == 32
+    assert counts["dice_sums"] == 0 and counts["softmax_vjp"] == 1
+    for k, v in vae.state_dict().items():
+        if k.endswith(".weight"):
+            assert not torch.equal(v, before[k]), k

@@ -19,7 +19,7 @@ from vae_segmentation_tpu.ops.pallas.stencil3 import (
 from vae_segmentation_tpu.ops.pallas.upbridge import (
     down_bridge_w, down_bridge_w_pre, up_bridge_w)
 from vae_segmentation_tpu_torch import ops as port_ops
-from vae_segmentation_tpu_torch.ops import bridges, conv3
+from vae_segmentation_tpu_torch.ops import bridges, conv3, reparam
 from vae_segmentation_tpu_torch.ops.kernels import build
 
 torch.set_num_threads(2)
@@ -180,10 +180,12 @@ def test_cpu_tensors_use_plain_versions_and_build_nothing(rng):
     assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
     bridges.down_k2s2(x, _t(rng.normal(size=(2, 2, 2, 2, 2))), torch.zeros(2))
     bridges.up_k2s2(x, _t(rng.normal(size=(2, 2, 2, 2, 2))), torch.zeros(2))
+    reparam.reparam_kl(torch.zeros(2, 8), torch.ones(2, 8), 0.35,
+                       torch.tensor([3], dtype=torch.int32))
     counts = port_ops.launch_counts()
     assert sorted(counts) == sorted([
         "conv3", "down_k2s2", "up_k2s2", "conv3_dk", "down_k2s2_bwd",
-        "up_k2s2_bwd", "softmax_vjp", "dice_sums"])
+        "up_k2s2_bwd", "softmax_vjp", "dice_sums", "reparam_kl"])
     assert set(counts.values()) == {0}
     assert build.loaded() == []
     with pytest.raises(ValueError):

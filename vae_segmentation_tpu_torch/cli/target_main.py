@@ -2,12 +2,13 @@
 target_main.py), ``--method domain_adaptation``:
 
     python -m vae_segmentation_tpu_torch.cli.target_main <prefix> \\
-        --method domain_adaptation --no_aug \\
+        --method domain_adaptation \\
         --load_prefix <seg> --load_prefix_vae <vae> \\
         --domain_loss_type 8 --vae_decoder_dropout 0.5 ... [--device cpu]
 
 trains the student Joint with the live-teacher adaptation step
-(``train/steps.py``): teacher <- student copy at the start, no step in outer
+(``train/steps.py``) on the warped train batches (``data/augment.py``, off
+with ``--no_aug``): teacher <- student copy at the start, no step in outer
 epoch 0, the EMA teacher update on the reference's cadence, a loss line per
 step, the crop evaluation after every outer epoch with
 ``tensorboard/<prefix>/score_<epoch>.json`` and the best and periodic
@@ -16,31 +17,27 @@ checkpoints under ``<save_root>/<prefix>/``. With ``--test_only
 best_model.ckpt`` (a port or reference torch checkpoint) and writes
 ``score_0.json``. It runs on ``--device cuda`` unless told otherwise.
 
-Training needs ``--no_aug`` for now: the ingest is the intensity
-normalization alone. The device warp, ``--pseudo_list``, ``--resume``,
-``--val_finetune`` and every other method raise NotImplementedError naming
-the ROADMAP item that will port them.
+``--vae_forward_scale`` is accepted and changes nothing, as in the JAX
+package (its Joint always encodes with the mean latent). ``--pseudo_list``,
+``--resume``, ``--val_finetune``, ``--aug_order 3``, ``--aug_host`` and every
+other method raise NotImplementedError naming the ROADMAP item that will
+port them.
 """
 
 from __future__ import annotations
 
-import json
-import os
 import time
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from vae_segmentation_tpu_torch.core.checkpoint import (
-    checkpoint_path, load_checkpoint, save_checkpoint)
+from vae_segmentation_tpu_torch.cli import common
+from vae_segmentation_tpu_torch.cli.common import todo
 from vae_segmentation_tpu_torch.core.config import (
     TargetConfig, parse_target_args)
 from vae_segmentation_tpu_torch.core.device import resolve_device
-from vae_segmentation_tpu_torch.data.manifest import filedict_from_json
-from vae_segmentation_tpu_torch.data.pipeline import (
-    CaseDataset, TrainLoader, intensity_normalize, iterate_batches)
-from vae_segmentation_tpu_torch.data.transforms import parse_pan_index
+from vae_segmentation_tpu_torch.data.pipeline import TrainLoader
 from vae_segmentation_tpu_torch.eval.evaluate import (
     make_joint_eval_step, run_eval)
 from vae_segmentation_tpu_torch.models import (
@@ -50,23 +47,9 @@ from vae_segmentation_tpu_torch.train import (
     optim)
 
 
-def bottleneck_for(patch_size, top_fmaps: int = 256) -> int:
-    """Flattened VAE bottleneck width: fmaps[-1] * prod(patch / 32)
-    (16384 at the reference's 128^3, joint_model.py:222)."""
-    n = top_fmaps
-    for p in patch_size:
-        n *= p // 32
-    return n
-
-
 def _check_supported(cfg: TargetConfig) -> None:
-    def todo(what: str, item: str):
-        raise NotImplementedError(
-            f"{what} is not ported yet: ROADMAP.md queue 1, {item}")
-
     if cfg.method != "domain_adaptation":
-        todo(f"--method {cfg.method}",
-             "item 5 (vae_train) / item 11 (the other methods)")
+        todo(f"--method {cfg.method}", "item 11 (the other methods)")
     if cfg.val_finetune != 0:
         todo("--val_finetune (ft1 test-time training)", "item 4")
     if cfg.eval_mode != "crop":
@@ -86,24 +69,10 @@ def _check_supported(cfg: TargetConfig) -> None:
             todo("--test_only with anything but --load_prefix_joint",
                  "item 3")
         return
-    if not cfg.no_aug or cfg.aug_host:
-        todo("training without --no_aug (the device warp of "
-             "data/augment.py)", "item 3")
     if cfg.pseudo_list is not None:
         todo("--pseudo_list (source replay)", "item 3")
     if cfg.resume:
         todo("--resume", "item 3")
-    if cfg.vae_forward_scale != 0.0:
-        todo("--vae_forward_scale (the sampled latent)", "item 5")
-
-
-def _batches(ds: CaseDataset, batch_size: int, device: torch.device
-             ) -> Iterator[Dict]:
-    for batch in iterate_batches(ds, batch_size):
-        batch["image_norm"] = intensity_normalize(
-            torch.from_numpy(batch["image"]).to(device))
-        batch["label"] = torch.from_numpy(batch["label"]).to(device)
-        yield batch
 
 
 def _adapt_cfg(cfg: TargetConfig, n_class: int) -> AdaptConfig:
@@ -125,17 +94,11 @@ def _epoch_sched(cfg: TargetConfig, epoch: int, lambda_vae: float) -> Dict:
     return sched
 
 
-def _load(cfg: TargetConfig, prefix: str, name: str = "best_model.ckpt"):
-    path = checkpoint_path(cfg.save_root, prefix, name)
-    print(f"Loading checkpoint {path}")
-    return load_checkpoint(path)
-
-
 def _build_models(cfg: TargetConfig, n_class: int, device: torch.device):
     """(student, teacher) after the load matrix of main_target.py:355-394
     and the teacher <- student copy (:383-384, 427-433)."""
     kw = dict(n_class=n_class, dim=128,
-              bottleneck=bottleneck_for(cfg.patch_size))
+              bottleneck=common.bottleneck_for(cfg.patch_size))
     model = Joint(vae_decoder_dropout=cfg.vae_decoder_dropout,
                   seg_dropout=cfg.seg_dropout,
                   generator=torch.Generator().manual_seed(cfg.seed), **kw)
@@ -144,15 +107,15 @@ def _build_models(cfg: TargetConfig, n_class: int, device: torch.device):
     print("Loading prefix.")
     if cfg.load_prefix:
         load_component(teacher if cfg.from_scratch else model,
-                       _load(cfg, cfg.load_prefix, cfg.checkpoint_name),
+                       common.load(cfg, cfg.load_prefix, cfg.checkpoint_name),
                        "Seg")
     if cfg.load_prefix_vae:
-        ck = _load(cfg, cfg.load_prefix_vae)
+        ck = common.load(cfg, cfg.load_prefix_vae)
         if cfg.from_scratch:
             load_component(teacher, ck, "Vae")
         load_component(model, ck, "Vae")
     if cfg.load_prefix_joint:
-        load_state(model, _load(cfg, cfg.load_prefix_joint))
+        load_state(model, common.load(cfg, cfg.load_prefix_joint))
     if cfg.test_only or not cfg.from_scratch:
         copy_params(teacher, model)
     for p in teacher.parameters():
@@ -167,18 +130,19 @@ def _print_line(epoch: int, eval_epoch: int, idx: int, metrics: Dict) -> None:
 
 
 def _train_epoch(cfg: TargetConfig, epoch: int, loader: TrainLoader, step,
-                 model, teacher, optimizer, generator, lambda_vae: float,
-                 device: torch.device) -> float:
+                 ingest, model, teacher, optimizer, generator,
+                 lambda_vae: float) -> float:
     """One outer epoch of adaptation steps; returns lambda_vae after the
-    --tag decay."""
+    --tag decay. `generator` draws the warp and the MC dropout masks."""
+    if epoch == 0:
+        common.skip_epoch(loader)  # epoch-0 skip (main_target.py:506)
+        return lambda_vae
     sched = _epoch_sched(cfg, epoch, lambda_vae)
     # EMA cadence (main_target.py:508-509): once per inner dataset pass (the
     # list is replicated eval_epoch x), or every iteration
     ema_interval = max(len(loader) // cfg.eval_epoch, 1) \
         if cfg.pseudo_save_epoch != 0 else None
     for idx, batch in enumerate(loader):
-        if epoch == 0:
-            continue  # epoch-0 skip (main_target.py:506)
         if ema_interval is not None and \
                 epoch % max(cfg.pseudo_save_epoch // cfg.eval_epoch, 1) == 0 \
                 and (cfg.update_every_iteration or idx % ema_interval == 0):
@@ -188,9 +152,7 @@ def _train_epoch(cfg: TargetConfig, epoch: int, loader: TrainLoader, step,
             if cfg.tag:
                 lambda_vae = cfg.alpha * lambda_vae
                 sched = _epoch_sched(cfg, epoch, lambda_vae)
-        image = intensity_normalize(
-            torch.from_numpy(batch["image"]).to(device))
-        label = torch.from_numpy(batch["label"]).to(device)
+        image, label = ingest(batch, generator)
         metrics = step(model, teacher, optimizer, image, label, generator,
                        sched)
         _print_line(epoch, cfg.eval_epoch, idx, metrics)
@@ -204,27 +166,21 @@ def run(cfg: TargetConfig) -> float:
     device = resolve_device(cfg.device)
     np.random.seed(cfg.seed)
     torch.manual_seed(cfg.seed)
-    mask_index = parse_pan_index(cfg.pan_index)
-    n_class = len(mask_index)
-    patch = tuple(cfg.patch_size)
+    n_class = common.n_classes(cfg)
 
     print("Building model.")
     model, teacher = _build_models(cfg, n_class, device)
-    val_ds = CaseDataset(filedict_from_json(cfg.data_path, cfg.val_list, 1),
-                         cfg.val_data_root, mask_index=mask_index,
-                         output_size=patch)
+    val_ds = common.build_val_dataset(cfg, data_root=cfg.val_data_root,
+                                      list_key=cfg.val_list)
     eval_step = make_joint_eval_step(model, n_class)
-    os.makedirs(cfg.display_path, exist_ok=True)
+    runner = common.EpochRunner(cfg)
 
-    loader = step = optimizer = generator = None
+    loader = step = ingest = optimizer = generator = None
     if not cfg.test_only:
         print("Loading data.")
-        train_ds = CaseDataset(
-            filedict_from_json(cfg.data_path, cfg.train_list, cfg.eval_epoch),
-            cfg.data_root, mask_index=mask_index, output_size=patch,
-            shift=cfg.shift)
-        loader = TrainLoader(train_ds, cfg.batch_size, seed=cfg.seed,
-                             num_workers=cfg.num_workers)
+        loader = common.build_train_loader(cfg, data_root=cfg.data_root,
+                                           list_key=cfg.train_list)
+        ingest = common.make_train_ingest(cfg, device)
         trainable = optim.freeze_all_but_seg_head(model) if cfg.fix_layer \
             else optim.freeze_vae(model)
         optimizer = optim.build(trainable, cfg.adam, cfg.lr_seg,
@@ -234,37 +190,23 @@ def run(cfg: TargetConfig) -> float:
         print("Start training")
 
     lambda_vae = cfg.lambda_vae  # host-mutable (--tag decay)
-    best = 0.0
     for epoch in range(cfg.outer_epochs):
         if not cfg.test_only:
-            lambda_vae = _train_epoch(cfg, epoch, loader, step, model,
-                                      teacher, optimizer, generator,
-                                      lambda_vae, device)
+            lambda_vae = _train_epoch(cfg, epoch, loader, step, ingest,
+                                      model, teacher, optimizer, generator,
+                                      lambda_vae)
         print("Start evaluation")
         t0 = time.time()
-        dsc, scores = run_eval(_batches(val_ds, cfg.val_batch, device),
-                               eval_step)
-        with open(os.path.join(cfg.display_path, f"score_{epoch}.json"),
-                  "w") as f:
-            json.dump({str(k): v for k, v in scores.items()}, f)
+        dsc, scores = run_eval(
+            common.val_batches(val_ds, cfg.val_batch, device), eval_step)
+        runner.dump_scores(epoch, scores)
         print("Time: {}".format(time.time() - t0))
         if cfg.test_only:
             print("epoch 1 validation result: %f over %d cases."
                   % (dsc, len(scores)))
             return dsc
-        print("epoch %d validation result: %f, best result %f."
-              % (epoch + 1, dsc, best))
-        stamp = (epoch + 1) * cfg.eval_epoch
-        if dsc > best:
-            best = dsc
-            save_checkpoint(os.path.join(cfg.save_path, "best_model.ckpt"),
-                            epoch=stamp, model=model)
-        if (epoch + 1) % (cfg.save_epoch // cfg.eval_epoch) == 0:
-            print("saving model")
-            save_checkpoint(os.path.join(cfg.save_path,
-                                         f"model_epoch{stamp}.ckpt"),
-                            epoch=stamp, model=model)
-    return best
+        runner.end_of_epoch(epoch, dsc, model)
+    return runner.best_result
 
 
 def main(argv: Optional[List[str]] = None) -> float:

@@ -1,6 +1,6 @@
-"""The target trainer's config dataclass and argparse adapter (a copy of
-the JAX package's core/config.py, reproducing main_target.py:28-82),
-including the quirks the recipe scripts depend on:
+"""The trainers' config dataclasses and argparse adapters (a copy of the
+JAX package's core/config.py, reproducing main_source.py:22-95 and
+main_target.py:28-82), including the quirks the recipe scripts depend on:
 
   * data_path is prefixed with 'lists/' (main_source.py:78) so the recipes'
     `--data_path data/Multi_all.json` resolves to lists/data/Multi_all.json;
@@ -106,6 +106,11 @@ class CommonConfig:
     @property
     def outer_epochs(self) -> int:
         return self.max_epoch // self.eval_epoch
+
+
+@dataclass
+class SourceConfig(CommonConfig):
+    """main_source.py surface."""
 
 
 @dataclass
@@ -236,6 +241,16 @@ def _ns_to_cfg(ns: argparse.Namespace, cls):
     fields = {f.name for f in dataclasses.fields(cls)}
     kwargs = {k: v for k, v in vars(ns).items() if k in fields}
     return cls(**kwargs).finalize()
+
+
+def parse_source_args(argv: Optional[List[str]] = None) -> SourceConfig:
+    p = argparse.ArgumentParser(prog="main_source")
+    _add_common(p)
+    p.add_argument("-R", "--data_root", default="../nih_data/numpy_data/")
+    p.add_argument("-V", "--val_data_root", default="../nih_data/numpy_data/")
+    p.add_argument("-t", "--train_list", default="NIH_train")
+    p.add_argument("-v", "--val_list", default="NIH_val")
+    return _ns_to_cfg(p.parse_args(argv), SourceConfig)
 
 
 def parse_target_args(argv: Optional[List[str]] = None) -> TargetConfig:

@@ -5,9 +5,12 @@ of vae_segmentation_tpu/models/vae.py).
 flatten to the bottleneck (16384 at 128^3, as the reference's
 ``x.view(B, -1)`` of NCDHW), fc_mean / fc_std (ReLU std) -> latent 128,
 fc2 decode, 5 Up stages, softmax head. The dense layers are plain
-``F.linear`` products in the compute dtype. The latent is deterministic
-(``if_random=False``; the sampled latent arrives with ``vae_train``); the
-decoder's MC dropout is ported (joint_model.py:255-264).
+``F.linear`` products in the compute dtype. ``if_random=True`` samples the
+latent, mean + eps * std * scale, through ``ops.reparam`` (the hand-written
+kernel on the card, eps drawn inside it from a seed out of the caller's
+generator; vae.py:171-187 of the JAX package); ``reparameterize`` also
+returns the KL term that the same call computes (the ``vae_train`` step).
+The decoder's MC dropout is ported (joint_model.py:255-264).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch.nn.functional as F
 from vae_segmentation_tpu_torch.models.blocks import (
     DEFAULT_FMAPS, Conv3, ConvNormAct, Down, Up, apply_affine_relu,
     mc_dropout, torch_uniform_init)
+from vae_segmentation_tpu_torch.ops import reparam
 
 
 def _linear(cin: int, cout: int, generator) -> nn.Linear:
@@ -106,16 +110,27 @@ class ShapeVAE(nn.Module):
             aff = None
         return self.out_block(h, pre=aff, softmax=True)
 
+    def reparameterize(self, mean: torch.Tensor, std: torch.Tensor,
+                       scale: float, generator: Optional[torch.Generator]
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(latent, kl): latent = mean + eps * std * scale and the batch-mean
+        KL term, from one ``ops.reparam.reparam_kl`` call whose eps is drawn
+        from a seed out of `generator` (on mean's device). At scale 0 the
+        latent equals mean."""
+        seed = reparam.draw_seed(generator, mean.device)
+        latent, kl, _ = reparam.reparam_kl(mean, std, scale, seed)
+        return latent, kl
+
     def forward(self, x: torch.Tensor, if_random: bool = False,
-                scale: float = 0.0, mid_input: bool = False,
+                scale: float = 1.0, mid_input: bool = False,
                 dropout: float = 0.0,
                 generator: Optional[torch.Generator] = None):
-        """(recon, mean, std), or recon alone with mid_input (x a latent)."""
-        if if_random:
-            raise NotImplementedError(
-                "sampled latents arrive with vae_train (ROADMAP queue 1, "
-                "item 5)")
+        """(recon, mean, std), or recon alone with mid_input (x a latent).
+        if_random samples the latent (``reparameterize``); ``generator``
+        feeds that draw and the decoder's MC dropout."""
         if mid_input:
             return self.decode(x, dropout, generator)
         mean, std = self.encode(x)
-        return self.decode(mean, dropout, generator), mean, std
+        latent = self.reparameterize(mean, std, scale, generator)[0] \
+            if if_random else mean
+        return self.decode(latent, dropout, generator), mean, std

@@ -112,16 +112,24 @@ def load_state(model: torch.nn.Module, state: Any) -> torch.nn.Module:
     return model
 
 
-def load_component(model: torch.nn.Module, state: Any,
-                   name: str) -> torch.nn.Module:
-    """Load only the submodule `name` ('Seg' or 'Vae') of a composite
-    `model`, strictly (--load_prefix / --load_prefix_vae,
-    main_target.py:355-394): from a composite checkpoint its ``<name>.*``
-    keys, from a checkpoint of that network alone every key."""
+def load_network(net: torch.nn.Module, state: Any,
+                 name: str) -> torch.nn.Module:
+    """Load a bare network `net` (SegUNet or ShapeVAE), strictly: from a
+    composite checkpoint its ``<name>.*`` keys ('Seg' or 'Vae'), from a
+    checkpoint of that network alone every key."""
     sd = _state_dict(state)
     prefix = name + "."
     if any(k.startswith(prefix) for k in sd):
         sd = {k[len(prefix):]: v for k, v in sd.items()
               if k.startswith(prefix)}
-    getattr(model, name).load_state_dict(sd, strict=True)
+    net.load_state_dict(sd, strict=True)
+    return net
+
+
+def load_component(model: torch.nn.Module, state: Any,
+                   name: str) -> torch.nn.Module:
+    """Load only the submodule `name` ('Seg' or 'Vae') of a composite
+    `model` (--load_prefix / --load_prefix_vae, main_target.py:355-394),
+    as ``load_network`` does."""
+    load_network(getattr(model, name), state, name)
     return model

@@ -1,15 +1,15 @@
 """Losses and the hand-written kernels with their plain PyTorch versions
 and launch counters: K1 ``conv3.conv3`` with ``conv3.conv3_dk``, K2
-``bridges.down_k2s2`` and K3 ``bridges.up_k2s2`` with their backwards, and
-``losses.softmax_vjp`` / ``losses.dice_sums``."""
+``bridges.down_k2s2`` and K3 ``bridges.up_k2s2`` with their backwards,
+``losses.softmax_vjp`` / ``losses.dice_sums`` and ``reparam.reparam_kl``."""
 
 from typing import Dict
 
-from vae_segmentation_tpu_torch.ops import bridges, conv3, losses
+from vae_segmentation_tpu_torch.ops import bridges, conv3, losses, reparam
 
 KERNELS = (conv3.conv3, bridges.down_k2s2, bridges.up_k2s2, conv3.conv3_dk,
            bridges.down_k2s2_bwd, bridges.up_k2s2_bwd, losses.softmax_vjp,
-           losses.dice_sums)
+           losses.dice_sums, reparam.reparam_kl)
 
 
 def reset_launch_counts() -> None:

@@ -230,8 +230,9 @@ def conv3_dk(x: torch.Tensor, gy: torch.Tensor,
     s = t = None
     if pre is not None:
         s, t = check_affine("conv3_dk", pre, dev, b, cin)
-    dk = torch.zeros((27, cin, cout), dtype=torch.float32, device=dev)
-    db = torch.zeros((cout,), dtype=torch.float32, device=dev)
+    # f64 across the kernel's blocks (a cancelling sum), rounded once here
+    dk = torch.zeros((27, cin, cout), dtype=torch.float64, device=dev)
+    db = torch.zeros((cout,), dtype=torch.float64, device=dev)
     lib = build.library("conv3_dk")
     with torch.cuda.device(dev):
         rc = lib.vaeseg_conv3_dk(
@@ -240,7 +241,7 @@ def conv3_dk(x: torch.Tensor, gy: torch.Tensor,
             torch.cuda.current_stream(dev).cuda_stream)
     raise_if(rc, lib, "conv3_dk")
     conv3_dk.launches += 1
-    return dk, db
+    return dk.float(), db.float()
 
 
 def stats_cotangent(y: torch.Tensor, gy: Optional[torch.Tensor],

@@ -49,6 +49,11 @@ SIGNATURES = {
         "vaeseg_bridge_bwd": [_I] + [_P] * 9 + [_I] * 6 + [_P],
         "vaeseg_error_string": [_I],
     },
+    "reparam": {
+        "vaeseg_reparam_kl": [_P, _P, _P, ctypes.c_float, _P, _P, _P, _I, _I,
+                              _P],
+        "vaeseg_error_string": [_I],
+    },
     "losses": {
         "vaeseg_softmax_vjp": [_P, _P, _P, _L, _I, _P],
         "vaeseg_dice_sums": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _P],

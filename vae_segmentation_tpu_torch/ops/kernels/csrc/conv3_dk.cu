@@ -22,11 +22,21 @@
 // (tap, slice) keeps a CIT x COT partial in registers over every eighth
 // voxel of the tile and over all tiles the block walks (a grid-stride loop:
 // a block visits many tiles, so it adds to device memory once, not once a
-// tile); the eight slices meet in shared memory, and one f32 atomicAdd per
+// tile); the eight slices meet in shared memory, and one atomicAdd per
 // (tap, c, o) and block reaches dk, so the grid is kept to two blocks per
-// SM. The order of those atomics varies from run to run. This first
-// version runs on the CUDA cores in f32; wgmma
-// tiles are later work.
+// SM. The order of those atomics varies from run to run.
+//
+// Precision: the weight gradient of a conv under an InstanceNorm cancels
+// (the norm's backward leaves gy orthogonal to constants), and db is zero
+// in exact arithmetic there, so the sums end orders of magnitude below
+// their terms. dk and db accumulate across blocks in f64 (the wrapper
+// rounds them to f32 once at the end), and the threads that sum db do so in
+// f64 throughout: it costs them nothing beside the dk work. A second
+// register set per thread (a tile's chain, then the block's tiles) made dk
+// exact to 2e-6 but cost the 8 x 8 variant its second block per SM and
+// the step 40% more time in this kernel, so dk's register chains stay f32.
+// This first version runs on the CUDA cores in f32; wgmma tiles are later
+// work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,8 +55,8 @@ struct DkArgs {
   const __nv_bfloat16* gy;  // [B, D, H, W, Cout]
   const float* s;           // [B, Cin] prologue scale, or null
   const float* t;           // [B, Cin] prologue shift
-  float* dk;                // [27, Cin, Cout], zeroed by the caller
-  float* db;                // [Cout], zeroed by the caller
+  double* dk;               // [27, Cin, Cout], zeroed by the caller
+  double* db;               // [Cout], zeroed by the caller
   int B, D, H, W, Cin, Cout;
   int td, th, tw;           // spatial tile
   int tiles_d, tiles_h, tiles_w;
@@ -83,7 +93,7 @@ __global__ void __launch_bounds__(kThreads) conv3_dk_kernel(const DkArgs a) {
   float acc[CIT * COT];
 #pragma unroll
   for (int i = 0; i < CIT * COT; ++i) acc[i] = 0.f;
-  float bsum = 0.f;
+  double bsum = 0.0;
 
   for (int p = tid; p < halo; p += kThreads)
     hpos[p] = ((p / (hw * hh)) << 20) | (((p / hw) % hh) << 10) | (p % hw);
@@ -148,7 +158,7 @@ __global__ void __launch_bounds__(kThreads) conv3_dk_kernel(const DkArgs a) {
         }
       }
     } else if (sums_bias) {
-      float part = 0.f;
+      double part = 0.0;
       for (int v = bias_part; v < nvox; v += kBiasParts) part += sg[v * COT + bias_c];
       bsum += part;
     }
@@ -165,7 +175,8 @@ __global__ void __launch_bounds__(kThreads) conv3_dk_kernel(const DkArgs a) {
   for (int i = tid; i < 27 * CIT * COT; i += kThreads) {
     const int co = i % COT, ci = (i / COT) % CIT, tp = i / (COT * CIT);
     if (ci0 + ci < a.Cin && co0 + co < a.Cout)
-      atomicAdd(&a.dk[((int64_t)tp * a.Cin + ci0 + ci) * a.Cout + co0 + co], sred[i]);
+      atomicAdd(&a.dk[((int64_t)tp * a.Cin + ci0 + ci) * a.Cout + co0 + co],
+                static_cast<double>(sred[i]));
   }
   if (sums_bias && co0 + bias_c < a.Cout) atomicAdd(&a.db[co0 + bias_c], bsum);
 }
@@ -218,7 +229,8 @@ const char* vaeseg_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// dk [27, Cin, Cout] and db [Cout] must arrive zeroed; s/t may be null.
+// dk [27, Cin, Cout] and db [Cout] are f64 and must arrive zeroed; s/t may
+// be null.
 // Returns cudaGetLastError() after the launch (0 on success).
 int vaeseg_conv3_dk(const void* x, const void* gy, const void* s, const void* t,
                     void* dk, void* db, int B, int D, int H, int W, int Cin,
@@ -230,8 +242,8 @@ int vaeseg_conv3_dk(const void* x, const void* gy, const void* s, const void* t,
   a.gy = static_cast<const __nv_bfloat16*>(gy);
   a.s = static_cast<const float*>(s);
   a.t = static_cast<const float*>(t);
-  a.dk = static_cast<float*>(dk);
-  a.db = static_cast<float*>(db);
+  a.dk = static_cast<double*>(dk);
+  a.db = static_cast<double*>(db);
   a.B = B; a.D = D; a.H = H; a.W = W; a.Cin = Cin; a.Cout = Cout;
   a.tw = W < 16 ? W : 16;
   a.th = H < 8 ? H : 8;

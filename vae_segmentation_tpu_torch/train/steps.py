@@ -1,16 +1,18 @@
-"""The adaptation train step (counterpart of vae_segmentation_tpu/train/
-steps.py::make_adapt_step and what it calls; reference
-main_target.py:505-613).
+"""The train steps (counterparts of vae_segmentation_tpu/train/steps.py):
+the two source-domain steps, ``make_vae_train_step`` (the shape-prior VAE
+on ground-truth masks, main_source.py:389-413) and ``make_seg_train_step``
+(the supervised SegUNet, main_source.py:415-446), and the adaptation step
+``make_adapt_step`` with what it calls (main_target.py:505-613).
 
-One step: the teacher's Seg forward without gradients (plus its VAE encode
-for the KL term), a binarized pseudo-label, the student Joint forward with
-MC dropout, three soft Dices of the student's prediction (against the VAE
+One adaptation step: the teacher's Seg forward without gradients (plus its
+VAE encode for the KL term), a binarized pseudo-label, the student Joint
+forward with MC dropout, three soft Dices of the student's prediction (against the VAE
 reconstruction, the pseudo-label and the one-hot label) from one fused
 ``dice_sums`` pass, the ``adapt_loss`` dispatch over ``domain_loss_type``,
 backward through the hand-written kernels, and the optimizer's update of
 whatever ``train.optim`` left trainable.
 
-The step is a plain eager callable. Scalars that change between epochs
+Every step is a plain eager callable. Scalars that change between epochs
 (lambda_vae with its --tag decay, the warmup ramp, the turn phase) travel
 in the ``sched`` dict; the loss arithmetic stays on the device
 (``torch.where``, no ``.item()``), so a step never waits for the card.
@@ -38,6 +40,63 @@ class AdaptConfig:
     vae_mont_number: int = 1           # --vae_mont_number
     turn_enabled: bool = False         # --turn_epoch != -1
     kl_weight: float = 2e-5
+
+
+def make_vae_train_step(n_class: int, *, scale: float = 0.35,
+                        kl_weight: float = 2e-5,
+                        eps: float = L.SOURCE_EPS) -> Callable:
+    """The VAE shape-prior step (main_source.py:389-413; steps.py:142-188 of
+    the JAX package with its fused reparam path):
+
+        step(model, optimizer, label, generator) -> aux
+
+    loss = (1 - avg_dsc(recon, onehot) over classes [1, n_class)) + kl_weight
+    * KL, the latent sampled at reparam `scale` by ``ShapeVAE.
+    reparameterize`` (one ``reparam_kl`` call: the kernel on the card, its
+    seed drawn from ``generator``, which lives on the label's device).
+    label [B, D, H, W] holds class values; the optimizer updates the
+    ShapeVAE `model` in place; aux holds the detached 'dice_loss' and
+    'kl_loss'."""
+
+    def step(model, optimizer, label, generator):
+        onehot = L.one_hot_label(label, n_class)
+        optimizer.zero_grad(set_to_none=True)
+        mean, std = model.encode(onehot)
+        latent, klv = model.reparameterize(mean, std, scale, generator)
+        recon = model.decode(latent)
+        dsc_loss = 1.0 - L.avg_dsc(recon, onehot, botindex=1,
+                                   topindex=n_class, eps=eps)
+        (dsc_loss + kl_weight * klv).backward()
+        optimizer.step()
+        return {"dice_loss": dsc_loss.detach(), "kl_loss": klv.detach()}
+
+    return step
+
+
+def make_seg_train_step(n_class: int, *, eps: float = L.SOURCE_EPS
+                        ) -> Callable:
+    """The supervised segmentation step (main_source.py:415-446;
+    steps.py:191-210 of the JAX package):
+
+        step(model, optimizer, image, label) -> aux
+
+    loss = 1 - avg_dsc(pred, onehot) over classes [1, n_class); image
+    [B, D, H, W] (normalized) or [B, D, H, W, 1], label class values; the
+    optimizer updates the SegUNet `model` in place; aux holds the detached
+    'dice_loss'."""
+
+    def step(model, optimizer, image, label):
+        img = image if image.dim() == 5 else image[..., None]
+        onehot = L.one_hot_label(label, n_class)
+        optimizer.zero_grad(set_to_none=True)
+        pred = model(img)
+        dsc_loss = 1.0 - L.avg_dsc(pred, onehot, botindex=1,
+                                   topindex=n_class, eps=eps)
+        dsc_loss.backward()
+        optimizer.step()
+        return {"dice_loss": dsc_loss.detach()}
+
+    return step
 
 
 def default_sched(lambda_vae: float) -> Dict[str, float]:
