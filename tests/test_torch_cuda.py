@@ -12,7 +12,8 @@ This file imports torch only, so it also runs on a machine without JAX:
 import pytest
 import torch
 
-from vae_segmentation_tpu_torch.ops import bridges, conv3, losses, reparam
+from vae_segmentation_tpu_torch.ops import (
+    bridges, conv3, instance_norm, losses, reparam)
 
 pytestmark = pytest.mark.cuda
 
@@ -424,3 +425,133 @@ def test_vae_train_step_on_the_card(gen):
     for k, v in vae.state_dict().items():
         if k.endswith(".weight"):
             assert not torch.equal(v, before[k]), k
+
+
+# ---- the InstanceNorm kernels (kernels/csrc/instance_norm.cu) and the
+# merged conv backward (kernels/csrc/conv3_bwd.cu)
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 9, 19, 3), (1, 8, 8, 8, 256),
+                                   (2, 7, 6, 5, 16), (1, 4, 4, 4, 128)])
+def test_norm_kernels_match_plain(gen, shape):
+    """norm_stats and norm_bwd_sums within 1e-4 of their largest element
+    (f64 across blocks against the plain f32 sums), norm_apply and
+    norm_bwd_dx within 1e-2 of max|y| (bf16), relu on and off; one launch
+    each."""
+    b, c = shape[0], shape[-1]
+    x = (_rnd(gen, *shape) * 3 + 1).bfloat16()
+    g = _rnd(gen, *shape).bfloat16()
+    n = x.numel() // (b * c)
+    before = {k: getattr(instance_norm, k).launches for k in (
+        "norm_stats", "norm_apply", "norm_bwd_sums", "norm_bwd_dx")}
+    st = instance_norm.norm_stats(x)
+    st_plain = instance_norm.norm_stats_plain(x)
+    for r in range(2):
+        assert _rel(st[:, r], st_plain[:, r]) <= 1e-4, r
+    s, t = instance_norm.affine_from_stats(st, n)
+    for relu in (True, False):
+        _close(instance_norm.norm_apply(x, s, t, relu),
+               instance_norm.norm_apply_plain(x, s, t, relu), 1e-2)
+        sums = instance_norm.norm_bwd_sums(x, g, s, t, relu)
+        want = instance_norm.norm_bwd_sums_plain(x, g, s, t, relu)
+        for r in range(2):
+            assert _rel(sums[:, r], want[:, r]) <= 1e-4, r
+        m = want / n
+        _close(instance_norm.norm_bwd_dx(x, g, s, t, m, relu),
+               instance_norm.norm_bwd_dx_plain(x, g, s, t, m, relu), 1e-2)
+    torch.cuda.synchronize()
+    assert {k: getattr(instance_norm, k).launches - v
+            for k, v in before.items()} == {
+        "norm_stats": 1, "norm_apply": 2, "norm_bwd_sums": 2,
+        "norm_bwd_dx": 2}
+
+
+def test_instance_norm_function_gradients(gen):
+    """instance_norm_act on the card (stats, apply; backward sums, dx)
+    against autograd through the plain forward, bf16, 5e-2."""
+    x = (_rnd(gen, 2, 6, 10, 20, 8) * 2 + 0.5).bfloat16()
+
+    def plain(x):
+        st = instance_norm.norm_stats_plain(x)
+        s, t = instance_norm.affine_from_stats(st, 6 * 10 * 20)
+        return instance_norm.norm_apply_plain(x, s, t)
+
+    got = _grads(instance_norm.instance_norm_act, (x,))
+    want = _grads(plain, (x,))
+    assert _rel(got[0], want[0]) <= 5e-2
+
+
+@pytest.mark.parametrize("shape,cout,pre", [
+    ((2, 5, 9, 19, 3), 5, True),      # ragged tiles, odd channels
+    ((1, 3, 17, 7, 1), 8, False),
+    ((1, 8, 8, 16, 16), 2, True),     # a head: Cout 2
+    ((2, 4, 4, 4, 24), 48, False),
+    ((1, 4, 4, 4, 256), 256, True),   # the deepest stage: 2 channels a block
+])
+def test_conv3_merged_backward_matches_plain(gen, shape, cout, pre):
+    """conv3_bwd against its plain version (the pair): dx within 1e-2 of
+    max|dx| (bf16), dk, db, ds, dt within 1e-3 of their largest element;
+    one launch."""
+    b, cin = shape[0], shape[-1]
+    x = _rnd(gen, *shape).bfloat16()
+    gy = _rnd(gen, *shape[:-1], cout).bfloat16()
+    w = _rnd(gen, cout, cin, 3, 3, 3, scale=(27 * cin) ** -0.5)
+    aff = (_rnd(gen, b, cin).abs() + 0.5, _rnd(gen, b, cin, scale=0.3)) \
+        if pre else None
+    before = conv3.conv3_bwd.launches
+    got = conv3.conv3_bwd(x, gy, w, conv3.kernel_weight(w), aff)
+    torch.cuda.synchronize()
+    assert conv3.conv3_bwd.launches == before + 1
+    want = conv3.conv3_bwd_plain(x, gy, w, aff)
+    assert _rel(got[0], want[0]) <= 1e-2
+    assert _rel(got[1], want[1]) <= 1e-3 and _rel(got[2], want[2]) <= 1e-3
+    if pre:
+        assert _rel(got[3], want[3]) <= 1e-3
+    else:
+        assert got[3] is None
+
+
+def test_conv3_merged_function_gradients(gen, monkeypatch):
+    """The K1 Function's backward under VAESEG_MERGED_BWD=1: one merged
+    launch for dx, dw, db, ds, dt, against autograd through the plain
+    forward (bf16, 5e-2); with the weight frozen the pair's dx conv runs
+    instead."""
+    monkeypatch.setenv("VAESEG_MERGED_BWD", "1")
+    b, cin, cout = 2, 8, 16
+    x = _rnd(gen, b, 6, 10, 20, cin).bfloat16()
+    w = _rnd(gen, cout, cin, 3, 3, 3, scale=(27 * cin) ** -0.5)
+    bias = _rnd(gen, cout)
+    s, t = _rnd(gen, b, cin).abs() + 0.5, _rnd(gen, b, cin, scale=0.3)
+
+    def kernel(x, w, bias, s, t):
+        return conv3.conv3(x, w, bias, conv3.kernel_weight(w), (s, t))
+
+    def plain(x, w, bias, s, t):
+        return conv3.conv3_plain(x, w, bias, (s, t))
+
+    before = (conv3.conv3.launches, conv3.conv3_dk.launches,
+              conv3.conv3_bwd.launches)
+    got = _grads(kernel, (x, w, bias, s, t))
+    assert (conv3.conv3.launches, conv3.conv3_dk.launches,
+            conv3.conv3_bwd.launches) == (before[0] + 1, before[1],
+                                          before[2] + 1)
+    want = _grads(plain, (x, w, bias, s, t))
+    for name, g_, w_ in zip(("dx", "dw", "db", "ds", "dt"), got, want):
+        assert _rel(g_, w_) <= 5e-2, name
+    xl = x.clone().requires_grad_(True)
+    kernel(xl, w, bias, s, t).float().sum().backward()
+    assert conv3.conv3_bwd.launches == before[2] + 1
+
+
+def test_new_wrappers_reject_what_the_kernels_do_not_take(gen):
+    x = _rnd(gen, 1, 4, 4, 4, 8)
+    s, t = _rnd(gen, 1, 8).abs() + 0.5, _rnd(gen, 1, 8)
+    with pytest.raises(ValueError):  # f32 activations
+        instance_norm.norm_stats(x)
+    with pytest.raises(ValueError):  # an affine of the wrong shape
+        instance_norm.norm_apply(x.bfloat16(), s[:, :4], t[:, :4])
+    w = _rnd(gen, 8, 8, 3, 3, 3)
+    with pytest.raises(ValueError):  # no kernel-layout weight
+        conv3.conv3_bwd(x.bfloat16(), x.bfloat16(), w)
+    with pytest.raises(ValueError):  # f32 cotangent
+        conv3.conv3_bwd(x.bfloat16(), x, w, conv3.kernel_weight(w))

@@ -182,10 +182,12 @@ def test_cpu_tensors_use_plain_versions_and_build_nothing(rng):
     bridges.up_k2s2(x, _t(rng.normal(size=(2, 2, 2, 2, 2))), torch.zeros(2))
     reparam.reparam_kl(torch.zeros(2, 8), torch.ones(2, 8), 0.35,
                        torch.tensor([3], dtype=torch.int32))
+    conv3.conv3_bwd(x, y, w)
     counts = port_ops.launch_counts()
     assert sorted(counts) == sorted([
         "conv3", "down_k2s2", "up_k2s2", "conv3_dk", "down_k2s2_bwd",
-        "up_k2s2_bwd", "softmax_vjp", "dice_sums", "reparam_kl"])
+        "up_k2s2_bwd", "softmax_vjp", "dice_sums", "reparam_kl", "conv3_bwd",
+        "norm_stats", "norm_apply", "norm_bwd_sums", "norm_bwd_dx"])
     assert set(counts.values()) == {0}
     assert build.loaded() == []
     with pytest.raises(ValueError):

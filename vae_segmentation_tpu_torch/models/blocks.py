@@ -15,6 +15,13 @@ the next conv's prologue, and a deferred stage-final norm (``defer=True``)
 rides into the consumer's prologue. Norms that feed a skip-add or a stage
 boundary are applied here as plain elementwise ops.
 
+The norm route (``use_pallas_norm``, VAESEG_PALLAS=1, the JAX package's
+switch) is the JAX package's logical route with that switch on
+(blocks.py:518-534, 886-921, 954-989 with no stats and no fold): every conv
+runs K1 with no prologue and no stats epilogue, every norm+ReLU is
+``ops.instance_norm.instance_norm_act`` on the stored conv output, and no
+affine is deferred (the blocks hand their consumers ``None``).
+
 Parameters keep the reference's torch ``state_dict`` keys and shapes
 (models/torch_compat.py:8-28 of the JAX package). On a CUDA device a leaf
 module derives the layout its kernel reads (bf16, tap-major) from ``weight``
@@ -28,12 +35,15 @@ and W-pack (ops/s2d.py) are not ported: they only filled the TPU's
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
 from vae_segmentation_tpu_torch.ops import bridges, conv3 as conv3_ops
+from vae_segmentation_tpu_torch.ops.instance_norm import (
+    affine_from_stats, instance_norm_act)
 
 DEFAULT_FMAPS: Tuple[int, ...] = (8, 16, 32, 64, 128, 256)
 Affine = Tuple[torch.Tensor, torch.Tensor]
@@ -48,15 +58,11 @@ def torch_uniform_init(shape: Sequence[int], fan_in: int,
                                               generator=generator)
 
 
-def affine_from_stats(st: torch.Tensor, n_spatial: int,
-                      eps: float = 1e-5) -> Affine:
-    """InstanceNorm (scale, shift), each [B, C] f32, from a conv's
-    [B, 2, C] (sum, sumsq) stats (blocks.py:352-369): biased variance,
-    eps 1e-5, as torch's InstanceNorm3d."""
-    mean = st[:, 0] / n_spatial
-    var = st[:, 1] / n_spatial - mean * mean
-    rstd = torch.rsqrt(torch.clamp(var, min=0.0) + eps)
-    return rstd, -mean * rstd
+def use_pallas_norm() -> bool:
+    """The norm route under VAESEG_PALLAS=1 (the JAX package's
+    ``blocks.py::use_pallas_norm``), read on every forward as the JAX
+    function is read at trace time."""
+    return os.environ.get("VAESEG_PALLAS") == "1"
 
 
 def apply_affine_relu(x: torch.Tensor, aff: Affine) -> torch.Tensor:
@@ -159,14 +165,17 @@ class ConvNormAct(nn.Module):
     """conv3^3 + InstanceNorm + ReLU (reference ``Conv``). Returns the raw
     conv output and its norm affine: the norm+ReLU is applied by the
     consumer (the down1 entry's K2 prologue), so the normalized tensor is
-    never stored."""
+    never stored. On the norm route: the normalized output and None."""
 
     def __init__(self, cin: int, cout: int,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.conv = nn.ModuleDict({"0": Conv3(cin, cout, generator)})
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Affine]:
+    def forward(self, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, Optional[Affine]]:
+        if use_pallas_norm():
+            return instance_norm_act(self.conv["0"](x)), None
         y, st = self.conv["0"](x, stats=True)
         return y, affine_from_stats(st, _n_spatial(y))
 
@@ -176,7 +185,8 @@ class DoubleConv(nn.Module):
     is a triple conv. Each norm's affine comes from the conv's stats
     epilogue and each norm+ReLU after the first two convs is the next
     conv's prologue. defer=True returns (raw, affine) for the chain-final
-    norm instead of applying it."""
+    norm instead of applying it. On the norm route every norm+ReLU is
+    ``instance_norm_act`` and defer=True returns (normalized, None)."""
 
     _KEYS = ("0", "3", "6")  # reference indices (norm/ReLU at 1, 2, 4, ...)
 
@@ -189,6 +199,10 @@ class DoubleConv(nn.Module):
             "6": Conv3(cout, cout, generator)})
 
     def forward(self, x: torch.Tensor, defer: bool = False):
+        if use_pallas_norm():
+            for key in self._KEYS:
+                x = instance_norm_act(self.conv[key](x))
+            return (x, None) if defer else x
         pre = None
         for key in self._KEYS:
             x, st = self.conv[key](x, pre=pre, stats=True)

@@ -6,7 +6,9 @@ skip-adds after up3 and up4 (joint_model.py:380-382), 3^3 conv head with
 the class softmax in K1's epilogue. The in_block's norm+ReLU is the down1
 entry's prologue and up5's final norm+ReLU the head's prologue
 (unet.py:92-120 of the JAX package); with MC dropout active the norm is
-applied inline and the softmax follows the head's own dropout.
+applied inline and the softmax follows the head's own dropout. On the norm
+route (``blocks.use_pallas_norm``) the blocks return normalized tensors and
+no affine (unet.py:86-137 with ``fold`` false).
 """
 
 from __future__ import annotations
@@ -62,5 +64,7 @@ class SegUNet(nn.Module):
         h, aff5 = self.up5(h, defer=True)
         if not dropout:
             return self.out_block(h, pre=aff5, softmax=True)
-        h = drop(self.out_block(drop(apply_affine_relu(h, aff5))))
+        if aff5 is not None:
+            h = apply_affine_relu(h, aff5)
+        h = drop(self.out_block(drop(h)))
         return torch.softmax(h.float(), dim=-1).to(self.dtype)

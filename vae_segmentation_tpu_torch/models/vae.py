@@ -10,7 +10,9 @@ latent, mean + eps * std * scale, through ``ops.reparam`` (the hand-written
 kernel on the card, eps drawn inside it from a seed out of the caller's
 generator; vae.py:171-187 of the JAX package); ``reparameterize`` also
 returns the KL term that the same call computes (the ``vae_train`` step).
-The decoder's MC dropout is ported (joint_model.py:255-264).
+The decoder's MC dropout is ported (joint_model.py:255-264). On the norm
+route (``blocks.use_pallas_norm``) the blocks return normalized tensors and
+no affine (vae.py:113-166 with ``fold`` false).
 """
 
 from __future__ import annotations
@@ -106,7 +108,9 @@ class ShapeVAE(nn.Module):
             h = mc_dropout(up(h), dropout, generator)
         h, aff = self.up5(h, defer=True)
         if dropout:
-            h = mc_dropout(apply_affine_relu(h, aff), dropout, generator)
+            if aff is not None:
+                h = apply_affine_relu(h, aff)
+            h = mc_dropout(h, dropout, generator)
             aff = None
         return self.out_block(h, pre=aff, softmax=True)
 

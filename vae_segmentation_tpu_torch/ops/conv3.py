@@ -17,12 +17,19 @@ on a CPU tensor and launches its hand-written kernel
 ``conv3_dk`` replaces ``::_run_dk_grouped`` and ``::_run_dk``. The source
 notes say what bounds them on the H100.
 
-``conv3.launches`` / ``conv3_dk.launches`` count kernel launches (never the
-plain versions).
+Under ``VAESEG_MERGED_BWD=1`` (``use_merged_bwd``, the JAX package's
+switch) a backward that needs both a dx-side gradient (x, s or t) and a
+weight-side one (weight or bias) launches ``conv3_bwd`` once instead of the
+pair: the merged kernel ``kernels/csrc/conv3_bwd.cu`` (replacing
+``stencil3.py::_run_bwd_grouped``) reads x and gy once for dx, dk and db.
+
+``conv3.launches`` / ``conv3_dk.launches`` / ``conv3_bwd.launches`` count
+kernel launches (never the plain versions).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -244,6 +251,78 @@ def conv3_dk(x: torch.Tensor, gy: torch.Tensor,
     return dk.float(), db.float()
 
 
+def use_merged_bwd() -> bool:
+    """The merged dx + dk backward (``conv3_bwd``) under
+    VAESEG_MERGED_BWD=1, read when a backward runs, as the JAX package's
+    ``stencil3.py::use_merged_bwd`` is read at trace time. Off by default,
+    as there: the TPU measured it slower than the pair."""
+    return os.environ.get("VAESEG_MERGED_BWD", "0") == "1"
+
+
+def conv3_bwd_plain(x: torch.Tensor, gy: torch.Tensor, weight: torch.Tensor,
+                    pre: Optional[Affine] = None):
+    """The plain merged backward of K1: the pair it replaces, the dx conv
+    (``conv3_plain`` on the flipped, transposed weight, with the prologue's
+    backward as its ``post`` epilogue) and ``conv3_dk_plain``. x
+    [B, D, H, W, Cin] and gy [B, D, H, W, Cout] in the compute dtype,
+    weight the torch layout [Cout, Cin, 3, 3, 3], pre = (s, t) [B, Cin] f32
+    or None. Returns (dx in x.dtype, dk [27, Cin, Cout] f32, db [Cout] f32,
+    dst [B, 2, Cin] f32 = (ds, dt) with the prologue, else None)."""
+    w_t = weight.detach().flip(2, 3, 4).transpose(0, 1)
+    if pre is None:
+        dx, dst = conv3_plain(gy, w_t, None), None
+    else:
+        dx, dst = conv3_plain(gy, w_t, None, post=(x, *pre))
+    dk, db = conv3_dk_plain(x, gy, pre)
+    return dx, dk, db, dst
+
+
+def conv3_bwd(x: torch.Tensor, gy: torch.Tensor, weight: torch.Tensor,
+              kweight: Optional[torch.Tensor] = None,
+              pre: Optional[Affine] = None):
+    """Row 5, the merged backward: same contract as ``conv3_bwd_plain``; on
+    CUDA, x and gy must be bf16 and ``kweight`` the forward's weight in the
+    kernel's layout (``kernel_weight``), which the kernel reads flipped."""
+    if x.device.type == "cpu":
+        return conv3_bwd_plain(x, gy, weight, pre)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"conv3_bwd: no kernel for device {x.device}")
+    from vae_segmentation_tpu_torch.ops.kernels import build
+
+    if x.dim() != 5:
+        raise ValueError(f"conv3_bwd: x must be [B, D, H, W, C], got "
+                         f"{x.shape}")
+    if kweight is None:
+        raise ValueError("conv3_bwd: CUDA launch needs the kernel-layout "
+                         "weight")
+    b, d, h, w, cin = x.shape
+    cout = gy.shape[-1]
+    dev = x.device
+    check_tensor("conv3_bwd", "x", x, dev, torch.bfloat16, (b, d, h, w, cin))
+    check_tensor("conv3_bwd", "gy", gy, dev, torch.bfloat16,
+                 (b, d, h, w, cout))
+    check_tensor("conv3_bwd", "kweight", kweight, dev, torch.bfloat16,
+                 (27, cin, cout))
+    s = t = dst = None
+    if pre is not None:
+        s, t = check_affine("conv3_bwd", pre, dev, b, cin)
+        dst = torch.zeros((b, 2, cin), dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x)
+    # f64 across the kernel's blocks (cancelling sums), rounded once here
+    dk = torch.zeros((27, cin, cout), dtype=torch.float64, device=dev)
+    db = torch.zeros((cout,), dtype=torch.float64, device=dev)
+    lib = build.library("conv3_bwd")
+    with torch.cuda.device(dev):
+        rc = lib.vaeseg_conv3_bwd(
+            x.data_ptr(), gy.data_ptr(), kweight.data_ptr(), _ptr(s),
+            _ptr(t), dx.data_ptr(), _ptr(dst), dk.data_ptr(), db.data_ptr(),
+            b, d, h, w, cin, cout,
+            torch.cuda.current_stream(dev).cuda_stream)
+    raise_if(rc, lib, "conv3_bwd")
+    conv3_bwd.launches += 1
+    return dx, dk.float(), db.float(), dst
+
+
 def stats_cotangent(y: torch.Tensor, gy: Optional[torch.Tensor],
                     gst: Optional[torch.Tensor]) -> torch.Tensor:
     """Fold the cotangent of the (sum, sumsq) output into gy: d sum / dy
@@ -285,8 +364,12 @@ class _Conv3Fn(torch.autograd.Function):
         if ctx.softmax:
             gy = softmax_vjp(gy.contiguous(), y)
         gy = gy.contiguous()
-        dx = ds = dt = dw = db = None
-        if need_x or need_s or need_t:
+        dx = ds = dt = dw = db = dst = dk = None
+        need_dx = need_x or need_s or need_t
+        need_dk = need_w or need_b
+        if need_dx and need_dk and use_merged_bwd():
+            dx, dk, db, dst = conv3_bwd(x, gy, weight, kweight, pre)
+        elif need_dx:
             # the dx conv: K1 on the flipped taps with Cin and Cout swapped
             w_t = weight.detach().flip(2, 3, 4).transpose(0, 1)
             kw_t = None if kweight is None else \
@@ -295,9 +378,11 @@ class _Conv3Fn(torch.autograd.Function):
                 dx = conv3_op(gy, w_t, None, kw_t)
             else:
                 dx, dst = conv3_op(gy, w_t, None, kw_t, post=(x, s, t))
-                ds, dt = dst[:, 0].to(s.dtype), dst[:, 1].to(t.dtype)
-        if need_w or need_b:
-            dk, db = conv3_dk(x, gy, pre)
+        if dst is not None:
+            ds, dt = dst[:, 0].to(s.dtype), dst[:, 1].to(t.dtype)
+        if need_dk:
+            if dk is None:
+                dk, db = conv3_dk(x, gy, pre)
             cout, cin = weight.shape[:2]
             dw = dk.reshape(3, 3, 3, cin, cout).permute(4, 3, 0, 1, 2) \
                 .to(weight.dtype)
@@ -311,11 +396,13 @@ def conv3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
           softmax: bool = False):
     """The differentiable K1: y, or (y, stats) with ``stats``; the contract
     of ``conv3_plain``. Gradients reach x, weight, bias and the prologue's
-    (s, t) through ``conv3_op`` (dx, ds, dt) and ``conv3_dk`` (dk, db);
-    what does not require a gradient launches nothing."""
+    (s, t) through ``conv3_op`` (dx, ds, dt) and ``conv3_dk`` (dk, db), or
+    through one ``conv3_bwd`` under ``use_merged_bwd`` when both sides are
+    needed; what does not require a gradient launches nothing."""
     s, t = (None, None) if pre is None else pre
     return _Conv3Fn.apply(x, weight, bias, s, t, kweight, stats, softmax)
 
 
 conv3.launches = 0
 conv3_dk.launches = 0
+conv3_bwd.launches = 0

@@ -39,6 +39,15 @@ SIGNATURES = {
         "vaeseg_conv3_dk": [_P] * 6 + [_I] * 6 + [_P],
         "vaeseg_error_string": [_I],
     },
+    "conv3_bwd": {
+        "vaeseg_conv3_bwd": [_P] * 9 + [_I] * 6 + [_P],
+        "vaeseg_error_string": [_I],
+    },
+    "instance_norm": {
+        "vaeseg_norm_reduce": [_P] * 5 + [_I, _I, _L, _I, _P],
+        "vaeseg_norm_elementwise": [_P] * 6 + [_I, _I, _L, _I, _P],
+        "vaeseg_error_string": [_I],
+    },
     "bridge": {
         "vaeseg_down_k2s2": [_P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _P],
