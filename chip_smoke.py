@@ -6,7 +6,10 @@ GPU and check it. Run from the repository root:
 
 Phases, each printed as JSON records:
   1. card: ``nvidia-smi`` name and power limit; the kernels' nvcc build
-     (one nvcc per source, all at once).
+     (one nvcc per source, all at once); the tensor-core instructions
+     (HMMA, HGMMA) in each built library's SASS (``cuobjdump -sass``, where
+     the toolkit has it): conv3_dk's and the bridge backwards' must have
+     them.
   2. kernels: one Joint forward of the eval path runs through the plain
      PyTorch versions (f32 math, TF32 off) with hooks recording every
      kernel-backed call (58 + 9 + 9). Each call's kernel then runs on that
@@ -28,7 +31,8 @@ Phases, each printed as JSON records:
      ``DRIFT_MULTIPLE`` times the drift of the plain path from itself when
      only the f32 summation order of its convs changes.
   4. profile: device time by kernel family over a few forwards
-     (``torch.profiler``) and the device's busy share of the forward.
+     (``torch.profiler``) and the device's busy share of the forward; a
+     kernel of the port's sources that no family names fails the run.
   5. train-step kernels: one adaptation train step (batch 2, 128^3, MC
      dropout 0.5, VAE frozen) runs on the plain path while every kernel
      wrapper's call is recorded, forward and backward (conv3 as forward
@@ -43,7 +47,10 @@ Phases, each printed as JSON records:
      call is timed beside its plain version and one library call
      (``aten.convolution_backward`` with the matching output mask for the
      backward rows, ``aten._softmax_backward_data`` for softmax_vjp; none
-     for dice_sums).
+     for dice_sums). The weight gradients (conv3_dk's and the bridge
+     backwards' dk and db) launched twice more on each distinct call must
+     come out bitwise equal; a bridge backward that computes dx and dk is
+     also timed for each part alone.
   6. train path: step 1 on the kernel path against the plain path (same
      weights, batch and dropout masks): loss terms and every Seg gradient
      tensor within ``DRIFT_MULTIPLE`` times the plain path's own drift
@@ -564,13 +571,19 @@ def forward_ms(torch, model, image, reps: int = 5) -> float:
 
 
 FAMILIES = tuple((rf"\b{k}\b", f) for k, f in (
-    ("conv3_dk_kernel", "conv3_dk"), ("conv3_bwd_kernel", "conv3_bwd"),
-    ("conv3_kernel", "conv3"), ("down_dx_kernel", "down_k2s2_bwd"),
-    ("up_dx_kernel", "up_k2s2_bwd"), ("bridge_dk_kernel", "bridge_dk"),
+    ("conv3_bwd_kernel", "conv3_bwd"), ("conv3_kernel", "conv3"),
+    ("down_dx_kernel", "down_k2s2_bwd/dx"), ("up_dx_kernel", "up_k2s2_bwd/dx"),
     ("down_kernel", "down_k2s2"), ("up_kernel", "up_k2s2"),
     ("softmax_vjp_c2_kernel", "softmax_vjp"),
     ("softmax_vjp_kernel", "softmax_vjp"), ("dice_sums_kernel", "dice_sums"),
     ("reparam_kl_kernel", "reparam_kl"))) + (
+    # the split-K weight gradient and its reduction (wgrad.cuh) serve three
+    # kernels of the table, by their mode: 0 K1, 1 K2, 2 K3
+    (r"\bdk_kernel<0,", "conv3_dk"), (r"\bdk_reduce_kernel<0>", "conv3_dk"),
+    (r"\bdk_kernel<1,", "down_k2s2_bwd/dk"),
+    (r"\bdk_reduce_kernel<1>", "down_k2s2_bwd/dk"),
+    (r"\bdk_kernel<2,", "up_k2s2_bwd/dk"),
+    (r"\bdk_reduce_kernel<2>", "up_k2s2_bwd/dk"),
     # one template each serves two kernels of the table, by its mode
     (r"\bnorm_reduce_kernel<0>", "norm_stats"),
     (r"\bnorm_reduce_kernel<1>", "norm_bwd_sums"),
@@ -578,9 +591,25 @@ FAMILIES = tuple((rf"\b{k}\b", f) for k, f in (
     (r"\bnorm_elementwise_kernel<1>", "norm_bwd_dx"))
 
 
+CSRC = os.path.join(REPO, "vae_segmentation_tpu_torch", "ops", "kernels",
+                    "csrc")
+
+
+def port_kernel_names() -> list:
+    """The __global__ functions of the port's CUDA sources."""
+    names = set()
+    for f in sorted(os.listdir(CSRC)):
+        if f.endswith((".cu", ".cuh")):
+            with open(os.path.join(CSRC, f)) as src:
+                names.update(re.findall(
+                    r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+                    r"(\w+)", src.read()))
+    return sorted(names)
+
+
 def _family(name: str) -> str:
-    """The kernel family of a profiler event (``bridge_dk`` is the dk/db
-    kernel that both bridge backwards share)."""
+    """The kernel family of a profiler event: a kernel of the table, or
+    its dx / dk part for the bridge backwards."""
     for pattern, family in FAMILIES:
         if re.search(pattern, name):
             return family
@@ -590,10 +619,11 @@ def _family(name: str) -> str:
     return "other"
 
 
-def profile_run(torch, fn, reps: int, phase: str) -> dict:
+def profile_run(torch, fn, reps: int, phase: str, failures: list) -> dict:
     """Device ms per call of fn() by kernel family (kernel events of
     ``torch.profiler``), host-clock wall ms per call, and their ratio, the
-    device's busy share."""
+    device's busy share. A kernel of the port's sources that falls into
+    "other" fails the run: FAMILIES must name it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -606,7 +636,11 @@ def profile_run(torch, fn, reps: int, phase: str) -> dict:
             fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / reps
-    by_family, other = {}, []
+    by_family, other, unnamed = {}, [], []
+    # the port's kernels live in the namespace wgrad or an anonymous one at
+    # the top level (a library's may share a name: at::native::...)
+    port = re.compile(r"(?:^|\s)(?:wgrad::|\(anonymous namespace\)::)("
+                      + "|".join(port_kernel_names()) + r")\b")
     for ev in prof.key_averages():
         # kernels only: a CPU op's device time repeats its kernels'
         if ev.device_type != DeviceType.CUDA or ev.self_device_time_total <= 0:
@@ -616,11 +650,16 @@ def profile_run(torch, fn, reps: int, phase: str) -> dict:
         by_family[f] = by_family.get(f, 0.0) + ms
         if f == "other":
             other.append([ms, ev.key[:80]])
+            if port.search(ev.key):
+                unnamed.append(ev.key[:120])
     device_ms = sum(by_family.values())
+    if unnamed:
+        failures.append(f"{phase}: port kernels in no family: {unnamed}")
     return {"phase": phase, "reps": reps, "wall_ms": wall_ms,
             "device_ms": device_ms, "busy_share": device_ms / wall_ms,
             "device_ms_by_family": by_family,
-            "largest_other": sorted(other, reverse=True)[:5]}
+            "largest_other": sorted(other, reverse=True)[:5],
+            "port_kernels_in_no_family": unnamed}
 
 
 def graph_ms(torch, fn, n: int = 20, replays: int = 3) -> float:
@@ -653,20 +692,21 @@ def graph_ms(torch, fn, n: int = 20, replays: int = 3) -> float:
     return ms
 
 
-def profile_forward(torch, model, image, reps: int = 5,
+def profile_forward(torch, model, image, failures: list, reps: int = 5,
                     phase: str = "profile") -> dict:
     """Phase 4: where the eval forward's device time goes."""
     def forward():
         with torch.no_grad():
             model(image)
-    return profile_run(torch, forward, reps, phase)
+    return profile_run(torch, forward, reps, phase, failures)
 
 
-def profile_step(torch, fn, step_ms: float, phase: str, log: list) -> None:
+def profile_step(torch, fn, step_ms: float, phase: str, log: list,
+                 failures: list) -> None:
     """Where a train step's device time goes (profile_run over 2 calls of
     fn), emitted; the profiler slows the host, so also the device time over
     the unprofiled step_ms."""
-    prof = profile_run(torch, fn, 2, phase)
+    prof = profile_run(torch, fn, 2, phase, failures)
     prof["busy_share_of_step_ms"] = prof["device_ms"] / step_ms
     emit(prof, log)
 
@@ -775,8 +815,9 @@ def op_work(d: dict) -> tuple:
             nbytes += 2 * n * cout + 16 * b * cout
         return nbytes, flops, BF16_FLOPS_PER_S
     if k == "conv3_dk":
+        # under the prologue each product is two MMAs (xn as bf16 hi + lo)
         return (2 * n * c + 2 * n * cout + 4 * 27 * c * cout + 4 * cout + aff,
-                2 * n * 27 * c * cout, BF16_FLOPS_PER_S)
+                2 * n * 27 * c * cout * (2 if pre else 1), BF16_FLOPS_PER_S)
     dx, dk = d["need_dx"], d["need_dk"]
     # x is the fine grid for down (n voxels, n / 8 of gy), the coarse grid
     # for up (n voxels, 8 n of gy); 8 Cin Cout MACs per coarse voxel each
@@ -787,8 +828,8 @@ def op_work(d: dict) -> tuple:
               + (2 * n * c if reads_x else 0)
               + ((2 * n * c + (8 * b * c if pre else 0)) if dx else 0)
               + ((4 * 8 * c * cout + 4 * cout) if dk else 0))
-    return nbytes, 2 * coarse * 8 * c * cout * (int(dx) + int(dk)), \
-        BF16_FLOPS_PER_S
+    products = int(dx) + int(dk) * (2 if pre else 1)   # dk: hi + lo MMAs
+    return nbytes, 2 * coarse * 8 * c * cout * products, BF16_FLOPS_PER_S
 
 
 def _outputs(out) -> list:
@@ -1023,6 +1064,23 @@ def merged_calls(calls) -> list:
     return out
 
 
+# the weight-gradient wrappers (the split-K kernels of wgrad.cuh) and where
+# their dk and db sit in what they return
+WEIGHT_GRADS = {"conv3_dk": 0, "down_k2s2_bwd": 1, "up_k2s2_bwd": 1}
+BRIDGE_BWD = ("down_k2s2_bwd", "up_k2s2_bwd")
+
+
+def repeats_bitwise(torch, kernel: str, wrapper, args: dict) -> bool:
+    """Whether two more launches of a weight gradient on one recorded
+    call's inputs give the same dk and db bits (the split-K partials are
+    summed in a fixed order, with no atomics)."""
+    first = WEIGHT_GRADS[kernel]
+    runs = [[t.clone() for t in _outputs(wrapper(**args))[first:first + 2]]
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(*runs))
+
+
 def check_step_calls(torch, calls, log, failures,
                      phase: str = "step_kernel") -> dict:
     """Phases 5 and 8: every kernel call of a recorded train step, kernel on
@@ -1086,6 +1144,24 @@ def check_step_calls(torch, calls, log, failures,
                 rec["timed_by"] = "cuda events"
             if d["kernel"] == "conv3_bwd":
                 rec["pair_ms"] = cuda_ms(torch, pair_fn(a))
+            if d["kernel"] in BRIDGE_BWD:
+                # each part alone: what a frozen weight or an input without
+                # gradient launches
+                rec["dx_ms"] = rec["dk_ms"] = 0.0
+                if d["need_dx"]:
+                    rec["dx_ms"] = rec["kernel_ms"] if not d["need_dk"] \
+                        else cuda_ms(torch, lambda: wrapper(
+                            **{**a, "need_dk": False}))
+                if d["need_dk"]:
+                    rec["dk_ms"] = rec["kernel_ms"] if not d["need_dx"] \
+                        else cuda_ms(torch, lambda: wrapper(
+                            **{**a, "need_dx": False}))
+            if d["kernel"] in WEIGHT_GRADS and d.get("need_dk", True):
+                rec["repeat_bitwise"] = repeats_bitwise(torch, d["kernel"],
+                                                        wrapper, a)
+                if not rec["repeat_bitwise"]:
+                    failures.append(f"{phase}: {d}: two launches gave "
+                                    "different dk or db bits")
         nbytes, flops, peak = op_work(d)
         rec["bytes"], rec["flops"] = nbytes, flops
         bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / peak
@@ -1099,8 +1175,9 @@ def check_step_calls(torch, calls, log, failures,
             err=0.0, bf16_rel_err=0.0, f32_rel_err=0.0, kernel_ms=0.0,
             plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
             ops_ms=0.0, calls=0))
-        if "pair_ms" in rec:
-            t["pair_ms"] = t.get("pair_ms", 0.0) + k["count"] * rec["pair_ms"]
+        for f in ("pair_ms", "dx_ms", "dk_ms"):
+            if f in rec:
+                t[f] = t.get(f, 0.0) + k["count"] * rec[f]
         n = k["count"]
         t["err"] = max(t["err"], rec["max_abs_err"])
         for f in ("bf16_rel_err", "f32_rel_err"):
@@ -1315,8 +1392,8 @@ def check_reparam(torch, seed: int, log, failures) -> dict:
                                                seed_cpu)
 
     with torch.no_grad():
-        kernel_ms = profile_run(torch, kernel, 50, "")["device_ms"]
-        plain_ms = profile_run(torch, plain, 10, "")["device_ms"]
+        kernel_ms = profile_run(torch, kernel, 50, "", failures)["device_ms"]
+        plain_ms = profile_run(torch, plain, 10, "", failures)["device_ms"]
         events_ms = [cuda_ms(torch, fn) for fn in (kernel, plain)]
     nbytes, ops, peak = reparam_work(shape[0] * shape[1])
     bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / peak
@@ -1406,6 +1483,27 @@ def saved_checkpoints(work: str, prefix: str) -> list:
             if os.path.exists(os.path.join(work, "3dmodel", prefix, n))]
 
 
+# the libraries whose products run on the tensor cores
+TENSOR_CORE_LIBS = ("conv3_dk", "bridge_bwd")
+
+
+def tensor_core_sass(build):
+    """{library: {"HMMA": n, "HGMMA": n}}: the tensor-core instructions in
+    each built library's SASS (``cuobjdump -sass``), or None where the
+    toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = {}
+    for name in build.SIGNATURES:
+        sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
+                              capture_output=True, text=True).stdout
+        out[name] = {op: len(re.findall(rf"\b{op}\b", sass))
+                     for op in ("HMMA", "HGMMA")}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1449,9 +1547,13 @@ def main() -> int:
     build_s = time.time() - t0
     regs = {n: [ln.split("Used ")[1] for ln in out.splitlines()
                 if "Used " in ln] for n, out in build_logs.items()}
+    sass = tensor_core_sass(build)
+    for n in TENSOR_CORE_LIBS:
+        if sass is not None and not sum(sass[n].values()):
+            failures.append(f"{n}: no tensor-core instruction in its SASS")
     emit({"phase": "card", "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": build_s, "ptxas": regs}, log)
+          "build_s": build_s, "ptxas": regs, "tensor_core_sass": sass}, log)
 
     work = os.path.join(REPO, ".smoke_work")
     shutil.rmtree(work, ignore_errors=True)
@@ -1590,7 +1692,8 @@ def main() -> int:
                   "ok": cli_ok and fwd_ok}, log)
             del pred_k, recon_k, pred_k2, recon_k2, pred_p, recon_p, \
                 pred_r, recon_r, pred_d, recon_d
-            emit(profile_forward(torch, model, image, phase=prof_phase), log)
+            emit(profile_forward(torch, model, image, failures,
+                                 phase=prof_phase), log)
             return launches, fwd_ms
 
         # ---- 2. every kernel at every main-path shape
@@ -1734,7 +1837,7 @@ def main() -> int:
             emit(rec, log)
             profile_step(torch, lambda: step(student, teacher, opt,
                                              *batches[0], gen, sched),
-                         rec["step_ms"], prof_phase, log)
+                         rec["step_ms"], prof_phase, log, failures)
             del student, teacher, opt
             torch.cuda.empty_cache()
             return rec, run["launches"]
@@ -1951,7 +2054,7 @@ def main() -> int:
             emit(rec, log)
             profile_step(torch, lambda: vae_step(vae, opt, vae_batches[0],
                                                  gen),
-                         rec["step_ms"], prof_phase, log)
+                         rec["step_ms"], prof_phase, log, failures)
             del vae, opt
             torch.cuda.empty_cache()
             return rec, run["launches"]

@@ -134,13 +134,17 @@ def _rel(got, want):
 @pytest.mark.parametrize("shape,cout,pre", [
     ((2, 5, 9, 19, 3), 5, True),      # ragged tiles, odd channels
     ((1, 3, 17, 7, 1), 8, False),     # the 1-channel entry conv
+    ((2, 12, 8, 16, 2), 8, False),    # the VAE's 2-channel entry conv
     ((1, 8, 8, 16, 16), 2, True),     # a head: Cout 2
     ((2, 4, 4, 4, 24), 48, False),    # a deep stage
+    ((4, 4, 4, 4, 256), 256, True),   # the deepest stage at batch 4
+    ((1, 64, 64, 64, 16), 16, True),  # a 64^3 stage
 ])
 def test_conv3_backward_kernels_match_plain(gen, shape, cout, pre):
     """conv3_dk (dk, db) and K1's post epilogue (dx, ds, dt) against their
     plain versions: dx bf16 within 1e-2 of max|dx|, f32 sums within 1e-3
-    of their largest element (atomics reorder them)."""
+    of their largest element (the plain f32 sums and the kernel's split-K
+    partials add in other orders)."""
     b, cin = shape[0], shape[-1]
     x = _rnd(gen, *shape).bfloat16()
     gy = _rnd(gen, *shape[:-1], cout).bfloat16()
@@ -168,7 +172,12 @@ def test_conv3_backward_kernels_match_plain(gen, shape, cout, pre):
 @pytest.mark.parametrize("up,shape,cout,pre", [
     (False, (2, 6, 10, 4, 3), 5, True), (False, (1, 8, 8, 8, 16), 16, False),
     (False, (1, 16, 16, 16, 8), 8, True), (True, (2, 3, 5, 2, 3), 5, False),
-    (True, (1, 4, 4, 4, 32), 32, False)])
+    (True, (1, 4, 4, 4, 32), 32, False),
+    (False, (4, 8, 8, 8, 128), 128, False),   # the VAE's deepest Down
+    (True, (4, 4, 4, 4, 256), 256, False),    # the VAE's up1 at batch 4
+    (True, (1, 64, 64, 64, 16), 16, False),   # up5: 64^3 -> 128^3
+    (False, (1, 128, 128, 128, 8), 8, True),  # down1: 128^3 -> 64^3
+])
 def test_bridge_backward_kernels_match_plain(gen, up, shape, cout, pre):
     b, d, h, w_, cin = shape
     x = _rnd(gen, *shape).bfloat16()
@@ -198,6 +207,63 @@ def test_bridge_backward_kernels_match_plain(gen, up, shape, cout, pre):
     assert only_dk[0] is None and only_dk[3] is None
     assert _rel(only_dk[1], want[1]) <= 1e-3
     assert _rel(only_dk[2], want[2]) <= 1e-3
+
+
+def _weight_grads(kind, gen, pre):
+    """One conv3_dk, down_k2s2_bwd or up_k2s2_bwd call's (dk, db) on inputs
+    drawn from `gen`, and a closure that launches it again."""
+    b, c = 2, 16
+    x = _rnd(gen, b, 16, 16, 16, c).bfloat16()
+    aff = (_rnd(gen, b, c).abs() + 0.5, _rnd(gen, b, c, scale=0.3)) \
+        if pre else None
+    if kind == "conv3":
+        gy = _rnd(gen, b, 16, 16, 16, c).bfloat16()
+        return lambda: conv3.conv3_dk(x, gy, aff)
+    w = _rnd(gen, c, c, 2, 2, 2, scale=(8 * c) ** -0.5)
+    if kind == "up":
+        gy = _rnd(gen, b, 32, 32, 32, c).bfloat16()
+        return lambda: bridges.up_k2s2_bwd(
+            x, gy, w, bridges.up_kernel_weight(w), need_dx=False)[1:]
+    gy = _rnd(gen, b, 8, 8, 8, c).bfloat16()
+    return lambda: bridges.down_k2s2_bwd(
+        x, gy, w, bridges.down_kernel_weight(w), aff, need_dx=False)[1:3]
+
+
+@pytest.mark.parametrize("kind,pre", [("conv3", True), ("conv3", False),
+                                      ("down", True), ("up", False)])
+def test_weight_gradients_repeat_bit_for_bit(gen, kind, pre):
+    """dk and db of the split-K kernels come out the same bits on every
+    launch: each block writes its partial once and the splits are added in
+    a fixed order (no atomics)."""
+    run = _weight_grads(kind, gen, pre)
+    first = [t.clone() for t in run()]
+    for _ in range(3):
+        again = run()
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_conv3_dk_holds_a_cancelling_cotangent_to_f64(gen):
+    """Under an InstanceNorm the cotangent is orthogonal to constants, so
+    dk cancels far below its terms and db is zero in exact arithmetic. The
+    kernel (the prologue's xn as bf16 hi + lo, f32 partials, f64 across
+    splits) stays within F32_TOL = 2e-4 of the largest element of the f64
+    value computed from the same f32 xn, for dk and db."""
+    b, cin, cout = 2, 16, 16
+    x = _rnd(gen, b, 32, 32, 32, cin).bfloat16()
+    aff = (_rnd(gen, b, cin).abs() + 0.5, _rnd(gen, b, cin, scale=0.3))
+    g = _rnd(gen, b, 32, 32, 32, cout)
+    gy = (g - g.mean(dim=(1, 2, 3), keepdim=True)).bfloat16()
+    dk, db = conv3.conv3_dk(x, gy, aff)
+    xn = conv3._affine_relu(x, aff).double().permute(0, 4, 1, 2, 3)
+    g64 = gy.double().permute(0, 4, 1, 2, 3)
+    want = torch.nn.grad.conv3d_weight(xn, (cout, cin, 3, 3, 3), g64,
+                                       padding=1)
+    want = want.permute(2, 3, 4, 1, 0).reshape(27, cin, cout)
+    err = (dk.double() - want).abs().max() / want.abs().max()
+    assert err.item() <= 2e-4
+    db_want = g64.sum(dim=(0, 2, 3, 4))
+    assert (db.double() - db_want).abs().max().item() \
+        <= 2e-4 * db_want.abs().max().item()
 
 
 @pytest.mark.parametrize("shape", [(2, 7, 9, 11, 2), (1, 5, 6, 7, 3),

@@ -26,8 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from vae_segmentation_tpu_torch.ops.conv3 import (
-    _affine_relu, _pre_activation, _ptr, check_affine, check_tensor, raise_if,
-    tap_major)
+    _affine_relu, _pre_activation, _ptr, check_affine, check_tensor,
+    plan_arg, raise_if, sm_count, tap_major, wgrad_plan, wgrad_workspace)
 
 Affine = Tuple[torch.Tensor, torch.Tensor]
 
@@ -170,9 +170,42 @@ def up_k2s2_bwd_plain(x: torch.Tensor, gy: torch.Tensor,
             g.sum(dim=(0, 2, 3, 4)))
 
 
+DX_STRIDE = 24      # bridge_bwd.cu::kDxStr, a 16-channel row in bf16
+# the up dx plan's fields, in the order bridge_bwd.cu's DxField reads them
+UP_DX_FIELDS = ("td", "th", "tw", "tiles_d", "tiles_h", "tiles_w", "nc",
+                "smem")
+
+
+def up_dx_plan(batch: int, grid: Tuple[int, int, int], cin: int,
+               cout: int) -> dict:
+    """The plan of K3's dx kernel (``bridge_bwd.cu::up_dx_kernel``): block
+    (tile, chunk) takes a brick of td x th x tw coarse voxels of `grid`
+    (at most 64, padded to kpad, a multiple of 16) and nc of the Cin output
+    channels, and walks Cout in chunks of 16. Returns the fields the kernel
+    reads (``UP_DX_FIELDS``, in ``fields``) and what they imply."""
+    d, h, w = grid
+    tw = min(w, 8)
+    th = min(h, 4)
+    td = min(d, max(1, 64 // (tw * th)))
+    nvox = td * th * tw
+    kpad = -(-nvox // 16) * 16
+    nc = 16 if cin <= 16 else 32 if cin <= 32 else 64
+    tiles = (-(-d // td), -(-h // th), -(-w // tw))
+    plan = {"td": td, "th": th, "tw": tw, "tiles_d": tiles[0],
+            "tiles_h": tiles[1], "tiles_w": tiles[2], "nc": nc,
+            "smem": 2 * (8 * kpad + 8 * nc) * DX_STRIDE * 2
+            + 9 * kpad * 4}
+    plan.update(fields=[plan[k] for k in UP_DX_FIELDS], nvox=nvox,
+                kpad=kpad, blocks=batch * tiles[0] * tiles[1] * tiles[2],
+                chunks=-(-cin // nc))
+    return plan
+
+
 def _launch_bwd(who: str, up: bool, x, gy, kweight, pre, need_dx, need_dk):
     """Shared launch of ``bridge_bwd.cu``: x is the forward's input (the
-    coarse grid for K3, the fine grid for K2), gy the output cotangent."""
+    coarse grid for K3, the fine grid for K2), gy the output cotangent. dk
+    and db come from the split plan ``conv3.wgrad_plan`` (mode "up" or
+    "down"), K3's dx from ``up_dx_plan``."""
     if x.device.type != "cuda":
         raise RuntimeError(f"{who}: no kernel for device {x.device}")
     from vae_segmentation_tpu_torch.ops.kernels import build
@@ -196,16 +229,25 @@ def _launch_bwd(who: str, up: bool, x, gy, kweight, pre, need_dx, need_dk):
     dx = torch.empty_like(x) if need_dx else None
     dst = torch.zeros((b, 2, cin), dtype=torch.float32, device=dev) \
         if need_dx and pre is not None else None
-    dk = torch.zeros((8, cin, cout), dtype=torch.float32, device=dev) \
-        if need_dk else None
-    db = torch.zeros((cout,), dtype=torch.float32, device=dev) \
-        if need_dk else None
+    dk = db = ws = wsdb = dk_plan = dx_plan = None
+    if need_dk:
+        sms = sm_count(dev.index or 0)
+        plan = wgrad_plan("up", b, (d, h, w), cout, cin, sms) if up else \
+            wgrad_plan("down", b, gshape[1:4], cin, cout, sms,
+                       split=pre is not None)
+        ws, wsdb = wgrad_workspace(plan, dev)
+        dk = torch.empty((8, cin, cout), dtype=torch.float32, device=dev)
+        db = torch.empty((cout,), dtype=torch.float32, device=dev)
+        dk_plan = plan_arg(plan["fields"])
+    if up and need_dx:
+        dx_plan = plan_arg(up_dx_plan(b, (d, h, w), cin, cout)["fields"])
     lib = build.library("bridge_bwd")
     with torch.cuda.device(dev):
         rc = lib.vaeseg_bridge_bwd(
             int(up), x.data_ptr(), gy.data_ptr(), kweight.data_ptr(), _ptr(s),
-            _ptr(t), _ptr(dx), _ptr(dk), _ptr(db), _ptr(dst), b, d, h, w,
-            cin, cout, torch.cuda.current_stream(dev).cuda_stream)
+            _ptr(t), _ptr(dx), _ptr(dk), _ptr(db), _ptr(dst), _ptr(ws),
+            _ptr(wsdb), b, d, h, w, cin, cout, dk_plan, dx_plan,
+            torch.cuda.current_stream(dev).cuda_stream)
     raise_if(rc, lib, who)
     return dx, dk, db, dst
 

@@ -29,6 +29,8 @@ kernel launches (never the plain versions).
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
 from typing import Optional, Tuple
 
@@ -215,6 +217,110 @@ def conv3_op(x: torch.Tensor, weight: torch.Tensor,
     return y if st is None else (y, st)
 
 
+# ---- the split plan of the weight-gradient kernels (kernels/csrc/wgrad.cuh)
+
+WGRAD_MODES = {"conv3": 0, "down": 1, "up": 2}
+# the plan's fields, in the order wgrad.cuh's PlanField reads them
+WGRAD_FIELDS = ("mode", "td", "th", "tw", "tiles_d", "tiles_h", "tiles_w",
+                "ci", "co", "t_chunks", "d_chunks", "splits", "mtw", "smem")
+WGRAD_THREADS = 256
+WGRAD_WS_BYTES = 64 << 20      # bound of a call's workspace
+WGRAD_BLOCKS_PER_SM = 4        # blocks a call aims for, per SM
+SMEM_MAX = 227 * 1024          # dynamic shared memory of a Hopper block
+
+
+def _row_stride(cw: int) -> int:
+    """wgrad.cuh::row_stride: a chunk's shared-memory row in bf16, an odd
+    number of 16-byte units (ldmatrix without bank conflicts)."""
+    return cw if (cw // 8) % 2 == 1 else cw + 8
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def dk_smem(trows: int, tstr: int, kpad: int, dstr: int,
+            split: bool) -> int:
+    """wgrad.cuh::dk_layout(...).bytes: two slots of the T and D rows, the
+    prologue's hi and lo copies of T, the row tables, the db scratch."""
+    nbytes = 2 * trows * tstr * 2 + 2 * kpad * dstr * 2
+    nbytes += 2 * trows * tstr * 2 if split else 0
+    nbytes += (trows + 2 * kpad) * 4
+    return _ceil(nbytes, 8) * 8 + WGRAD_THREADS * 8
+
+
+def wgrad_plan(kind: str, batch: int, grid: Tuple[int, int, int],
+               tc: int, dc: int, sms: int, split: bool = False,
+               ws_bytes: int = WGRAD_WS_BYTES) -> dict:
+    """The split plan of one weight-gradient call (``wgrad.cuh``).
+
+    kind "conv3" (K1: T = x, D = gy on the volume `grid`), "down" (K2: T =
+    x on the fine grid, D = gy on the coarse `grid`) or "up" (K3: T = gy on
+    the fine grid, D = x on the coarse `grid`); tc / dc the channels of T /
+    D; split: the prologue's hi/lo split of T. A block takes a brick of
+    td x th x tw voxels of `grid` at a time, a T chunk of ci channels and a
+    D chunk of co, and a contiguous range of the batch's tiles: split s of
+    `splits` takes tiles [s * ntiles // splits, (s + 1) * ntiles //
+    splits). The workspace is [splits, taps, Cin, Cout] f32 plus
+    [splits, Cout] f64, at most ``ws_bytes``. Returns the fields the kernel
+    reads (``WGRAD_FIELDS``, in ``fields``) and what they imply."""
+    d, h, w = grid
+    conv = kind == "conv3"
+    taps = 27 if conv else 8
+    tw = min(w, 8)
+    th = min(h, 4)
+    td = min(d, max(1, (128 if conv else 64) // (tw * th)))
+    nvox = td * th * tw
+    kpad = _ceil(nvox, 16) * 16
+    trows = (td + 2) * (th + 2) * (tw + 2) if conv else 8 * kpad
+    ci = 8 if tc <= 8 else 16
+    # D chunks of 32 only beside T chunks of 8: a thread holds MTW x CO / 2
+    # f32 sums twice (a tile's and the block's)
+    co = 8 if dc <= 8 else 16 if dc <= 16 or ci == 16 else 32
+    mtiles = _ceil(taps * ci // 8, 2)
+    mtw = next(m for m in (1, 2, 4) if 8 * m >= mtiles)
+    t_chunks, d_chunks = _ceil(tc, ci), _ceil(dc, co)
+    tiles = (_ceil(d, td), _ceil(h, th), _ceil(w, tw))
+    ntiles = batch * tiles[0] * tiles[1] * tiles[2]
+    cin, cout = (dc, tc) if kind == "up" else (tc, dc)
+    split_bytes = 4 * taps * cin * cout + 8 * cout
+    splits = _ceil(WGRAD_BLOCKS_PER_SM * sms, t_chunks * d_chunks)
+    splits = max(1, min(splits, ntiles, ws_bytes // split_bytes))
+    plan = {"mode": WGRAD_MODES[kind], "td": td, "th": th, "tw": tw,
+            "tiles_d": tiles[0], "tiles_h": tiles[1], "tiles_w": tiles[2],
+            "ci": ci, "co": co, "t_chunks": t_chunks, "d_chunks": d_chunks,
+            "splits": splits, "mtw": mtw,
+            "smem": dk_smem(trows, _row_stride(ci), kpad, _row_stride(co),
+                            split)}
+    plan.update(fields=[plan[k] for k in WGRAD_FIELDS], taps=taps,
+                nvox=nvox, kpad=kpad, trows=trows, ntiles=ntiles,
+                cin=cin, cout=cout,
+                ws_shape=(splits, taps, cin, cout),
+                wsdb_shape=(splits, cout),
+                ws_bytes=splits * split_bytes)
+    return plan
+
+
+def plan_arg(fields) -> ctypes.Array:
+    """A plan's fields as the int32 array the C function reads (ctypes
+    passes an array argument as its address)."""
+    return (ctypes.c_int * len(fields))(*fields)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def wgrad_workspace(plan: dict, device):
+    """The partials a plan's blocks write once each: (ws f32, wsdb f64),
+    uninitialised."""
+    return (torch.empty(plan["ws_shape"], dtype=torch.float32,
+                        device=device),
+            torch.empty(plan["wsdb_shape"], dtype=torch.float64,
+                        device=device))
+
+
 def conv3_dk(x: torch.Tensor, gy: torch.Tensor,
              pre: Optional[Affine] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -237,18 +343,21 @@ def conv3_dk(x: torch.Tensor, gy: torch.Tensor,
     s = t = None
     if pre is not None:
         s, t = check_affine("conv3_dk", pre, dev, b, cin)
-    # f64 across the kernel's blocks (a cancelling sum), rounded once here
-    dk = torch.zeros((27, cin, cout), dtype=torch.float64, device=dev)
-    db = torch.zeros((cout,), dtype=torch.float64, device=dev)
+    plan = wgrad_plan("conv3", b, (d, h, w), cin, cout,
+                      sm_count(dev.index or 0), split=pre is not None)
+    ws, wsdb = wgrad_workspace(plan, dev)
+    dk = torch.empty((27, cin, cout), dtype=torch.float32, device=dev)
+    db = torch.empty((cout,), dtype=torch.float32, device=dev)
     lib = build.library("conv3_dk")
     with torch.cuda.device(dev):
         rc = lib.vaeseg_conv3_dk(
-            x.data_ptr(), gy.data_ptr(), _ptr(s), _ptr(t), dk.data_ptr(),
-            db.data_ptr(), b, d, h, w, cin, cout,
+            x.data_ptr(), gy.data_ptr(), _ptr(s), _ptr(t), ws.data_ptr(),
+            wsdb.data_ptr(), dk.data_ptr(), db.data_ptr(), b, d, h, w, cin,
+            cout, plan_arg(plan["fields"]),
             torch.cuda.current_stream(dev).cuda_stream)
     raise_if(rc, lib, "conv3_dk")
     conv3_dk.launches += 1
-    return dk.float(), db.float()
+    return dk, db
 
 
 def use_merged_bwd() -> bool:

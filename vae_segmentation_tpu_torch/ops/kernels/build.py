@@ -36,7 +36,7 @@ SIGNATURES = {
         "vaeseg_error_string": [_I],
     },
     "conv3_dk": {
-        "vaeseg_conv3_dk": [_P] * 6 + [_I] * 6 + [_P],
+        "vaeseg_conv3_dk": [_P] * 8 + [_I] * 6 + [_P, _P],
         "vaeseg_error_string": [_I],
     },
     "conv3_bwd": {
@@ -55,7 +55,7 @@ SIGNATURES = {
         "vaeseg_error_string": [_I],
     },
     "bridge_bwd": {
-        "vaeseg_bridge_bwd": [_I] + [_P] * 9 + [_I] * 6 + [_P],
+        "vaeseg_bridge_bwd": [_I] + [_P] * 11 + [_I] * 6 + [_P] * 3,
         "vaeseg_error_string": [_I],
     },
     "reparam": {
@@ -140,6 +140,11 @@ def build_all(names: List[str] = None) -> Dict[str, str]:
         for n in todo:
             _libs[n] = _load(n, _target(n))
     return logs
+
+
+def library_path(name: str) -> Path:
+    """Where the library `name` of the current sources is built."""
+    return _target(name)
 
 
 def library(name: str) -> ctypes.CDLL:
