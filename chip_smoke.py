@@ -7,9 +7,9 @@ GPU and check it. Run from the repository root:
 Phases, each printed as JSON records:
   1. card: ``nvidia-smi`` name and power limit; the kernels' nvcc build
      (one nvcc per source, all at once); the tensor-core instructions
-     (HMMA, HGMMA) in each built library's SASS (``cuobjdump -sass``, where
-     the toolkit has it): conv3_dk's and the bridge backwards' must have
-     them.
+     (HMMA, HGMMA) in each built library's SASS (``cuobjdump -sass``):
+     conv3_dk's and the bridge backwards' must have them, and a toolkit
+     without cuobjdump fails the check.
   2. kernels: one Joint forward of the eval path runs through the plain
      PyTorch versions (f32 math, TF32 off) with hooks recording every
      kernel-backed call (58 + 9 + 9). Each call's kernel then runs on that
@@ -50,7 +50,9 @@ Phases, each printed as JSON records:
      for dice_sums). The weight gradients (conv3_dk's and the bridge
      backwards' dk and db) launched twice more on each distinct call must
      come out bitwise equal; a bridge backward that computes dx and dk is
-     also timed for each part alone.
+     also timed for each part alone. ``bound_ms`` as in phase 2, but a
+     weight gradient under a prologue counts its products against
+     495 TFLOP/s (TF32: its operand xn is f32).
   6. train path: step 1 on the kernel path against the plain path (same
      weights, batch and dropout masks): loss terms and every Seg gradient
      tensor within ``DRIFT_MULTIPLE`` times the plain path's own drift
@@ -143,6 +145,7 @@ from unittest import mock
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor cores
+TF32_FLOPS_PER_S = 495e12   # H100 SXM dense TF32 tensor cores (f32 operand)
 F32_FLOPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
 PER_FORWARD = {"conv3": 58, "down_k2s2": 9, "up_k2s2": 9}
 # the norm route (VAESEG_PALLAS=1): one InstanceNorm+ReLU per conv but the
@@ -777,7 +780,10 @@ def op_work(d: dict) -> tuple:
     """(bytes, flops, peak flop/s) of one described call: every input read
     once, every output written once; bf16 volumes and weights, f32 bias,
     affines and sums. The convs count against the bf16 tensor-core peak,
-    the two elementwise kernels against the f32 peak."""
+    the two elementwise kernels against the f32 peak. A weight gradient
+    under K1's or K2's prologue multiplies an f32 operand (xn) and counts
+    against the TF32 tensor-core peak; a bridge backward that also
+    computes dx (bf16) gets the rate of the mix."""
     k, shape = d["kernel"], d["shape"]
     if k == "reparam_kl":
         return reparam_work(shape[0] * shape[1])
@@ -814,10 +820,10 @@ def op_work(d: dict) -> tuple:
         if d.get("post"):           # reads the forward's x, s, t; writes dst
             nbytes += 2 * n * cout + 16 * b * cout
         return nbytes, flops, BF16_FLOPS_PER_S
+    dk_rate = TF32_FLOPS_PER_S if pre else BF16_FLOPS_PER_S
     if k == "conv3_dk":
-        # under the prologue each product is two MMAs (xn as bf16 hi + lo)
         return (2 * n * c + 2 * n * cout + 4 * 27 * c * cout + 4 * cout + aff,
-                2 * n * 27 * c * cout * (2 if pre else 1), BF16_FLOPS_PER_S)
+                2 * n * 27 * c * cout, dk_rate)
     dx, dk = d["need_dx"], d["need_dk"]
     # x is the fine grid for down (n voxels, n / 8 of gy), the coarse grid
     # for up (n voxels, 8 n of gy); 8 Cin Cout MACs per coarse voxel each
@@ -828,8 +834,10 @@ def op_work(d: dict) -> tuple:
               + (2 * n * c if reads_x else 0)
               + ((2 * n * c + (8 * b * c if pre else 0)) if dx else 0)
               + ((4 * 8 * c * cout + 4 * cout) if dk else 0))
-    products = int(dx) + int(dk) * (2 if pre else 1)   # dk: hi + lo MMAs
-    return nbytes, 2 * coarse * 8 * c * cout * products, BF16_FLOPS_PER_S
+    part = 2 * coarse * 8 * c * cout
+    flops = part * (int(dx) + int(dk))
+    seconds = part * (int(dx) / BF16_FLOPS_PER_S + int(dk) / dk_rate)
+    return nbytes, flops, flops / seconds if flops else BF16_FLOPS_PER_S
 
 
 def _outputs(out) -> list:
@@ -1490,7 +1498,7 @@ TENSOR_CORE_LIBS = ("conv3_dk", "bridge_bwd")
 def tensor_core_sass(build):
     """{library: {"HMMA": n, "HGMMA": n}}: the tensor-core instructions in
     each built library's SASS (``cuobjdump -sass``), or None where the
-    toolkit has no cuobjdump."""
+    toolkit has no cuobjdump (the caller fails the run then)."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
@@ -1548,6 +1556,9 @@ def main() -> int:
     regs = {n: [ln.split("Used ")[1] for ln in out.splitlines()
                 if "Used " in ln] for n, out in build_logs.items()}
     sass = tensor_core_sass(build)
+    if sass is None:
+        failures.append("no cuobjdump in the CUDA toolkit: the tensor-core "
+                        "SASS check could not run")
     for n in TENSOR_CORE_LIBS:
         if sass is not None and not sum(sass[n].values()):
             failures.append(f"{n}: no tensor-core instruction in its SASS")

@@ -10,7 +10,9 @@ bridge call of the main path (recorded from the models' forward, scaled to
 128^3, at batches 1, 2 and 4) and for edge shapes: every voxel of every
 batch element lies in exactly one tile of exactly one split, each split
 takes at least one tile, the workspace stays under its bound, and nothing
-exceeds what the kernels take (shared memory, grid, tile coordinates).
+exceeds what the kernels take (grid, warp tiles, tile coordinates). The
+shared memory a plan needs is the kernels' own to lay out and check
+(``wgrad.cuh::dk_layout``); the card tests reach that check.
 (b) The arithmetic of a conv3_dk call under the prologue, emulated: xn in
 f32 split into bf16 hi + lo, f32 partials over the plan's splits, the
 splits added in f64 in order. On a cotangent orthogonal to constants (as
@@ -40,10 +42,11 @@ H100_SMS = 132
 def main_path_calls():
     """{(kind, grid, cin, cout, split)}: the weight-gradient calls of the
     main path at batch 1, 128^3 (grid: K1's volume, the bridges' coarse
-    grid; split: the call has K1's or K2's prologue). The Joint (the Seg and the ShapeVAE at full
-    width) runs one forward at 32^3 with a 256-wide bottleneck, which has
-    the same layers at a quarter of the extents; every K1, K2 and K3
-    module's input is recorded and its grid scaled by 4."""
+    grid; split: the call has K1's or K2's prologue). The Joint (the Seg
+    and the ShapeVAE at full width) runs one forward at 32^3 with a
+    256-wide bottleneck, which has the same layers at a quarter of the
+    extents; every K1, K2 and K3 module's input is recorded and its grid
+    scaled by 4."""
     model = Joint(n_class=2, dim=16, bottleneck=256,
                   generator=torch.Generator().manual_seed(0))
     calls = set()
@@ -72,12 +75,12 @@ def main_path_calls():
     return sorted(calls)
 
 
-def _plan(kind, batch, grid, cin, cout, split, sms=H100_SMS):
+def _plan(kind, batch, grid, cin, cout, sms=H100_SMS):
     """wgrad_plan for one call, as the wrappers make it: T is x (Cin) and
     D is gy (Cout), but for K3, whose T is the fine gy."""
     if kind == "up":
         return conv3.wgrad_plan("up", batch, grid, cout, cin, sms)
-    return conv3.wgrad_plan(kind, batch, grid, cin, cout, sms, split=split)
+    return conv3.wgrad_plan(kind, batch, grid, cin, cout, sms)
 
 
 def _split_tiles(plan):
@@ -106,7 +109,7 @@ def _voxel_tiles(plan, grid):
     return count, tiles
 
 
-def _check_plan(plan, batch, grid, cin, cout, split):
+def _check_plan(plan, batch, grid, cin, cout):
     taps = 27 if plan["mode"] == 0 else 8
     tc, dc = (cout, cin) if plan["mode"] == 2 else (cin, cout)
     assert plan["fields"] == [plan[k] for k in conv3.WGRAD_FIELDS]
@@ -130,21 +133,14 @@ def _check_plan(plan, batch, grid, cin, cout, split):
     assert plan["ws_bytes"] == plan["splits"] * (4 * taps * cin * cout
                                                  + 8 * cout)
     assert plan["ws_bytes"] <= conv3.WGRAD_WS_BYTES
-    # the kernel's limits: shared memory, grid, m16 tiles a warp, the
-    # 10-bit tile coordinates, the layout the kernel computes
-    assert plan["smem"] <= conv3.SMEM_MAX
+    # the kernel's limits: grid, m16 tiles a warp, the 10-bit tile
+    # coordinates
     assert plan["t_chunks"] * plan["d_chunks"] <= 65535
     assert 1 <= plan["splits"] < 2 ** 31
     mtiles = -(-taps * ci // 16)
     assert plan["mtw"] in ((2, 4) if taps == 27 else (1,))
     assert 8 * plan["mtw"] >= mtiles
     assert max(2 * plan["td"], 2 * plan["th"], 2 * plan["tw"]) + 1 < 1024
-    kpad = -(-plan["td"] * plan["th"] * plan["tw"] // 16) * 16
-    trows = (plan["td"] + 2) * (plan["th"] + 2) * (plan["tw"] + 2) \
-        if taps == 27 else 8 * kpad
-    assert (plan["kpad"], plan["trows"]) == (kpad, trows)
-    assert plan["smem"] == conv3.dk_smem(
-        trows, conv3._row_stride(ci), kpad, conv3._row_stride(co), split)
 
 
 def _check_dx_plan(plan, batch, grid, cin):
@@ -154,7 +150,6 @@ def _check_dx_plan(plan, batch, grid, cin):
     assert plan["nc"] in (16, 32, 64) and plan["kpad"] <= 64
     assert (plan["chunks"] - 1) * plan["nc"] < cin <= \
         plan["chunks"] * plan["nc"] and plan["chunks"] <= 65535
-    assert plan["smem"] <= conv3.SMEM_MAX
     assert plan["fields"] == [plan[k] for k in bridges.UP_DX_FIELDS]
 
 
@@ -175,14 +170,16 @@ def test_main_path_calls_are_the_models():
 
 @pytest.mark.parametrize("batch", [1, 2, 4])
 def test_plans_of_the_main_path(batch):
-    for kind, grid, cin, cout, split in main_path_calls():
-        plan = _plan(kind, batch, grid, cin, cout, split)
-        _check_plan(plan, batch, grid, cin, cout, split)
+    for kind, grid, cin, cout, _ in main_path_calls():
+        plan = _plan(kind, batch, grid, cin, cout)
+        _check_plan(plan, batch, grid, cin, cout)
         if kind == "up":
             _check_dx_plan(bridges.up_dx_plan(batch, grid, cin, cout), batch,
                            grid, cin)
 
 
+# split: the call runs under a prologue (the kernel's hi/lo split, which
+# the plan does not depend on)
 @pytest.mark.parametrize("kind,batch,grid,cin,cout,split", [
     ("conv3", 2, (5, 9, 19), 3, 5, True),     # ragged tiles, odd channels
     ("conv3", 1, (3, 17, 7), 1, 8, False),    # the image's entry conv
@@ -196,21 +193,21 @@ def test_plans_of_the_main_path(batch):
     ("up", 4, (4, 4, 4), 256, 256, False),
 ])
 def test_plans_of_edge_shapes(kind, batch, grid, cin, cout, split):
-    plan = _plan(kind, batch, grid, cin, cout, split)
-    _check_plan(plan, batch, grid, cin, cout, split)
+    plan = _plan(kind, batch, grid, cin, cout)
+    _check_plan(plan, batch, grid, cin, cout)
     if kind == "up":
         _check_dx_plan(bridges.up_dx_plan(batch, grid, cin, cout), batch,
                        grid, cin)
 
 
-def test_the_workspace_bound_caps_the_splits():
+def test_the_workspace_bound_caps_the_splits(monkeypatch):
     """At 256 x 256 channels a split's partial is 7 MB: a 64 MB bound
     allows 9 splits, whatever the SM count asks for; a tighter bound
     fewer, and never none."""
     plan = conv3.wgrad_plan("conv3", 4, (32, 32, 32), 256, 256, 10 ** 6)
     assert plan["splits"] == 9 and plan["ws_bytes"] <= 64 << 20
-    tight = conv3.wgrad_plan("conv3", 4, (32, 32, 32), 256, 256, 10 ** 6,
-                             ws_bytes=1)
+    monkeypatch.setattr(conv3, "WGRAD_WS_BYTES", 1)
+    tight = conv3.wgrad_plan("conv3", 4, (32, 32, 32), 256, 256, 10 ** 6)
     assert tight["splits"] == 1
 
 
@@ -270,8 +267,7 @@ def test_hi_lo_split_holds_a_cancelling_dk_to_f64():
     xn = conv3._affine_relu(x, (s, t))                 # f32, as the kernel
     hi = xn.bfloat16().float()
     lo = (xn - hi).bfloat16().float()
-    plan = conv3.wgrad_plan("conv3", b, (n, n, n), cin, cout, H100_SMS,
-                            split=True)
+    plan = conv3.wgrad_plan("conv3", b, (n, n, n), cin, cout, H100_SMS)
     assert plan["splits"] == plan["ntiles"] == 512
     split_of = _split_of_voxels(plan, b, (n, n, n))
     exact = _taps_f32(xn.double()).reshape(-1, 27 * cin).T @ gy.double()

@@ -170,10 +170,8 @@ def up_k2s2_bwd_plain(x: torch.Tensor, gy: torch.Tensor,
             g.sum(dim=(0, 2, 3, 4)))
 
 
-DX_STRIDE = 24      # bridge_bwd.cu::kDxStr, a 16-channel row in bf16
 # the up dx plan's fields, in the order bridge_bwd.cu's DxField reads them
-UP_DX_FIELDS = ("td", "th", "tw", "tiles_d", "tiles_h", "tiles_w", "nc",
-                "smem")
+UP_DX_FIELDS = ("td", "th", "tw", "tiles_d", "tiles_h", "tiles_w", "nc")
 
 
 def up_dx_plan(batch: int, grid: Tuple[int, int, int], cin: int,
@@ -192,9 +190,7 @@ def up_dx_plan(batch: int, grid: Tuple[int, int, int], cin: int,
     nc = 16 if cin <= 16 else 32 if cin <= 32 else 64
     tiles = (-(-d // td), -(-h // th), -(-w // tw))
     plan = {"td": td, "th": th, "tw": tw, "tiles_d": tiles[0],
-            "tiles_h": tiles[1], "tiles_w": tiles[2], "nc": nc,
-            "smem": 2 * (8 * kpad + 8 * nc) * DX_STRIDE * 2
-            + 9 * kpad * 4}
+            "tiles_h": tiles[1], "tiles_w": tiles[2], "nc": nc}
     plan.update(fields=[plan[k] for k in UP_DX_FIELDS], nvox=nvox,
                 kpad=kpad, blocks=batch * tiles[0] * tiles[1] * tiles[2],
                 chunks=-(-cin // nc))
@@ -233,8 +229,7 @@ def _launch_bwd(who: str, up: bool, x, gy, kweight, pre, need_dx, need_dk):
     if need_dk:
         sms = sm_count(dev.index or 0)
         plan = wgrad_plan("up", b, (d, h, w), cout, cin, sms) if up else \
-            wgrad_plan("down", b, gshape[1:4], cin, cout, sms,
-                       split=pre is not None)
+            wgrad_plan("down", b, gshape[1:4], cin, cout, sms)
         ws, wsdb = wgrad_workspace(plan, dev)
         dk = torch.empty((8, cin, cout), dtype=torch.float32, device=dev)
         db = torch.empty((cout,), dtype=torch.float32, device=dev)

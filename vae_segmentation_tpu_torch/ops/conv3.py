@@ -222,57 +222,37 @@ def conv3_op(x: torch.Tensor, weight: torch.Tensor,
 WGRAD_MODES = {"conv3": 0, "down": 1, "up": 2}
 # the plan's fields, in the order wgrad.cuh's PlanField reads them
 WGRAD_FIELDS = ("mode", "td", "th", "tw", "tiles_d", "tiles_h", "tiles_w",
-                "ci", "co", "t_chunks", "d_chunks", "splits", "mtw", "smem")
-WGRAD_THREADS = 256
+                "ci", "co", "t_chunks", "d_chunks", "splits", "mtw")
 WGRAD_WS_BYTES = 64 << 20      # bound of a call's workspace
 WGRAD_BLOCKS_PER_SM = 4        # blocks a call aims for, per SM
-SMEM_MAX = 227 * 1024          # dynamic shared memory of a Hopper block
-
-
-def _row_stride(cw: int) -> int:
-    """wgrad.cuh::row_stride: a chunk's shared-memory row in bf16, an odd
-    number of 16-byte units (ldmatrix without bank conflicts)."""
-    return cw if (cw // 8) % 2 == 1 else cw + 8
 
 
 def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def dk_smem(trows: int, tstr: int, kpad: int, dstr: int,
-            split: bool) -> int:
-    """wgrad.cuh::dk_layout(...).bytes: two slots of the T and D rows, the
-    prologue's hi and lo copies of T, the row tables, the db scratch."""
-    nbytes = 2 * trows * tstr * 2 + 2 * kpad * dstr * 2
-    nbytes += 2 * trows * tstr * 2 if split else 0
-    nbytes += (trows + 2 * kpad) * 4
-    return _ceil(nbytes, 8) * 8 + WGRAD_THREADS * 8
-
-
 def wgrad_plan(kind: str, batch: int, grid: Tuple[int, int, int],
-               tc: int, dc: int, sms: int, split: bool = False,
-               ws_bytes: int = WGRAD_WS_BYTES) -> dict:
+               tc: int, dc: int, sms: int) -> dict:
     """The split plan of one weight-gradient call (``wgrad.cuh``).
 
     kind "conv3" (K1: T = x, D = gy on the volume `grid`), "down" (K2: T =
     x on the fine grid, D = gy on the coarse `grid`) or "up" (K3: T = gy on
     the fine grid, D = x on the coarse `grid`); tc / dc the channels of T /
-    D; split: the prologue's hi/lo split of T. A block takes a brick of
+    D. A block takes a brick of
     td x th x tw voxels of `grid` at a time, a T chunk of ci channels and a
     D chunk of co, and a contiguous range of the batch's tiles: split s of
     `splits` takes tiles [s * ntiles // splits, (s + 1) * ntiles //
     splits). The workspace is [splits, taps, Cin, Cout] f32 plus
-    [splits, Cout] f64, at most ``ws_bytes``. Returns the fields the kernel
-    reads (``WGRAD_FIELDS``, in ``fields``) and what they imply."""
+    [splits, Cout] f64, at most ``WGRAD_WS_BYTES``. Returns the fields the
+    kernel reads (``WGRAD_FIELDS``, in ``fields``) and what they imply. The
+    kernel lays out its shared memory from these fields and refuses a plan
+    that does not fit (``wgrad.cuh::dk_layout``)."""
     d, h, w = grid
     conv = kind == "conv3"
     taps = 27 if conv else 8
     tw = min(w, 8)
     th = min(h, 4)
     td = min(d, max(1, (128 if conv else 64) // (tw * th)))
-    nvox = td * th * tw
-    kpad = _ceil(nvox, 16) * 16
-    trows = (td + 2) * (th + 2) * (tw + 2) if conv else 8 * kpad
     ci = 8 if tc <= 8 else 16
     # D chunks of 32 only beside T chunks of 8: a thread holds MTW x CO / 2
     # f32 sums twice (a tile's and the block's)
@@ -285,16 +265,13 @@ def wgrad_plan(kind: str, batch: int, grid: Tuple[int, int, int],
     cin, cout = (dc, tc) if kind == "up" else (tc, dc)
     split_bytes = 4 * taps * cin * cout + 8 * cout
     splits = _ceil(WGRAD_BLOCKS_PER_SM * sms, t_chunks * d_chunks)
-    splits = max(1, min(splits, ntiles, ws_bytes // split_bytes))
+    splits = max(1, min(splits, ntiles, WGRAD_WS_BYTES // split_bytes))
     plan = {"mode": WGRAD_MODES[kind], "td": td, "th": th, "tw": tw,
             "tiles_d": tiles[0], "tiles_h": tiles[1], "tiles_w": tiles[2],
             "ci": ci, "co": co, "t_chunks": t_chunks, "d_chunks": d_chunks,
-            "splits": splits, "mtw": mtw,
-            "smem": dk_smem(trows, _row_stride(ci), kpad, _row_stride(co),
-                            split)}
+            "splits": splits, "mtw": mtw}
     plan.update(fields=[plan[k] for k in WGRAD_FIELDS], taps=taps,
-                nvox=nvox, kpad=kpad, trows=trows, ntiles=ntiles,
-                cin=cin, cout=cout,
+                ntiles=ntiles, cin=cin, cout=cout,
                 ws_shape=(splits, taps, cin, cout),
                 wsdb_shape=(splits, cout),
                 ws_bytes=splits * split_bytes)
@@ -344,7 +321,7 @@ def conv3_dk(x: torch.Tensor, gy: torch.Tensor,
     if pre is not None:
         s, t = check_affine("conv3_dk", pre, dev, b, cin)
     plan = wgrad_plan("conv3", b, (d, h, w), cin, cout,
-                      sm_count(dev.index or 0), split=pre is not None)
+                      sm_count(dev.index or 0))
     ws, wsdb = wgrad_workspace(plan, dev)
     dk = torch.empty((27, cin, cout), dtype=torch.float32, device=dev)
     db = torch.empty((cout,), dtype=torch.float32, device=dev)
