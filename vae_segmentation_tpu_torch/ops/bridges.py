@@ -223,8 +223,13 @@ def _launch_bwd(who: str, up: bool, x, gy, kweight, pre, need_dx, need_dk):
     if pre is not None:
         s, t = check_affine(who, pre, dev, b, cin)
     dx = torch.empty_like(x) if need_dx else None
-    dst = torch.zeros((b, 2, cin), dtype=torch.float32, device=dev) \
-        if need_dx and pre is not None else None
+    dst = dpart = None
+    if need_dx and pre is not None:
+        # K2's dx kernel writes one [2, Cin] partial per block of 256 fine
+        # voxels; a second pass adds them in a fixed order
+        dst = torch.empty((b, 2, cin), dtype=torch.float32, device=dev)
+        dpart = torch.empty((b, -(-d * h * w // 256), 2, cin),
+                            dtype=torch.float32, device=dev)
     dk = db = ws = wsdb = dk_plan = dx_plan = None
     if need_dk:
         sms = sm_count(dev.index or 0)
@@ -240,8 +245,8 @@ def _launch_bwd(who: str, up: bool, x, gy, kweight, pre, need_dx, need_dk):
     with torch.cuda.device(dev):
         rc = lib.vaeseg_bridge_bwd(
             int(up), x.data_ptr(), gy.data_ptr(), kweight.data_ptr(), _ptr(s),
-            _ptr(t), _ptr(dx), _ptr(dk), _ptr(db), _ptr(dst), _ptr(ws),
-            _ptr(wsdb), b, d, h, w, cin, cout, dk_plan, dx_plan,
+            _ptr(t), _ptr(dx), _ptr(dk), _ptr(db), _ptr(dst), _ptr(dpart),
+            _ptr(ws), _ptr(wsdb), b, d, h, w, cin, cout, dk_plan, dx_plan,
             torch.cuda.current_stream(dev).cuda_stream)
     raise_if(rc, lib, who)
     return dx, dk, db, dst

@@ -15,7 +15,9 @@ on a CPU tensor and launches its hand-written kernel
 (``kernels/csrc/conv3.cu``, ``conv3_dk.cu``) on a CUDA tensor, or raises.
 ``conv3_op`` replaces ``stencil3.py::_run_conv_grouped`` and ``::_run_conv``;
 ``conv3_dk`` replaces ``::_run_dk_grouped`` and ``::_run_dk``. The source
-notes say what bounds them on the H100.
+notes say what bounds them on the H100. Both kernels run on the tensor
+cores from a plan computed here (``conv3_plan``, ``wgrad_plan``): the
+tiles, chunks and K splits of their blocks.
 
 Under ``VAESEG_MERGED_BWD=1`` (``use_merged_bwd``, the JAX package's
 switch) a backward that needs both a dx-side gradient (x, s or t) and a
@@ -175,13 +177,146 @@ def conv3_op(x: torch.Tensor, weight: torch.Tensor,
         return conv3_plain(x, weight, bias, pre, stats, softmax, post)
     if x.device.type != "cuda":
         raise RuntimeError(f"conv3: no kernel for device {x.device}")
-    from vae_segmentation_tpu_torch.ops.kernels import build
-
     if x.dim() != 5:
         raise ValueError(f"conv3: x must be [B, D, H, W, C], got {x.shape}")
-    b, d, h, w, cin = x.shape
     if kweight is None:
         raise ValueError("conv3: CUDA launch needs the kernel-layout weight")
+    if sum((stats, softmax, post is not None)) > 1:
+        raise ValueError("conv3: the stats, softmax and post epilogues are "
+                         "exclusive")
+    b, d, h, w, cin = x.shape
+    epilogue = "stats" if stats else "softmax" if softmax \
+        else "post" if post is not None else "none"
+    plan = conv3_plan(b, (d, h, w), cin, kweight.shape[-1], pre is not None,
+                      epilogue, sm_count(x.device.index or 0))
+    out = conv3_launch(x, kweight, bias, plan, pre, post)
+    conv3.launches += 1
+    return out
+
+
+# ---- the plan of K1 (kernels/csrc/conv3.cu)
+
+# the plan's fields, in the order conv3.cu's PlanField reads them
+CONV3_FIELDS = ("td", "th", "tw", "tiles_d", "tiles_h", "tiles_w", "ci",
+                "wm", "wn", "mt", "nt", "splits", "rvox", "parts")
+CONV3_EPILOGUES = {"none": 0, "stats": 1, "softmax": 2, "post": 3}
+CONV3_WS_BYTES = 32 << 20      # bound of a split plan's workspace
+WARPS = 8                      # a block of 256 threads
+
+
+def _warp_grid(mtiles: int, ntiles: int) -> Tuple[int, int, int, int]:
+    """(wm, wn, mt, nt): the 8 warps as wm x wn over the tile's m16 tiles
+    and the chunk's n8 tiles, mt x nt of them a warp (each 1, 2 or 4, at
+    most 8 together: a thread holds two f32 sets of them). The fewest tiles
+    a warp, then the fewest shared-memory loads per MMA."""
+    best = None
+    for wn in (1, 2, 4, 8):
+        if ntiles % wn:
+            continue
+        wm = WARPS // wn
+        mt = next((m for m in (1, 2, 4) if m * wm >= mtiles), None)
+        nt = ntiles // wn
+        if mt is None or nt not in (1, 2, 4) or mt * nt > 8:
+            continue
+        key = (mt * nt, (mt + max(nt // 2, 1)) / (mt * nt))
+        if best is None or key < best[0]:
+            best = (key, (wm, wn, mt, nt))
+    if best is None:
+        raise ValueError(f"conv3: no warp grid for {mtiles} m16 x {ntiles} "
+                         "n8 tiles")
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def conv3_plan(batch: int, grid: Tuple[int, int, int], cin: int, cout: int,
+               prologue: bool, epilogue: str, sms: int,
+               splits: Optional[int] = None) -> dict:
+    """The plan of one K1 call (``kernels/csrc/conv3.cu``).
+
+    A block takes a td x th x tw brick of output voxels (M, at most 512,
+    padded to m16 tiles) of one batch element and a chunk of co output
+    channels (N: 8, 16, 32 or 64), and walks K = (input-channel chunk of
+    ci, tap, channel) in k16 steps: nks = ceil(27 ci / 16) a chunk. Where
+    the grid holds fewer than 2 blocks an SM the brick shrinks (down to 64
+    voxels), and where it still holds fewer than one a SM the K steps are
+    split over the grid's z axis (split s takes steps [K s // splits,
+    K (s + 1) // splits)), whose partials a second kernel adds, rvox voxels
+    a block. ``splits`` forces a split count (1: the one-pass kernel).
+    Returns the fields the kernel reads (``CONV3_FIELDS``, in ``fields``;
+    their ctypes array in ``arg``) and what they imply: the workspace
+    shapes ``ws_shape`` (f32 split partials, or None) and ``part_shape``
+    (f32 per-block sums of the stats and post epilogues, or None). The
+    kernel lays out its shared memory from these fields and refuses a plan
+    that does not fit. The result is cached: do not modify it."""
+    if epilogue not in CONV3_EPILOGUES:
+        raise ValueError(f"conv3: unknown epilogue {epilogue!r}")
+    if epilogue == "softmax" and cout > 8:
+        raise ValueError(f"conv3: the softmax epilogue takes at most 8 "
+                         f"classes on CUDA, got {cout}")
+    d, h, w = grid
+    ci = 8 if cin <= 8 else 16
+    ci_chunks, nks = _ceil(cin, ci), _ceil(27 * ci, 16)
+    co = next(c for c in (8, 16, 32, 64) if c >= cout or c == 64)
+    co_chunks = _ceil(cout, co)
+    mvox = {8: 512, 16: 512, 32: 256, 64: 128}[co]
+    tile = [min(w, 8), min(h, 8)]
+    tile = [min(d, max(1, mvox // (tile[0] * tile[1])))] + tile[::-1]
+
+    def blocks(t):
+        return batch * co_chunks * _ceil(d, t[0]) * _ceil(h, t[1]) \
+            * _ceil(w, t[2])
+
+    while blocks(tile) < 2 * sms and tile[0] * tile[1] * tile[2] > 64:
+        axis = next(i for i in range(3) if tile[i] == max(tile))
+        tile[axis] = _ceil(tile[axis], 2)
+    td, th, tw = tile
+    nvox, nvol = td * th * tw, d * h * w
+    wm, wn, mt, nt = _warp_grid(_ceil(nvox, 16), co // 8)
+    k_steps = ci_chunks * nks
+    if splits is None:
+        splits = 1
+        if epilogue != "softmax" and blocks(tile) < sms \
+                and cout in (8, 16, 32, 64, 128, 256):
+            splits = min(_ceil(2 * sms, blocks(tile)), max(1, k_steps // 4),
+                         max(1, CONV3_WS_BYTES // (4 * batch * nvol * cout)))
+    if not 1 <= splits <= k_steps:
+        raise ValueError(f"conv3: {splits} splits of {k_steps} k16 steps")
+    tiles = (_ceil(d, td), _ceil(h, th), _ceil(w, tw))
+    per_b = tiles[0] * tiles[1] * tiles[2]
+    rvox = 0
+    if splits > 1:
+        rows = 256 // cout
+        rvox = max(rows, _ceil(_ceil(batch * nvol, 2 * sms), rows) * rows)
+    sums = epilogue in ("stats", "post")
+    parts = (_ceil(nvol, rvox) if splits > 1 else per_b) if sums else 0
+    plan = {"td": td, "th": th, "tw": tw, "tiles_d": tiles[0],
+            "tiles_h": tiles[1], "tiles_w": tiles[2], "ci": ci, "wm": wm,
+            "wn": wn, "mt": mt, "nt": nt, "splits": splits,
+            "rvox": rvox, "parts": parts}
+    plan.update(fields=[plan[k] for k in CONV3_FIELDS], co=co,
+                co_chunks=co_chunks, ci_chunks=ci_chunks, nks=nks,
+                k_steps=k_steps, nvox=nvox, mtiles=_ceil(nvox, 16),
+                hrows=(td + 2) * (th + 2) * (tw + 2),
+                launch_grid=(batch * per_b, co_chunks, splits),
+                prologue=prologue, epilogue=epilogue,
+                epi=CONV3_EPILOGUES[epilogue],
+                ws_shape=(splits, batch * nvol * cout) if splits > 1 else None,
+                part_shape=(batch, parts, 2, cout) if sums else None)
+    plan["arg"] = plan_arg(plan["fields"])
+    return plan
+
+
+def conv3_launch(x: torch.Tensor, kweight: torch.Tensor,
+                 bias: Optional[torch.Tensor], plan: dict,
+                 pre: Optional[Affine] = None, post: Optional[Post] = None):
+    """One launch of K1 on CUDA tensors under a given ``conv3_plan``, whose
+    prologue and epilogue it takes: y, or (y, [B, 2, Cout] f32 sums) for
+    the stats and post epilogues. ``conv3_op`` plans the call and counts
+    it; chip_smoke.py also times the one-pass plan beside a split one
+    through here."""
+    from vae_segmentation_tpu_torch.ops.kernels import build
+
+    b, d, h, w, cin = x.shape
     cout = kweight.shape[-1]
     dev = x.device
     check_tensor("conv3", "x", x, dev, torch.bfloat16, (b, d, h, w, cin))
@@ -189,9 +324,6 @@ def conv3_op(x: torch.Tensor, weight: torch.Tensor,
                  (27, cin, cout))
     if bias is not None:
         check_tensor("conv3", "bias", bias, dev, torch.float32, (cout,))
-    if sum((stats, softmax, post is not None)) > 1:
-        raise ValueError("conv3: the stats, softmax and post epilogues are "
-                         "exclusive")
     s = t = xs = ps = pt = None
     if pre is not None:
         s, t = check_affine("conv3", pre, dev, b, cin)
@@ -200,20 +332,28 @@ def conv3_op(x: torch.Tensor, weight: torch.Tensor,
         check_tensor("conv3", "post x", xs, dev, torch.bfloat16,
                      (b, d, h, w, cout))
         ps, pt = check_affine("conv3 post", post[1:], dev, b, cout)
+    if (pre is not None) != plan["prologue"] \
+            or (post is not None) != (plan["epilogue"] == "post"):
+        raise ValueError("conv3: the prologue or post epilogue differs from "
+                         "the plan's")
+    sums = plan["part_shape"] is not None
     y = torch.empty((b, d, h, w, cout), dtype=torch.bfloat16, device=dev)
     # one [B, 2, Cout] f32 block serves either epilogue: the output's
     # (sum, sumsq), or the post epilogue's (ds, dt)
-    st = torch.zeros((b, 2, cout), dtype=torch.float32, device=dev) \
-        if stats or post is not None else None
+    st = torch.empty((b, 2, cout), dtype=torch.float32, device=dev) \
+        if sums else None
+    ws = None if plan["ws_shape"] is None else \
+        torch.empty(plan["ws_shape"], dtype=torch.float32, device=dev)
+    part = torch.empty(plan["part_shape"], dtype=torch.float32,
+                       device=dev) if sums else None
     lib = build.library("conv3")
     with torch.cuda.device(dev):
         rc = lib.vaeseg_conv3(
             x.data_ptr(), kweight.data_ptr(), _ptr(bias), _ptr(s), _ptr(t),
-            _ptr(xs), _ptr(ps), _ptr(pt), y.data_ptr(), _ptr(st),
-            b, d, h, w, cin, cout, int(softmax),
+            _ptr(xs), _ptr(ps), _ptr(pt), y.data_ptr(), _ptr(st), _ptr(ws),
+            _ptr(part), b, d, h, w, cin, cout, plan["epi"], plan["arg"],
             torch.cuda.current_stream(dev).cuda_stream)
     raise_if(rc, lib, "conv3")
-    conv3.launches += 1
     return y if st is None else (y, st)
 
 

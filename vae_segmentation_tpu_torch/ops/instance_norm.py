@@ -27,6 +27,7 @@ mask is the forward's.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -114,6 +115,13 @@ def norm_bwd_dx_plain(x: torch.Tensor, g: torch.Tensor, s: torch.Tensor,
 # ---- the kernels
 
 
+@functools.lru_cache(maxsize=None)
+def _parts(lib, b: int, n: int, c: int) -> int:
+    """The blocks a batch entry of ``vaeseg_norm_reduce`` launches: the
+    partials its workspace holds (the kernel refuses another count)."""
+    return lib.vaeseg_norm_parts(b, n, c)
+
+
 def _launch(who: str, x: torch.Tensor, relu: bool,
             g: Optional[torch.Tensor] = None, aff: Optional[Affine] = None,
             m: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -142,12 +150,16 @@ def _launch(who: str, x: torch.Tensor, relu: bool,
     n = x.numel() // (b * c)
     with torch.cuda.device(dev):
         if reduce:
-            # f64 across the kernel's blocks (sums of 2M voxels at 128^3
-            # that cancel in the backward), rounded once here
-            out = torch.zeros((b, 2, c), dtype=torch.float64, device=dev)
+            # each block's f32 partial, summed across the blocks in f64 in
+            # a fixed order (sums of 2M voxels at 128^3 that cancel in the
+            # backward), rounded once here
+            parts = _parts(lib, b, n, c)
+            part = torch.empty((b, parts, 2, c), dtype=torch.float32,
+                               device=dev)
+            out = torch.empty((b, 2, c), dtype=torch.float64, device=dev)
             rc = lib.vaeseg_norm_reduce(
-                x.data_ptr(), _ptr(g), _ptr(s), _ptr(t), out.data_ptr(),
-                int(relu), b, n, c, stream)
+                x.data_ptr(), _ptr(g), _ptr(s), _ptr(t), part.data_ptr(),
+                parts, out.data_ptr(), int(relu), b, n, c, stream)
         else:
             out = torch.empty_like(x)
             rc = lib.vaeseg_norm_elementwise(

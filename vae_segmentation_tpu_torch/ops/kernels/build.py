@@ -29,10 +29,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-# exported C functions and their argument types, per source file
+# exported C functions and their argument types, per source file (a
+# "_parts" function returns the blocks a reduction's workspace holds)
 SIGNATURES = {
     "conv3": {
-        "vaeseg_conv3": [_P] * 10 + [_I] * 7 + [_P],
+        "vaeseg_conv3": [_P] * 12 + [_I] * 7 + [_P, _P],
         "vaeseg_error_string": [_I],
     },
     "conv3_dk": {
@@ -44,7 +45,8 @@ SIGNATURES = {
         "vaeseg_error_string": [_I],
     },
     "instance_norm": {
-        "vaeseg_norm_reduce": [_P] * 5 + [_I, _I, _L, _I, _P],
+        "vaeseg_norm_parts": [_I, _L, _I],
+        "vaeseg_norm_reduce": [_P] * 5 + [_L, _P, _I, _I, _L, _I, _P],
         "vaeseg_norm_elementwise": [_P] * 6 + [_I, _I, _L, _I, _P],
         "vaeseg_error_string": [_I],
     },
@@ -55,7 +57,7 @@ SIGNATURES = {
         "vaeseg_error_string": [_I],
     },
     "bridge_bwd": {
-        "vaeseg_bridge_bwd": [_I] + [_P] * 11 + [_I] * 6 + [_P] * 3,
+        "vaeseg_bridge_bwd": [_I] + [_P] * 12 + [_I] * 6 + [_P] * 3,
         "vaeseg_error_string": [_I],
     },
     "reparam": {
@@ -65,7 +67,8 @@ SIGNATURES = {
     },
     "losses": {
         "vaeseg_softmax_vjp": [_P, _P, _P, _L, _I, _P],
-        "vaeseg_dice_sums": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _P],
+        "vaeseg_dice_parts": [_I, _L, _I],
+        "vaeseg_dice_sums": [_P] * 5 + [_L, _P, _I, _L, _I, _I, _P],
         "vaeseg_error_string": [_I],
     },
 }
@@ -111,7 +114,7 @@ def _load(name: str, path: Path) -> ctypes.CDLL:
         f = getattr(lib, fn)
         f.argtypes = argtypes
         f.restype = ctypes.c_char_p if fn.endswith("error_string") \
-            else ctypes.c_int
+            else ctypes.c_longlong if fn.endswith("_parts") else ctypes.c_int
     return lib
 
 

@@ -33,14 +33,17 @@
 //   gy at a time, by cp.async into a two-slot ring, and runs mma.sync
 //   (ldmatrix without transpose: the fine rows are channels-last already).
 // - down's dx (down_dx_kernel): a thread per fine voxel and CT of its
-//   channels on the CUDA cores, the prologue backward's ds/dt reduced by
-//   warp shuffles, shared and then global atomics.
+//   channels on the CUDA cores; the prologue backward's ds/dt reduced by
+//   warp shuffles and the warps in a fixed order in shared memory, each
+//   block's [2, CT] partial written once and the blocks' partials added in
+//   f64 in a fixed order (common.cuh::parts_reduce): no atomics.
 
 #include "wgrad.cuh"
 
 namespace {
 
 using wgrad::kThreads;
+using wgrad::kWarps;
 
 struct BwdArgs {
   const __nv_bfloat16* x;   // forward input: the fine grid (down)
@@ -49,7 +52,7 @@ struct BwdArgs {
   const float* s;           // [B, Cin] prologue scale, or null
   const float* t;           // [B, Cin] prologue shift
   __nv_bfloat16* dx;        // like x
-  float* dst;               // [B, 2, Cin] zeroed (with the prologue), or null
+  float* dpart;             // [B, blocks, 2, Cin] f32 partials of dst
   int B, Dc, Hc, Wc;        // coarse grid
   int Df, Hf, Wf;           // fine grid as stored (>= 2 * coarse)
   int Cin, Cout;
@@ -205,7 +208,7 @@ __global__ void __launch_bounds__(kThreads) up_dx_kernel(const DxArgs a) {
 // channels, with the prologue's backward when s is given.
 template <int CT>
 __global__ void down_dx_kernel(const BwdArgs a) {
-  __shared__ float red[2 * CT];
+  __shared__ float red[kWarps][2 * CT];
   const int tid = threadIdx.x;
   const int b = blockIdx.z;
   const int c0 = blockIdx.y * CT;
@@ -242,8 +245,6 @@ __global__ void down_dx_kernel(const BwdArgs a) {
     }
     return;
   }
-  if (tid < 2 * CT) red[tid] = 0.f;
-  __syncthreads();
 #pragma unroll
   for (int c = 0; c < CT; ++c) {
     const int sc = b * a.Cin + c0 + c;
@@ -257,14 +258,17 @@ __global__ void down_dx_kernel(const BwdArgs a) {
       dt += __shfl_down_sync(0xffffffffu, dt, o);
     }
     if ((tid & 31) == 0) {
-      atomicAdd(&red[c], ds);
-      atomicAdd(&red[CT + c], dt);
+      red[tid >> 5][c] = ds;
+      red[tid >> 5][CT + c] = dt;
     }
   }
   __syncthreads();
-  if (tid < CT) {
-    atomicAdd(&a.dst[(int64_t)(b * 2) * a.Cin + c0 + tid], red[tid]);
-    atomicAdd(&a.dst[(int64_t)(b * 2 + 1) * a.Cin + c0 + tid], red[CT + tid]);
+  if (tid < 2 * CT) {
+    const int row = tid / CT, c = tid % CT;
+    float sum = 0.f;
+    for (int w = 0; w < kWarps; ++w) sum += red[w][tid];
+    a.dpart[(((int64_t)b * gridDim.x + blockIdx.x) * 2 + row) * a.Cin + c0 + c] =
+        sum;
   }
 }
 
@@ -346,12 +350,14 @@ const char* vaeseg_error_string(int code) {
 // db [Cout] may each be null; dk and db are written whole from the
 // workspace ws [splits, 8, Cin, Cout] f32 and wsdb [splits, Cout] f64 of
 // dk_plan (ops/conv3.py::wgrad_plan, mode 2 for K3, 1 for K2); K3's dx
-// follows dx_plan (ops/bridges.py::up_dx_plan). dst [B, 2, Cin] arrives
-// zeroed and goes with s and t (K2's prologue) and needs dx. Returns the
+// follows dx_plan (ops/bridges.py::up_dx_plan). dst [B, 2, Cin] f32 is
+// written whole and goes with s and t (K2's prologue) and needs dx, and
+// with its workspace dpart [B, ceil(D H W / 256), 2, Cin] f32. Returns the
 // first launch error (0 on success).
 int vaeseg_bridge_bwd(int up, const void* x, const void* gy, const void* w,
                       const void* s, const void* t, void* dx, void* dk,
-                      void* db, void* dst, void* ws, void* wsdb, int B, int D,
+                      void* db, void* dst, void* dpart, void* ws, void* wsdb,
+                      int B, int D,
                       int H, int W, int Cin, int Cout, const void* dk_plan,
                       const void* dx_plan, void* stream) {
   if (B <= 0 || D <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0)
@@ -359,7 +365,8 @@ int vaeseg_bridge_bwd(int up, const void* x, const void* gy, const void* w,
   if (!up && (D < 2 || H < 2 || W < 2)) return cudaErrorInvalidValue;
   if ((dk == nullptr) != (db == nullptr)) return cudaErrorInvalidValue;
   if (up && s != nullptr) return cudaErrorInvalidValue;
-  if (dx != nullptr && !up && (s != nullptr) != (dst != nullptr))
+  if (dx != nullptr && !up && ((s != nullptr) != (dst != nullptr) ||
+                                (dst != nullptr) != (dpart != nullptr)))
     return cudaErrorInvalidValue;
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
   const __nv_bfloat16* gb = static_cast<const __nv_bfloat16*>(gy);
@@ -377,11 +384,15 @@ int vaeseg_bridge_bwd(int up, const void* x, const void* gy, const void* w,
       a.s = static_cast<const float*>(s);
       a.t = static_cast<const float*>(t);
       a.dx = static_cast<__nv_bfloat16*>(dx);
-      a.dst = static_cast<float*>(dst);
+      a.dpart = static_cast<float*>(dpart);
       a.B = B; a.Cin = Cin; a.Cout = Cout;
       a.Dc = D / 2; a.Hc = H / 2; a.Wc = W / 2;
       a.Df = D; a.Hf = H; a.Wf = W;
       rc = dispatch_down_dx(a, st);
+      if (rc == cudaSuccess && s != nullptr)
+        rc = parts_reduce<float>(a.dpart, static_cast<float*>(dst), B,
+                                 (int)((int64_t(D) * H * W + 255) / 256),
+                                 2 * Cin, st);
     }
     if (rc != cudaSuccess) return rc;
   }

@@ -25,10 +25,11 @@
 // belongs to one channel: its (s, t, m1, m2) sit in registers and no element
 // needs a division, while neighbouring threads read neighbouring addresses.
 // The reduction keeps f32 partials per thread (chains of N * C / stride
-// elements), adds a block's threads in shared memory, and combines the
-// blocks with one f64 atomicAdd per (row, channel) and block: at 128^3 a
-// channel sums 2.1M voxels, and sum g_m * xhat cancels far below its terms.
-// The order of the atomics varies from run to run.
+// elements), adds a block's threads of one channel in a fixed order in
+// shared memory, writes the block's [2, C] partial once, and a second pass
+// (common.cuh::parts_reduce) adds the blocks' partials in f64 in a fixed
+// order: at 128^3 a channel sums 2.1M voxels, and sum g_m * xhat cancels
+// far below its terms. No atomics: the same bits on every run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,7 +47,7 @@ struct NormArgs {
   const float* s;          // [B, C] scale (rstd), or null in mode 0 of reduce
   const float* t;          // [B, C] shift (-mean * rstd)
   const float* m;          // [B, 2, C] (m1, m2), elementwise mode 1
-  double* sums;            // reduce: [B, 2, C], zeroed by the caller
+  float* part;             // reduce: [B, gridDim.x, 2, C] block partials
   __nv_bfloat16* y;        // elementwise: [B, N, C]
   int64_t n;               // N * C elements per batch entry
   int C, relu;
@@ -59,10 +60,8 @@ __device__ __forceinline__ float masked(float g, float xhat, int relu) {
 // grid (gx, B) with gx * kThreads a multiple of C.
 template <int MODE>
 __global__ void __launch_bounds__(kThreads) norm_reduce_kernel(const NormArgs a) {
-  extern __shared__ float sred[];  // [2][C]
+  __shared__ float sacc[2][kThreads];
   const int tid = threadIdx.x, b = blockIdx.y;
-  for (int i = tid; i < 2 * a.C; i += kThreads) sred[i] = 0.f;
-  __syncthreads();
   const int64_t first = (int64_t)blockIdx.x * kThreads + tid;
   const int64_t stride = (int64_t)gridDim.x * kThreads;
   const int64_t base = (int64_t)b * a.n;
@@ -85,11 +84,17 @@ __global__ void __launch_bounds__(kThreads) norm_reduce_kernel(const NormArgs a)
       acc1 = fmaf(gm, xhat, acc1);
     }
   }
-  atomicAdd(&sred[c], acc0);
-  atomicAdd(&sred[a.C + c], acc1);
+  sacc[0][tid] = acc0;
+  sacc[1][tid] = acc1;
   __syncthreads();
-  for (int i = tid; i < 2 * a.C; i += kThreads)
-    atomicAdd(&a.sums[(int64_t)b * 2 * a.C + i], static_cast<double>(sred[i]));
+  // the threads of channel cc are tid = (cc - first channel) mod C + k C
+  const int c0 = (int)((int64_t)blockIdx.x * kThreads % a.C);
+  for (int i = tid; i < 2 * a.C; i += kThreads) {
+    const int r = i / a.C, cc = i % a.C;
+    float sum = 0.f;
+    for (int k = (cc - c0 + a.C) % a.C; k < kThreads; k += a.C) sum += sacc[r][k];
+    a.part[((int64_t)b * gridDim.x + blockIdx.x) * 2 * a.C + i] = sum;
+  }
 }
 
 // grid (gx, B) with gx * kThreads a multiple of C.
@@ -159,13 +164,21 @@ const char* vaeseg_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// The blocks a batch entry of vaeseg_norm_reduce launches: its workspace
+// holds [B, blocks, 2, C] f32.
+long long vaeseg_norm_parts(int B, long long nvox, int C) {
+  if (bad_shape(B, nvox, C)) return 0;
+  return grid_x(nvox * C, C, B);
+}
+
 // x (and g with the backward's sums): [B, nvox, C] bf16; s, t: [B, C] f32,
 // both null for the forward's statistics (mode 0), both given for the
-// backward's (mode 1, g given too); sums: [B, 2, C] f64, zeroed.
-// Returns cudaGetLastError() after the launch (0 on success).
+// backward's (mode 1, g given too); part: [B, parts, 2, C] f32 workspace,
+// parts = vaeseg_norm_parts(B, nvox, C); sums: [B, 2, C] f64, written whole.
+// Returns the first launch error (0 on success).
 int vaeseg_norm_reduce(const void* x, const void* g, const void* s, const void* t,
-                       void* sums, int relu, int B, long long nvox, int C,
-                       void* stream) {
+                       void* part, long long parts, void* sums, int relu, int B,
+                       long long nvox, int C, void* stream) {
   if (bad_shape(B, nvox, C)) return cudaErrorInvalidValue;
   const bool bwd = g != nullptr;
   if (bwd != (s != nullptr) || bwd != (t != nullptr)) return cudaErrorInvalidValue;
@@ -175,20 +188,23 @@ int vaeseg_norm_reduce(const void* x, const void* g, const void* s, const void* 
   a.s = static_cast<const float*>(s);
   a.t = static_cast<const float*>(t);
   a.m = nullptr;
-  a.sums = static_cast<double*>(sums);
+  a.part = static_cast<float*>(part);
   a.y = nullptr;
   a.n = nvox * C;
   a.C = C;
   a.relu = relu;
-  const size_t smem = sizeof(float) * 2 * C;
-  if (smem > 48 * 1024) return cudaErrorInvalidValue;
-  const dim3 grid((unsigned)grid_x(a.n, C, B), B, 1);
+  const long long gx = grid_x(a.n, C, B);
+  if (parts != gx) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)gx, B, 1);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bwd)
-    norm_reduce_kernel<1><<<grid, kThreads, smem, st>>>(a);
+    norm_reduce_kernel<1><<<grid, kThreads, 0, st>>>(a);
   else
-    norm_reduce_kernel<0><<<grid, kThreads, smem, st>>>(a);
-  return cudaGetLastError();
+    norm_reduce_kernel<0><<<grid, kThreads, 0, st>>>(a);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return parts_reduce<double>(a.part, static_cast<double*>(sums), B, (int)gx,
+                              2 * C, st);
 }
 
 // x: [B, nvox, C] bf16; s, t: [B, C] f32; with g ([B, nvox, C] bf16) and m
@@ -208,7 +224,7 @@ int vaeseg_norm_elementwise(const void* x, const void* g, const void* s,
   a.s = static_cast<const float*>(s);
   a.t = static_cast<const float*>(t);
   a.m = static_cast<const float*>(m);
-  a.sums = nullptr;
+  a.part = nullptr;
   a.y = static_cast<__nv_bfloat16*>(y);
   a.n = nvox * C;
   a.C = C;

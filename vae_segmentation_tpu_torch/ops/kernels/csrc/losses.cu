@@ -15,9 +15,10 @@
 //   out[b, 2 + 2k, c] = sum_v p[b, v, c] * t_k[b, v, c]
 //   in f32, every volume read once. The TPU kernel carried its [8, L] block
 //   across a sequential grid; here each thread keeps 1 + 2K sums of one
-//   class (its stride is a multiple of C), a block adds them in shared
-//   memory and then with one atomicAdd per (row, class) to the output, so
-//   the order of the f32 sums varies from run to run.
+//   class (its stride is a multiple of C), a block adds its threads of one
+//   class in a fixed order in shared memory and writes its [1 + 2K, C]
+//   partial once, and common.cuh::parts_reduce adds the blocks' partials in
+//   f64 in a fixed order: no atomics, the same bits on every run.
 //
 // What bounds them on the H100: the bytes (3 and 1 + K volumes of traffic,
 // one or two operations per element).
@@ -25,6 +26,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -60,20 +63,18 @@ __global__ void softmax_vjp_kernel(const __nv_bfloat16* g, const __nv_bfloat16* 
 struct DiceArgs {
   const __nv_bfloat16* p;
   const __nv_bfloat16* t[kMaxTargets];
-  float* out;      // [B, 1 + 2K, C], zeroed by the caller
+  float* part;     // [B, gridDim.x, 1 + 2K, C] block partials
   int64_t n;       // elements per batch entry: voxels * C
   int C, K;
 };
 
 // grid (gx, B) with gx * kThreads a multiple of C: a thread's elements all
 // belong to one class.
-__global__ void dice_sums_kernel(const DiceArgs a) {
-  extern __shared__ float sred[];  // [1 + 2K][C]
+__global__ void __launch_bounds__(kThreads) dice_sums_kernel(const DiceArgs a) {
+  __shared__ float sacc[kRows][kThreads];
   const int rows = 1 + 2 * a.K;
   const int tid = threadIdx.x;
   const int b = blockIdx.y;
-  for (int i = tid; i < rows * a.C; i += kThreads) sred[i] = 0.f;
-  __syncthreads();
   const int64_t first = (int64_t)blockIdx.x * kThreads + tid;
   const int64_t stride = (int64_t)gridDim.x * kThreads;
   const int64_t base = (int64_t)b * a.n;
@@ -92,13 +93,17 @@ __global__ void dice_sums_kernel(const DiceArgs a) {
       }
     }
   }
-  const int cls = (int)(first % a.C);
 #pragma unroll
-  for (int r = 0; r < kRows; ++r)
-    if (r < rows) atomicAdd(&sred[r * a.C + cls], acc[r]);
+  for (int r = 0; r < kRows; ++r) sacc[r][tid] = acc[r];
   __syncthreads();
-  for (int i = tid; i < rows * a.C; i += kThreads)
-    atomicAdd(&a.out[(int64_t)b * rows * a.C + i], sred[i]);
+  // the threads of class c are tid = (c - first class) mod C + k C
+  const int c0 = (int)((int64_t)blockIdx.x * kThreads % a.C);
+  for (int i = tid; i < rows * a.C; i += kThreads) {
+    const int r = i / a.C, c = i % a.C;
+    float sum = 0.f;
+    for (int k = (c - c0 + a.C) % a.C; k < kThreads; k += a.C) sum += sacc[r][k];
+    a.part[((int64_t)b * gridDim.x + blockIdx.x) * rows * a.C + i] = sum;
+  }
 }
 
 int sm_count() {
@@ -109,6 +114,16 @@ int sm_count() {
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
   return sms;
+}
+
+// Blocks a batch entry of vaeseg_dice_sums launches: a few per SM across
+// the batch, rounded up to a multiple of C so that gx * kThreads is one.
+long long dice_grid_x(int B, long long nvox, int C) {
+  const long long n = nvox * C;
+  long long gx = (n + (long long)kThreads * 8 - 1) / ((long long)kThreads * 8);
+  const long long cap = (16LL * sm_count() + B - 1) / B;
+  if (gx > cap) gx = cap;
+  return (gx + C - 1) / C * C;
 }
 
 }  // namespace
@@ -139,9 +154,19 @@ int vaeseg_softmax_vjp(const void* g, const void* y, void* out, long long nvox,
   return cudaGetLastError();
 }
 
-// p and the K <= 3 targets: [B, nvox, C] bf16; out [B, 1 + 2K, C] f32, zeroed.
+// The workspace vaeseg_dice_sums needs: [B, vaeseg_dice_parts, 1 + 2K, C]
+// f32.
+long long vaeseg_dice_parts(int B, long long nvox, int C) {
+  if (B <= 0 || nvox <= 0 || C <= 0) return 0;
+  return dice_grid_x(B, nvox, C);
+}
+
+// p and the K <= 3 targets: [B, nvox, C] bf16; part the workspace above,
+// of parts = vaeseg_dice_parts(B, nvox, C) blocks; out [B, 1 + 2K, C] f32,
+// written whole. Returns the first launch error.
 int vaeseg_dice_sums(const void* p, const void* t0, const void* t1, const void* t2,
-                     void* out, int B, long long nvox, int C, int K, void* stream) {
+                     void* part, long long parts, void* out, int B,
+                     long long nvox, int C, int K, void* stream) {
   if (B <= 0 || B > 65535 || nvox <= 0 || C <= 0 || K < 1 || K > kMaxTargets)
     return cudaErrorInvalidValue;
   const void* ts[kMaxTargets] = {t0, t1, t2};
@@ -151,20 +176,17 @@ int vaeseg_dice_sums(const void* p, const void* t0, const void* t1, const void* 
     if (k < K && ts[k] == nullptr) return cudaErrorInvalidValue;
     a.t[k] = static_cast<const __nv_bfloat16*>(ts[k]);
   }
-  a.out = static_cast<float*>(out);
+  a.part = static_cast<float*>(part);
   a.n = nvox * C;
   a.C = C; a.K = K;
-  const size_t smem = sizeof(float) * (1 + 2 * K) * C;
-  if (smem > 48 * 1024) return cudaErrorInvalidValue;
-  // a few blocks per SM across the batch, rounded up to a multiple of C so
-  // that gx * kThreads is one
-  long long gx = (a.n + (long long)kThreads * 8 - 1) / ((long long)kThreads * 8);
-  const long long cap = (16LL * sm_count() + B - 1) / B;
-  if (gx > cap) gx = cap;
-  gx = (gx + C - 1) / C * C;
-  dice_sums_kernel<<<dim3((unsigned)gx, B, 1), kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(a);
-  return cudaGetLastError();
+  const long long gx = dice_grid_x(B, nvox, C);
+  if (gx != parts || gx > 0x7fffffff) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  dice_sums_kernel<<<dim3((unsigned)gx, B, 1), kThreads, 0, st>>>(a);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return parts_reduce<float>(a.part, static_cast<float*>(out), B, (int)gx,
+                             (1 + 2 * K) * C, st);
 }
 
 }  // extern "C"

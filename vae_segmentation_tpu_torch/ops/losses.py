@@ -18,6 +18,7 @@ sum the adaptation loss's three soft Dices need, each volume read once).
 
 from __future__ import annotations
 
+import functools
 from typing import List, Sequence
 
 import torch
@@ -169,6 +170,13 @@ def dice_sums_plain(pred: torch.Tensor, targets: Sequence[torch.Tensor]
     return torch.stack(rows, dim=1)
 
 
+@functools.lru_cache(maxsize=None)
+def _dice_parts(lib, b: int, nvox: int, c: int) -> int:
+    """The blocks a batch entry of ``vaeseg_dice_sums`` launches: the
+    partials its workspace holds (the kernel refuses another count)."""
+    return lib.vaeseg_dice_parts(b, nvox, c)
+
+
 def dice_sums(pred: torch.Tensor, targets: Sequence[torch.Tensor]
               ) -> torch.Tensor:
     """Same contract as ``dice_sums_plain`` for K <= 3 targets; on CUDA,
@@ -185,15 +193,19 @@ def dice_sums(pred: torch.Tensor, targets: Sequence[torch.Tensor]
     _check_same("dice_sums", pred, targets)
     b, c = pred.shape[0], pred.shape[-1]
     k = len(targets)
-    out = torch.zeros((b, 1 + 2 * k, c), dtype=torch.float32,
+    nvox = pred.numel() // (b * c)
+    out = torch.empty((b, 1 + 2 * k, c), dtype=torch.float32,
                       device=pred.device)
     ptrs = [t.data_ptr() for t in targets] + [None] * (MAX_DICE_TARGETS - k)
     lib = build.library("losses")
     with torch.cuda.device(pred.device):
+        # each block's partial, summed across the blocks in a fixed order
+        parts = _dice_parts(lib, b, nvox, c)
+        part = torch.empty((b, parts, 1 + 2 * k, c), dtype=torch.float32,
+                           device=pred.device)
         rc = lib.vaeseg_dice_sums(
-            pred.data_ptr(), *ptrs, out.data_ptr(), b,
-            pred.numel() // (b * c), c, k,
-            torch.cuda.current_stream(pred.device).cuda_stream)
+            pred.data_ptr(), *ptrs, part.data_ptr(), parts, out.data_ptr(),
+            b, nvox, c, k, torch.cuda.current_stream(pred.device).cuda_stream)
     raise_if(rc, lib, "dice_sums")
     dice_sums.launches += 1
     return out
