@@ -1,0 +1,565 @@
+"""K2 and K3 on the tensor cores (``kernels/csrc/bridge.cu``): their plans,
+a plain-torch emulation of their tiling, and the two gate rules that
+chip_smoke.py holds the kernels to beside them. The kernels themselves run
+only on the card (tests/test_torch_cuda.py, chip_smoke.py); what decides
+their blocks and where each value goes is checked here.
+
+(a) ``bridges.bridge_plan`` for every K2 and K3 call of the main path (the
+Down and Up bridges of a Joint and of a ShapeVAE, on the default route and
+on the norm route of VAESEG_PALLAS=1), recorded from a forward at 32^3 and
+scaled to 128^3, at batches 1, 2 and 4, and at odd grids with C of 1, 12
+and 40: the bricks cover the coarse grid exactly once and the blocks' walks
+every brick once, the channel chunks every channel, the warps' shares every
+k16 step; the shared memory fits the 227 KB a block may use; a call with
+fewer blocks than two an SM has the smallest brick and channel chunk.
+(b) The kernels' tiling, emulated: the rows a brick stages (each row's
+position, zero outside the volume), the tap each fine-row offset reads, the
+K order (chunk, tap, channel) and its split over the warps, the warps'
+partials added in order, where each output lands. With integer-valued
+inputs every f32 sum is exact, so the emulation must equal the plain
+version exactly: an index error (two taps' offsets swapped) fails.
+(c) The rules of chip_smoke.py's gates that this slice changed: K1's stats
+against their f64 value (``_compare``) and phase 9's per-term rule
+(``vae_gate``), each on synthetic tensors: a reordered sum passes, a
+planted fault of the size the card check plants fails.
+"""
+
+import functools
+import os
+from unittest import mock
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+import chip_smoke as cs
+from vae_segmentation_tpu_torch.models import Joint
+from vae_segmentation_tpu_torch.models.blocks import DownConv, TConv2
+from vae_segmentation_tpu_torch.ops import bridges, conv3
+
+torch.set_num_threads(2)
+
+H100_SMS = 132
+SMEM_BYTES = 227 * 1024   # shared memory a block may use on an H100
+WARPS = 8
+
+
+@functools.lru_cache(maxsize=None)
+def main_path_calls():
+    """{(kind, input grid, cin, cout, prologue)}: every K2 and K3 call of
+    the main path at 128^3. A Joint (the Seg and the ShapeVAE at full width)
+    runs one forward at 32^3 with a 256-wide bottleneck (the same layers at
+    a quarter of the extents), on the default route and on the norm route;
+    each bridge's input is recorded with its grid scaled by 4."""
+    model = Joint(n_class=2, dim=16, bottleneck=256,
+                  generator=torch.Generator().manual_seed(0))
+    calls = set()
+
+    def hook(module, args, kwargs, out):
+        x = args[0]
+        grid = tuple(4 * e for e in x.shape[1:4])
+        pre = kwargs.get("pre", args[1] if len(args) > 1 else None)
+        kind = "down" if isinstance(module, DownConv) else "up"
+        cout = module.weight.shape[1 if kind == "up" else 0]
+        calls.add((kind, grid, x.shape[-1], cout, pre is not None))
+
+    handles = [m.register_forward_hook(hook, with_kwargs=True)
+               for m in model.modules()
+               if isinstance(m, (DownConv, TConv2))]
+    with torch.no_grad():
+        model(torch.zeros(1, 32, 32, 32, 1))
+        with mock.patch.dict(os.environ, {"VAESEG_PALLAS": "1"}):
+            model(torch.zeros(1, 32, 32, 32, 1))
+    for h in handles:
+        h.remove()
+    return sorted(calls)
+
+
+def _row_stride(cw):
+    """wgrad.cuh::row_stride: a shared-memory row of `cw` bf16 channels,
+    an odd number of 16-byte units apart."""
+    return cw if (cw // 8) % 2 == 1 else cw + 8
+
+
+def smem_bytes(plan, up, pre):
+    """The shared memory a block lays out for `plan`
+    (bridge.cu::bridge_layout), counted here on its own."""
+    nvox, kc, nc = plan["nvox"], plan["kc"], plan["nc"]
+    mpad = -(-nvox // 16) * 16
+    rows = mpad if up else 8 * nvox
+    slots = 2 if plan["tpb"] * plan["k_chunks"] > 1 else 1
+    ring = slots * (rows * _row_stride(kc) * 2 + (8 * kc if pre else 0))
+    weights = (slots if plan["k_chunks"] > 1 else 1) * 8 * kc \
+        * (4 * nc if pre else 2 * _row_stride(nc))
+    tables = 4 * (2 * mpad + 8 * nvox if up else rows) + 4 * 8
+    if up:
+        out = 8 * nvox * _row_stride(nc) * 2
+    else:
+        out = 0 if pre else plan["wk"] * mpad * _row_stride(nc) * 4
+    return ring + weights + tables + out
+
+
+def _cover(extent, size, n):
+    count = np.zeros(extent, np.int32)
+    for k in range(n):
+        count[k * size:(k + 1) * size] += 1
+    return count
+
+
+def _check_plan(plan, kind, batch, grid, cin, cout, pre, sms=H100_SMS):
+    up = kind == "up"
+    assert plan["fields"] == [plan[k] for k in bridges.BRIDGE_FIELDS]
+    assert list(plan["arg"]) == plan["fields"]
+    coarse = grid if up else tuple(e // 2 for e in grid)
+    assert plan["coarse"] == coarse
+    # every coarse voxel in exactly one brick
+    for extent, size, n in zip(coarse, (plan["td"], plan["th"], plan["tw"]),
+                               (plan["tiles_d"], plan["tiles_h"],
+                                plan["tiles_w"])):
+        assert (_cover(extent, size, n) == 1).all()
+    nvox = plan["td"] * plan["th"] * plan["tw"]
+    assert plan["nvox"] == nvox and plan["mpad"] == -(-nvox // 16) * 16
+    ntiles = batch * plan["tiles_d"] * plan["tiles_h"] * plan["tiles_w"]
+    assert plan["ntiles"] == ntiles
+    # the blocks' walks (bricks blk + k * grid, k < tpb) visit each brick
+    # once
+    blocks, chunks = plan["launch_grid"]
+    walked = sorted(b + k * blocks for b in range(blocks)
+                    for k in range(plan["tpb"]) if b + k * blocks < ntiles)
+    assert walked == list(range(ntiles))
+    assert 1 <= plan["tpb"] <= bridges.BRIDGE_TPB
+    assert blocks < 2 ** 31 and chunks <= 65535
+    # channel chunks, K chunks
+    nc = plan["nc"]
+    assert nc in (8, 16) and chunks == -(-cout // nc)
+    assert (chunks - 1) * nc < cout <= chunks * nc
+    cpad, kc = plan["cpad"], plan["kc"]
+    assert cpad == (8 if not up and cin <= 8 else -(-cin // 16) * 16)
+    assert kc == 8 if cpad == 8 else kc % 16 == 0
+    assert plan["k_chunks"] == -(-cpad // kc) and cin <= cpad
+    # the warp grid
+    mtiles = plan["mpad"] // 16
+    if up:
+        assert plan["wm"] == plan["wk"] == 1
+        assert plan["mt"] in (1, 2, 4, 8) and 16 * plan["mt"] >= nvox
+        assert plan["mt"] * nc // 8 <= 8          # MT x NT m16n8 tiles
+    else:
+        assert plan["wm"] * plan["wk"] == WARPS
+        assert plan["mt"] in (1, 2, 4) and plan["mt"] * plan["wm"] >= mtiles
+        assert nvox * nc // 8 <= 256              # one store a thread
+        # every k16 step of a chunk in exactly one warp's share
+        for cw in {min(kc, cpad - c0) for c0 in range(0, cpad, kc)}:
+            nks, wk = cw // 2, plan["wk"]
+            shares = [range(nks * i // wk, nks * (i + 1) // wk)
+                      for i in range(wk)]
+            assert [s for r in shares for s in r] == list(range(nks))
+    assert plan["tensor_cores"] == (not pre)
+    assert smem_bytes(plan, up, pre) == plan["smem"] <= SMEM_BYTES
+    # fewer blocks than two an SM: the smallest brick and channel chunk
+    if ntiles * chunks < 2 * sms:
+        assert nvox <= 16 and nc == 8
+
+
+def test_main_path_calls_are_the_models():
+    calls = main_path_calls()
+    assert ("down", (128, 128, 128), 8, 8, True) in calls
+    assert ("down", (128, 128, 128), 8, 8, False) in calls   # norm route
+    assert ("down", (8, 8, 8), 128, 128, False) in calls
+    assert ("up", (4, 4, 4), 256, 256, False) in calls
+    assert ("up", (64, 64, 64), 16, 16, False) in calls
+    assert len({c[0] for c in calls}) == 2
+
+
+@pytest.mark.parametrize("batch", [1, 2, 4])
+def test_plans_of_the_main_path(batch):
+    for kind, grid, cin, cout, pre in main_path_calls():
+        plan = bridges.bridge_plan(kind, batch, grid, cin, cout, pre,
+                                   H100_SMS)
+        _check_plan(plan, kind, batch, grid, cin, cout, pre)
+        if not pre and kind == "down" and plan["wk"] > 1:
+            one = bridges.bridge_plan(kind, batch, grid, cin, cout, pre,
+                                      H100_SMS, wk=1)
+            _check_plan(one, kind, batch, grid, cin, cout, pre)
+            assert one["wk"] == 1
+
+
+@pytest.mark.parametrize("kind,batch,grid,cin,cout,pre", [
+    ("up", 3, (5, 9, 19), 12, 40, False),
+    ("up", 1, (1, 1, 1), 1, 1, False),
+    ("up", 2, (3, 7, 2), 40, 12, False),
+    ("up", 1, (6, 6, 6), 300, 24, False),     # K past one staged chunk
+    ("down", 3, (5, 9, 19), 40, 12, False),   # odd fine extents
+    ("down", 1, (7, 3, 2), 1, 1, True),
+    ("down", 2, (9, 17, 5), 12, 40, True),
+    ("down", 1, (6, 6, 6), 300, 24, False),
+    ("down", 1, (12, 12, 12), 300, 12, True),
+])
+def test_edge_plans(kind, batch, grid, cin, cout, pre):
+    plan = bridges.bridge_plan(kind, batch, grid, cin, cout, pre, H100_SMS)
+    _check_plan(plan, kind, batch, grid, cin, cout, pre)
+
+
+def test_plans_refuse_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError):     # K3 has no prologue
+        bridges.bridge_plan("up", 1, (4, 4, 4), 8, 8, True, H100_SMS)
+    with pytest.raises(ValueError):     # no coarse voxel
+        bridges.bridge_plan("down", 1, (1, 4, 4), 8, 8, False, H100_SMS)
+    with pytest.raises(ValueError):
+        bridges.bridge_plan("side", 1, (4, 4, 4), 8, 8, False, H100_SMS)
+
+
+# ---- (b) the kernels' tiling, emulated
+
+
+def _pack(d, h, w):
+    return (d << 20) | (h << 10) | w
+
+
+def _unpack(p):
+    return p >> 20, (p >> 10) & 1023, p & 1023
+
+
+def _bricks(plan, batch):
+    """(b, d0, h0, w0) of each brick in the order blocks walk them."""
+    blocks = plan["launch_grid"][0]
+    per_b = plan["tiles_d"] * plan["tiles_h"] * plan["tiles_w"]
+    for blk in range(blocks):
+        for k in range(plan["tpb"]):
+            tile = blk + k * blocks
+            if tile >= plan["ntiles"]:
+                break
+            b, r = divmod(tile, per_b)
+            kd, r = divmod(r, plan["tiles_h"] * plan["tiles_w"])
+            kh, kw = divmod(r, plan["tiles_w"])
+            yield b, kd * plan["td"], kh * plan["th"], kw * plan["tw"]
+
+
+def emulate_up(x, weight, bias, plan, swap_taps=False):
+    """K3's tiling on f32 tensors: each brick's coarse rows staged by their
+    positions (zero past nvox and outside the volume), warp `tap` computing
+    rows x [8, cpad, nc] weight rows tap * cpad + c, the sums + bias placed
+    at the fine voxel mfine[m] + tap offset of the fine brick, each fine
+    voxel stored inside the volume. Returns y (NaN where nothing landed)
+    and how many times each output was written."""
+    b, d, h, w, cin = x.shape
+    cout = weight.shape[1]
+    td, th, tw, nc = plan["td"], plan["th"], plan["tw"], plan["nc"]
+    nvox, mpad, cpad = plan["nvox"], plan["mpad"], plan["cpad"]
+    fh, fw = 2 * th, 2 * tw
+    wk = weight.permute(2, 3, 4, 0, 1).reshape(8, cin, cout).float()
+    wk = F.pad(wk, (0, -cout % nc, 0, cpad - cin))   # [8, cpad, nc chunks]
+    pos, mfine = [], []
+    for m in range(mpad):
+        kd, kh, kw = m // (th * tw), (m // tw) % th, m % tw
+        pos.append(_pack(kd, kh, kw) if m < nvox else -1)
+        mfine.append((2 * kd * fh + 2 * kh) * fw + 2 * kw if m < nvox else -1)
+    toff = [((t >> 2) * fh + ((t >> 1) & 1)) * fw + (t & 1) for t in range(8)]
+    if swap_taps:
+        toff[1], toff[2] = toff[2], toff[1]
+    y = torch.full((b, 2 * d, 2 * h, 2 * w, cout), float("nan"))
+    writes = torch.zeros(y.shape[:4] + (cout,), dtype=torch.int32)
+    xp = F.pad(x.float(), (0, cpad - cin))
+    for o0 in range(0, cout, nc):
+        for bb, d0, h0, w0 in _bricks(plan, b):
+            rows = torch.zeros(mpad, cpad)
+            for m, p in enumerate(pos):
+                if p < 0:
+                    continue
+                pd, ph, pw = _unpack(p)
+                gd, gh, gw = d0 + pd, h0 + ph, w0 + pw
+                if gd < d and gh < h and gw < w:
+                    rows[m] = xp[bb, gd, gh, gw]
+            ys = torch.zeros(8 * nvox, nc)
+            for tap in range(8):
+                out = rows @ wk[tap, :, o0:o0 + nc]
+                bv = F.pad(bias.float()[o0:o0 + nc], (0, nc - len(
+                    bias[o0:o0 + nc])))
+                for m in range(mpad):
+                    if mfine[m] >= 0:
+                        ys[mfine[m] + toff[tap]] = out[m] + bv
+            for v in range(8 * nvox):
+                vd = 2 * d0 + v // (fh * fw)
+                vh, vw = 2 * h0 + (v // fw) % fh, 2 * w0 + v % fw
+                n = min(nc, cout - o0)
+                if vd < 2 * d and vh < 2 * h and vw < 2 * w:
+                    y[bb, vd, vh, vw, o0:o0 + n] = ys[v, :n]
+                    writes[bb, vd, vh, vw, o0:o0 + n] += 1
+    return y, writes
+
+
+def emulate_down(x, weight, bias, pre, plan, swap_taps=False):
+    """K2's tiling on f32 tensors: each brick's 8 nvox fine rows staged by
+    their positions (zero outside the volume); without the prologue, A[m,
+    k] for k = tap * cw + c of each K chunk read at fine row 2i(m) + the
+    tap's offset, warp share wki of each chunk's k16 steps summed alone and
+    the wk partials added in warp order; with it (the CUDA cores), xn =
+    relu(x * s + t) and the (chunk, tap, channel) sum per coarse voxel;
+    + bias, stored inside the coarse grid. Returns y (NaN where nothing
+    landed) and how many times each output was written."""
+    b, d, h, w, cin = x.shape
+    cout = weight.shape[0]
+    td, th, tw, nc = plan["td"], plan["th"], plan["tw"], plan["nc"]
+    nvox, mpad, cpad, kc = plan["nvox"], plan["mpad"], plan["cpad"], \
+        plan["kc"]
+    dc, hc, wc = plan["coarse"]
+    fh, fw = 2 * th, 2 * tw
+    wk = weight.permute(2, 3, 4, 1, 0).reshape(8, cin, cout).float()
+    wk = F.pad(wk, (0, -cout % nc, 0, cpad - cin))
+    xp = F.pad(x.float(), (0, cpad - cin))
+    if pre is not None:
+        s = F.pad(pre[0].float(), (0, cpad - cin))
+        t = F.pad(pre[1].float(), (0, cpad - cin))
+    pos = [_pack(r // (fh * fw), (r // fw) % fh, r % fw)
+           for r in range(8 * nvox)]
+    toff = [((t_ >> 2) * fh + ((t_ >> 1) & 1)) * fw + (t_ & 1)
+            for t_ in range(8)]
+    if swap_taps:
+        toff[1], toff[2] = toff[2], toff[1]
+    arow = [(2 * (m // (th * tw)) * fh + 2 * ((m // tw) % th)) * fw
+            + 2 * (m % tw) if m < nvox else 0 for m in range(mpad)]
+    y = torch.full((b, dc, hc, wc, cout), float("nan"))
+    writes = torch.zeros(y.shape, dtype=torch.int32)
+    wkk = plan["wk"]
+    for o0 in range(0, cout, nc):
+        for bb, d0, h0, w0 in _bricks(plan, b):
+            rows = torch.zeros(8 * nvox, cpad)
+            for r, p in enumerate(pos):
+                pd, ph, pw = _unpack(p)
+                gd, gh, gw = 2 * d0 + pd, 2 * h0 + ph, 2 * w0 + pw
+                if gd < d and gh < h and gw < w:
+                    rows[r] = xp[bb, gd, gh, gw]
+            if pre is not None:
+                rows = torch.relu(rows * s[bb] + t[bb])
+            parts = torch.zeros(wkk, mpad, nc)
+            for c0 in range(0, cpad, kc):
+                cw = min(kc, cpad - c0)
+                # A [mpad, 8 cw] and the weight rows [8 cw, nc], K = (tap, c)
+                a = torch.stack([rows[[ar + toff[k // cw] for ar in arow],
+                                      c0 + k % cw] for k in range(8 * cw)],
+                                dim=1)
+                wrows = torch.stack([wk[k // cw, c0 + k % cw, o0:o0 + nc]
+                                     for k in range(8 * cw)])
+                if pre is not None:      # one thread sums all of K
+                    parts[0] += a @ wrows
+                    continue
+                nks = cw // 2
+                for i in range(wkk):
+                    for ks in range(nks * i // wkk, nks * (i + 1) // wkk):
+                        cols = slice(16 * ks, 16 * ks + 16)
+                        parts[i] += a[:, cols] @ wrows[cols]
+            out = parts[0]
+            for i in range(1, wkk):
+                out = out + parts[i]
+            bv = F.pad(bias.float()[o0:o0 + nc],
+                       (0, nc - len(bias[o0:o0 + nc])))
+            for m in range(nvox):
+                vd = d0 + m // (th * tw)
+                vh, vw = h0 + (m // tw) % th, w0 + m % tw
+                n = min(nc, cout - o0)
+                if vd < dc and vh < hc and vw < wc:
+                    y[bb, vd, vh, vw, o0:o0 + n] = (out[m] + bv)[:n]
+                    writes[bb, vd, vh, vw, o0:o0 + n] += 1
+    return y, writes
+
+
+def _ints(gen, *shape, lo=-3, hi=3):
+    return torch.randint(lo, hi + 1, shape, generator=gen).float()
+
+
+def _down_case(shape, cout, pre, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    b, cin = shape[0], shape[-1]
+    x = _ints(gen, *shape)
+    weight = _ints(gen, cout, cin, 2, 2, 2, lo=-2, hi=2)
+    bias = _ints(gen, cout)
+    aff = None
+    if pre:
+        # x * s + t exact in f32: s in {0.5, 1, 2}, t an integer
+        s = torch.tensor([0.5, 1.0, 2.0])[torch.randint(0, 3, (b, cin),
+                                                        generator=gen)]
+        aff = (s, _ints(gen, b, cin, lo=-1, hi=1))
+    return x, weight, bias, aff
+
+
+UP_CASES = [((2, 3, 5, 6, 12), 40), ((1, 2, 2, 2, 1), 1),
+            ((1, 3, 4, 5, 40), 12), ((2, 4, 4, 4, 64), 64)]
+DOWN_CASES = [((2, 7, 9, 10, 12), 40, False), ((2, 7, 9, 10, 12), 40, True),
+              ((1, 6, 5, 4, 1), 1, True), ((1, 4, 6, 8, 40), 12, False),
+              ((1, 8, 8, 8, 64), 64, False), ((2, 16, 16, 16, 8), 8, True),
+              ((1, 16, 16, 16, 8), 8, False)]
+
+
+@pytest.mark.parametrize("shape,cout", UP_CASES)
+def test_up_tiling_equals_plain(shape, cout):
+    gen = torch.Generator().manual_seed(1)
+    x = _ints(gen, *shape)
+    weight = _ints(gen, shape[-1], cout, 2, 2, 2, lo=-2, hi=2)
+    bias = _ints(gen, cout)
+    b, d, h, w, cin = shape
+    plan = bridges.bridge_plan("up", b, (d, h, w), cin, cout, False,
+                               H100_SMS)
+    y, writes = emulate_up(x, weight, bias, plan)
+    assert (writes == 1).all()
+    assert torch.equal(y, bridges.up_k2s2_plain(x, weight, bias))
+
+
+@pytest.mark.parametrize("shape,cout,pre", DOWN_CASES)
+@pytest.mark.parametrize("one_pass", [False, True])
+def test_down_tiling_equals_plain(shape, cout, pre, one_pass):
+    x, weight, bias, aff = _down_case(shape, cout, pre)
+    b, d, h, w, cin = shape
+    plan = bridges.bridge_plan("down", b, (d, h, w), cin, cout, pre,
+                               H100_SMS, wk=1 if one_pass else None)
+    y, writes = emulate_down(x, weight, bias, aff, plan)
+    assert (writes == 1).all()
+    assert torch.equal(y, bridges.down_k2s2_plain(x, weight, bias, aff))
+
+
+def test_a_tap_offset_error_fails_the_emulation():
+    """Two taps' fine-row offsets swapped: the tiling no longer equals the
+    plain version, so the emulation sees index errors without a card."""
+    x, weight, bias, aff = _down_case((1, 4, 6, 8, 12), 12, False)
+    plan = bridges.bridge_plan("down", 1, (4, 6, 8), 12, 12, False,
+                               H100_SMS)
+    y, _ = emulate_down(x, weight, bias, aff, plan, swap_taps=True)
+    assert not torch.equal(y, bridges.down_k2s2_plain(x, weight, bias, aff))
+    gen = torch.Generator().manual_seed(1)
+    x = _ints(gen, 1, 3, 4, 5, 12)
+    weight = _ints(gen, 12, 12, 2, 2, 2, lo=-2, hi=2)
+    bias = _ints(gen, 12)
+    plan = bridges.bridge_plan("up", 1, (3, 4, 5), 12, 12, False, H100_SMS)
+    y, _ = emulate_up(x, weight, bias, plan, swap_taps=True)
+    assert not torch.equal(y, bridges.up_k2s2_plain(x, weight, bias))
+
+
+# ---- (c) the gate rules of chip_smoke.py
+
+
+def _k1_call(seed=0):
+    """A K1 call with the stats epilogue under the prologue at a 4^3
+    stage (64 voxels a channel, where one bf16 flip of a large voxel moves
+    the sumsq by ~1e-3): inputs and the plain version's output."""
+    gen = torch.Generator().manual_seed(seed)
+    b, c = 2, 32
+    x = torch.randn(b, 4, 4, 4, c, generator=gen).bfloat16()
+    w = torch.randn(c, c, 3, 3, 3, generator=gen) * (27 * c) ** -0.5
+    bias = torch.randn(c, generator=gen)
+    aff = (torch.rand(b, c, generator=gen) + 0.5,
+           torch.randn(b, c, generator=gen) * 0.3)
+    return (x, w, bias, aff), conv3.conv3_plain(x, w, bias, aff, stats=True)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_k1_stats_rule_holds_a_reordered_sum(seed):
+    """The plain version's own y with its stats summed as 64 partials in a
+    shuffled order (what K1's per-block partials do): inside the rule."""
+    inputs, want = _k1_call(seed)
+    y = want[0]
+    reordered = cs._shuffled_stats(torch, seed)(y)
+    rec = cs._compare(torch, "conv3", False, (y, reordered), want, inputs)
+    assert rec["ok"], rec
+    assert max(rec["stats_sum_err"], rec["stats_sumsq_rel"]) < 1e-4
+
+
+def test_k1_stats_rule_fails_a_dropped_bias():
+    """One output channel's bias dropped (its largest), y and stats alike:
+    outside the rule, by its stats against f64 and by y's bf16 rule."""
+    inputs, want = _k1_call()
+    x, w, bias, aff = inputs
+    planted = bias.clone()
+    planted[planted.abs().argmax()] = 0.0
+    got = conv3.conv3_plain(x, w, planted, aff, stats=True)
+    rec = cs._compare(torch, "conv3", False, got, want, inputs)
+    assert not rec["ok"]
+    assert rec["stats_sum_err"] > 10 * cs.STATS_TOL
+
+
+def test_k1_stats_rule_takes_the_plain_versions_distance_where_larger():
+    """A kernel no further from f64 than twice the plain version passes,
+    even where that is more than STATS_TOL; three times it fails."""
+    inputs, want = _k1_call()
+    exact = cs.k1_stats_exact(torch, *inputs)
+    y, st = want
+    # a plain version 2e-3 (sumsq) from f64, a kernel 3.9e-3 and 6e-3
+    plain = exact.float().clone()
+    plain[:, 1] *= 1 + 2e-3
+    for scale, ok in ((1 + 3.9e-3, True), (1 + 6e-3, False)):
+        kern = exact.float().clone()
+        kern[:, 1] *= scale
+        rec = cs._compare(torch, "conv3", False, (y, kern), (y, plain),
+                          inputs)
+        assert rec["ok"] == ok, rec
+
+
+def _terms(gen, base=None, noise=0.0):
+    """A synthetic vae_terms result: `base` with every value moved by
+    `noise` relative (a reordered sum's size), or a fresh one."""
+    def move(t):
+        return t + noise * t.abs().mean() * torch.randn(t.shape,
+                                                        generator=gen)
+    if base is None:
+        grads = {f"enc{i}.weight": torch.randn(16, 8, generator=gen)
+                 for i in range(6)}
+        return {"losses": {"dice_loss": 0.62, "kl_loss": 890.1},
+                "grads_dice": grads,
+                "grads_kl": {k: torch.randn(16, 8, generator=gen)
+                             for k in grads},
+                "mean": torch.randn(4, 128, generator=gen),
+                "std": torch.randn(4, 128, generator=gen).relu()}
+    return {"losses": {k: v * (1 + noise * float(torch.randn(
+                1, generator=gen))) for k, v in base["losses"].items()},
+            "grads_dice": {k: move(v) for k, v in base["grads_dice"].items()},
+            "grads_kl": {k: move(v) for k, v in base["grads_kl"].items()},
+            "mean": move(base["mean"]), "std": move(base["std"]).relu()}
+
+
+def _paths(noise=1e-4, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    p = _terms(gen)
+    return p, _terms(gen, p, noise), [_terms(gen, p, noise)
+                                      for _ in range(3)], \
+        _terms(gen, p, noise)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_phase9_rule_holds_a_reordered_sum(seed):
+    """A kernel path as far from the plain path as a reordered plain sum:
+    every part of the rule holds."""
+    p, r, s, k = _paths(seed=seed)
+    rec = cs.vae_gate(torch, k, p, r, s)
+    assert rec["ok"], rec
+    assert rec["dice_worst_ratio"] < cs.DRIFT_MULTIPLE
+
+
+def test_phase9_rule_fails_a_scaled_dice_gradient():
+    """One Dice-term gradient tensor scaled by 1.01 (a weight gradient's
+    fault of the size the card check plants)."""
+    p, r, s, k = _paths()
+    key = sorted(k["grads_dice"])[2]
+    k["grads_dice"][key] = k["grads_dice"][key] * 1.01
+    rec = cs.vae_gate(torch, k, p, r, s)
+    assert not rec["ok"] and rec["dice_worst_tensor"] == key
+
+
+def test_phase9_rule_fails_a_moved_latent():
+    """The encoder's std moved by 1e-2 on average, far past the plain
+    orders' drift."""
+    p, r, s, k = _paths()
+    k["std"] = k["std"] + 1e-2
+    rec = cs.vae_gate(torch, k, p, r, s)
+    assert not rec["ok"]
+    assert rec["latent"]["std"]["kernel_vs_plain"] \
+        > rec["latent"]["std"]["gate"]
+
+
+def test_phase9_rule_does_not_hold_the_kl_term_end_to_end():
+    """A unit's std near the ReLU's zero makes the KL term's gradient jump
+    on any path (its gradient in std reaches 1e5): the end-to-end ratio is
+    reported, the rule holds the term on one shared forward instead."""
+    p, r, s, k = _paths()
+    key = sorted(k["grads_kl"])[0]
+    k["grads_kl"][key] = k["grads_kl"][key] * 50.0
+    rec = cs.vae_gate(torch, k, p, r, s)
+    assert rec["ok"]
+    assert rec["kl_term_worst_ratio_not_gated"] > 100 * cs.DRIFT_MULTIPLE

@@ -61,28 +61,74 @@ def test_conv3_kernel_matches_plain(gen, shape, cout, pre, stats, softmax):
         _close(got, want, 1e-2)
 
 
-@pytest.mark.parametrize("shape,cout,pre", [
-    ((2, 6, 10, 4, 3), 5, True), ((1, 8, 8, 8, 16), 16, False)])
-def test_down_kernel_matches_plain(gen, shape, cout, pre):
+# K2 and K3 on the tensor cores: odd grids (ragged bricks, an odd fine
+# extent K2 never reads), channels of 1, 12 and 40 (plain loads, zero
+# padding), C_in != C_out, batch 3, the prologue's three-term xn, the deep
+# stages' K split over the warps and C_in past one staged chunk
+BRIDGE_CASES = [
+    ((2, 6, 10, 4, 3), 5, True), ((1, 8, 8, 8, 16), 16, False),
+    ((3, 7, 9, 5, 12), 40, True), ((3, 9, 6, 11, 40), 12, False),
+    ((1, 5, 3, 2, 1), 1, True), ((2, 3, 17, 6, 1), 12, False),
+    ((3, 8, 8, 8, 128), 128, False), ((2, 16, 16, 16, 64), 64, False),
+    ((1, 32, 32, 32, 8), 8, True), ((1, 6, 6, 6, 300), 24, False),
+]
+
+
+def _down_call(gen, shape, cout, pre):
     b, cin = shape[0], shape[-1]
     x = _rnd(gen, *shape).bfloat16()
     w = _rnd(gen, cout, cin, 2, 2, 2, scale=(8 * cin) ** -0.5)
     bias = _rnd(gen, cout)
     aff = (_rnd(gen, b, cin).abs() + 0.5, _rnd(gen, b, cin, scale=0.3)) \
         if pre else None
-    got = bridges.down_k2s2(x, w, bias, bridges.down_kernel_weight(w), aff)
-    _close(got, bridges.down_k2s2_plain(x, w, bias, aff), 1e-2)
+    return x, w, bias, aff
 
 
-@pytest.mark.parametrize("shape,cout", [((2, 3, 5, 2, 3), 5),
-                                        ((1, 4, 4, 4, 32), 32)])
-def test_up_kernel_matches_plain(gen, shape, cout):
+def _up_call(gen, shape, cout):
     cin = shape[-1]
     x = _rnd(gen, *shape).bfloat16()
     w = _rnd(gen, cin, cout, 2, 2, 2, scale=(8 * cout) ** -0.5)
-    bias = _rnd(gen, cout)
-    got = bridges.up_k2s2(x, w, bias, bridges.up_kernel_weight(w))
+    return x, w, _rnd(gen, cout)
+
+
+def _repeats(run, first):
+    return all(torch.equal(run(), first) for _ in range(2))
+
+
+@pytest.mark.parametrize("shape,cout,pre", BRIDGE_CASES)
+def test_down_kernel_matches_plain(gen, shape, cout, pre):
+    """K2 against its plain version (bf16 rule), launched once by the
+    wrapper, and the same bits on two more launches (no atomics)."""
+    x, w, bias, aff = _down_call(gen, shape, cout, pre)
+    kw = bridges.down_kernel_weight(w)
+    before = bridges.down_k2s2.launches
+    got = bridges.down_k2s2(x, w, bias, kw, aff)
+    torch.cuda.synchronize()
+    assert bridges.down_k2s2.launches == before + 1
+    want = bridges.down_k2s2_plain(x, w, bias, aff)
+    _close(got, want, 1e-2)
+    assert _repeats(lambda: bridges.down_k2s2(x, w, bias, kw, aff), got)
+    # the one-pass plan (no K split over the warps) computes the same
+    b, d, h, w_, cin = x.shape
+    one = bridges.bridge_plan("down", b, (d, h, w_), cin, cout, pre,
+                              conv3.sm_count(0), wk=1)
+    _close(bridges.bridge_launch("down", x, kw, bias, aff, one), want, 1e-2)
+
+
+@pytest.mark.parametrize("shape,cout", [
+    ((2, 3, 5, 2, 3), 5), ((1, 4, 4, 4, 32), 32),
+    *[(s, c) for s, c, _ in BRIDGE_CASES]])
+def test_up_kernel_matches_plain(gen, shape, cout):
+    """K3 against its plain version (bf16 rule) on the K2 cases' inputs as
+    coarse grids, launched once by the wrapper, and the same bits again."""
+    x, w, bias = _up_call(gen, shape, cout)
+    kw = bridges.up_kernel_weight(w)
+    before = bridges.up_k2s2.launches
+    got = bridges.up_k2s2(x, w, bias, kw)
+    torch.cuda.synchronize()
+    assert bridges.up_k2s2.launches == before + 1
     _close(got, bridges.up_k2s2_plain(x, w, bias), 1e-2)
+    assert _repeats(lambda: bridges.up_k2s2(x, w, bias, kw), got)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(gen):

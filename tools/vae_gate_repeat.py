@@ -1,40 +1,45 @@
 #!/usr/bin/env python3
-"""Repeat chip_smoke.py's phase-9 gate (the vae_train step-1 loss and
-gradient gate) many times on one GPU, on one batch, for the port tree at
---root:
+"""Run chip_smoke.py's phase-9 gate (the vae_train step-1 gate, each loss
+term where it is well conditioned) on one GPU, on chosen batches, for the
+port tree at --root:
 
-    python3 tools/vae_gate_repeat.py --root DIR [--runs 15] [--seed 0]
-                                     [--draws 1] [--calls] [--out PATH]
+    python3 tools/vae_gate_repeat.py --root DIR [--runs 2] [--seed 0]
+                                     [--draws 1-10] [--calls]
+                                     [--fault conv3_dk|k1_bias] [--out PATH]
 
 The tree's own chip_smoke.py supplies the constants, the plain path and the
-gate's arithmetic; the model and the seeds are phase 9's (the ShapeVAE at
+gate's rules (``vae_terms``, ``vae_gate``, ``vae_backward_gate``,
+``check_calls``); the model and the seeds are phase 9's (the ShapeVAE at
 full width from --seed + 2, warped batches of 4 ground-truth masks at 128^3
 from --seed + 3, reparam seed --seed). The batch is the k-th warp the
-seeded generator draws, for each k of --draws ("1", "1-12" or "1,7,8"):
-phase 9 takes the 8th, the first after phase 10's timing of the warp (7
-draws). For each batch the
-plain path, the reordered plain path and the three stats-shuffled orders
-run once; the kernel path runs `--runs` times, each a fresh vae_train
-step 1.
-Each kernel run prints one JSON line: the worst gradient ratio against
-DRIFT_MULTIPLE, its tensor, each loss term's relative error and gate, and
-whether phase 9's step gate holds (the backward-alone half of phase 9 is
-not repeated), and the worst ratio again against the largest drift over
-all four plain-path orders (the stats-shuffled ones too), where the
-gate takes the conv-split order alone. Each batch's head line gives the
-encoder's std = relu(z) on the plain path, the kernel path and the other
-three plain orders where any is in (0, 1e-3), and how far each path's std
-lies from the plain path's on average: the KL's gradient in std is std - 1 / (std + 1e-5), so a z
-that a rounding-level change moves across zero changes fc_std's gradient
-by up to 1e5 a unit. With --calls, each batch's plain step 1 is also
-recorded and every kernel call held against its plain version by phase
-8's checks (chip_smoke.check_calls: the bf16 and f32 rules, K1's stats
-gate, the f64 gates of the weight gradients and norm sums, two more
-launches for the same bits); one line per batch gives each kernel's
-calls, failed calls and worst errors, and how far K1's and the plain
-version's stats lie from their f64 value. The last line is a summary:
-runs, failures and ratios per batch. Put two trees in one command to
-compare their failure rates on the same card.
+seeded generator draws, for each k of --draws ("1", "1-10" or "1,7,8"):
+chip_smoke takes the 8th, the first after its timing of the warp (7
+draws). For each batch the plain path, the reordered plain path and the
+three stats-shuffled orders run once; the kernel path runs `--runs` times.
+Each kernel run prints one JSON line with phase 9's verdict and its parts:
+each loss term against its gate, the Dice term's worst gradient ratio, the
+latent's distance from the plain path against its gate, the backward alone
+(the full loss, the KL term's gradient with it, on one kernel-path
+forward's graph), and, not gated, the KL term's end-to-end worst ratio.
+Each batch's head line gives the encoder's std = relu(z) on the plain
+path, the kernel path and the other four plain orders where any is in
+(0, 1e-3): the KL's gradient in std is std - 1 / (std + 1e-5), so a z that
+a rounding-level change moves across zero changes fc_std's gradient by up
+to 1e5 a unit, which is why the KL term is held on one shared forward.
+With --calls, each batch's plain step 1 is also recorded and every kernel
+call held against its plain version by phase 8's checks
+(chip_smoke.check_calls: the bf16 and f32 rules, K1's stats against their
+f64 value, the f64 gates of the weight gradients and norm sums, two more
+launches for the same bits); one line per batch gives each kernel's calls,
+failed calls and worst errors. --fault plants a fault in the kernel path
+(this tool's own wrappers; the package is untouched) to show that the
+rules catch it: ``conv3_dk`` scales one conv3_dk call's dk by 1.01;
+``k1_bias`` drops one output channel's bias (its largest) from one K1
+forward call with the stats epilogue. Each faulted call is the first in
+launch order whose description (chip_smoke.describe) no other call of the
+step shares. The last line is a summary: runs, failures and the worst
+ratios per batch. Put two trees in one command to compare them on the same
+card.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ import argparse
 import json
 import os
 import sys
+from unittest import mock
 
 
 def small_std(std_p, std_k, std_orders):
@@ -70,65 +76,65 @@ def torch_rows(paths, mask) -> list:
     return torch.stack([s[mask] for s in paths], dim=1).tolist()
 
 
-def k1_stats_f64(calls, conv3_op):
-    """K1's calls with the stats epilogue: how far K1's stats and the
-    plain version's lie from the f64 stats (the f64 conv of the f32 xn and
-    the bf16 weight, plus bias, rounded to bf16 once, summed in f64), under
-    chip_smoke's measures (sum error over sum |y|, sumsq relative); the
-    largest over the calls, and each call whose K1 stats miss the 1e-3
-    gate against the plain version."""
-    import torch
-    import torch.nn.functional as F
+class FaultWrapper:
+    """The kernel wrapper `real` (conv3.conv3_dk or conv3.conv3_op) with a
+    planted fault on the calls whose chip_smoke.describe() is `target`:
+    conv3_dk's dk times 1.01, or K1's bias with its largest channel
+    dropped. It shows `real`'s signature (chip_smoke.plain_ops binds calls
+    by it) and its launch counter (the wrapper counts itself by name)."""
 
-    from vae_segmentation_tpu_torch.ops import conv3
+    def __init__(self, cs, kind: str, target: str, real):
+        import inspect
 
-    def measure(st, want, abs_sum):
-        st, want = st.double(), want.double()
-        return [((st[:, 0] - want[:, 0]).abs() / abs_sum).max().item(),
-                ((st[:, 1] - want[:, 1]).abs()
-                 / want[:, 1].clamp_min(1e-30)).max().item()]
+        self.cs, self.kind, self.target, self.real = cs, kind, target, real
+        self.__signature__ = inspect.signature(real)
 
-    out = {"k1": [0.0, 0.0], "plain": [0.0, 0.0], "missed": []}
-    with torch.no_grad():
-        for c in calls:
-            a = c["args"]
-            if c["kernel"] != "conv3" or not a["stats"]:
-                continue
-            st = conv3_op(**a)[1]
-            yp, sp = c["out"]
-            pre = a["pre"]
-            x, bias = a["x"], a["bias"]
-            xn = x.float() if pre is None else conv3._affine_relu(x, pre)
-            ref = F.conv3d(
-                xn.double().permute(0, 4, 1, 2, 3),
-                a["weight"].to(torch.bfloat16).double(),
-                None if bias is None else bias.double(), padding=1)
-            del xn
-            ref = ref.permute(0, 2, 3, 4, 1).to(torch.bfloat16).double()
-            exact = torch.stack([ref.sum(dim=(1, 2, 3)),
-                                 (ref * ref).sum(dim=(1, 2, 3))], dim=1)
-            del ref
-            abs_sum = yp.double().abs().sum(dim=(1, 2, 3))
-            ek = measure(st, exact, abs_sum)
-            ep = measure(sp, exact, abs_sum)
-            out["k1"] = [max(u, v) for u, v in zip(out["k1"], ek)]
-            out["plain"] = [max(u, v) for u, v in zip(out["plain"], ep)]
-            kp = measure(st, sp, abs_sum)
-            if max(kp) > 1e-3:
-                out["missed"].append({
-                    "shape": list(x.shape), "cout": sp.shape[-1],
-                    "pre": pre is not None, "k1_vs_plain": kp,
-                    "k1_vs_f64": ek, "plain_vs_f64": ep})
-    return out
+    @property
+    def launches(self):
+        return self.real.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.real.launches = value
+
+    def __call__(self, *args, **kwargs):
+        bound = self.__signature__.bind(*args, **kwargs)
+        bound.apply_defaults()
+        a = dict(bound.arguments)
+        name = "conv3_dk" if self.kind == "conv3_dk" else "conv3"
+        desc = self.cs.describe({"kernel": name, "args": a})
+        if json.dumps(desc, sort_keys=True) != self.target:
+            return self.real(**a)
+        if self.kind == "conv3_dk":
+            dk, db = self.real(**a)
+            return dk * 1.01, db
+        bias = a["bias"].clone()
+        bias[bias.abs().argmax()] = 0.0
+        return self.real(**{**a, "bias": bias})
+
+
+def fault_target(cs, calls, kind: str) -> str:
+    """The description of the first call of the faulted kernel (K1: a
+    forward with the stats epilogue) that no other recorded call shares."""
+    name = "conv3_dk" if kind == "conv3_dk" else "conv3"
+    descs = [json.dumps(cs.describe(c), sort_keys=True) for c in calls]
+    for c, d in zip(calls, descs):
+        desc = cs.describe(c)
+        if c["kernel"] == name and descs.count(d) == 1 and (
+                kind == "conv3_dk" or (desc["role"] == "fwd"
+                                       and desc["stats"])):
+            return d
+    raise RuntimeError(f"no call of {name} has a description of its own")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", required=True)
-    ap.add_argument("--runs", type=int, default=15)
+    ap.add_argument("--runs", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--draws", default="1")
+    ap.add_argument("--draws", default="8")
     ap.add_argument("--calls", action="store_true")
+    ap.add_argument("--fault", choices=("conv3_dk", "k1_bias"), default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -148,7 +154,7 @@ def main() -> int:
         write_synthetic_dataset)
     from vae_segmentation_tpu_torch.data.transforms import parse_pan_index
     from vae_segmentation_tpu_torch.models import ShapeVAE
-    from vae_segmentation_tpu_torch.ops import losses as L
+    from vae_segmentation_tpu_torch.ops import conv3
     from vae_segmentation_tpu_torch.ops.kernels import build
 
     assert os.path.dirname(os.path.abspath(cs.__file__)) == root
@@ -179,25 +185,38 @@ def main() -> int:
                     generator=torch.Generator().manual_seed(args.seed + 2))
     state0 = {k: v.detach().cuda() for k, v in vae0.state_dict().items()}
     step = T.make_vae_train_step(2, scale=cs.VAE_SCALE)
-    conv3_op = {n: getattr(m, a) for n, m, a, _ in cs.kernel_ops()}["conv3"]
     expected = cs.expected_source_step_launches(vae0, sampled=True)
+    vfwd = cs.forward_launches(vae0)
+    bwd_expected = {k: expected[k] - vfwd[k] for k in cs.KERNEL_NAMES}
+    bwd_expected["reparam_kl"] = 0
 
-    def encoder_std(batch):
-        """The encoder's std on `batch` (std = relu(z))."""
+    def fresh():
+        """(ShapeVAE at step 1's weights, the reparam seed's generator)."""
         vae = ShapeVAE(n_class=2, dim=128, bottleneck=16384).cuda()
         vae.load_state_dict(state0)
-        with torch.no_grad():
-            return vae.encode(L.one_hot_label(batch, 2))[1]
+        return vae, torch.Generator(device="cuda").manual_seed(args.seed)
 
-    def check_calls(batch, draw):
+    def step1(batch):
+        """phase 8's vae_step1: the whole step at lr 0."""
+        vae, g = fresh()
+        opt = T.optim.sgd(vae.parameters(), 0.0)
+        aux = step(vae, opt, batch, g)
+        torch.cuda.synchronize()
+        return aux
+
+    def terms(batch, **plain):
+        vae, g = fresh()
+        if not plain:
+            return cs.vae_terms(torch, vae, batch, g)
+        with cs.plain_ops(**plain):
+            return cs.vae_terms(torch, vae, batch, g)
+
+    def check_calls(calls, draw):
         """Phase 8's per-call checks on the plain step 1's calls: one
         record per kernel."""
-        calls, fails = [], []
-        with cs.plain_ops(record=calls):
-            step1(batch)
+        fails = []
         got = cs.count_calls(calls)
         keys = cs.check_calls(torch, calls, fails, f"draw {draw}")
-        stats_f64 = k1_stats_f64(calls, conv3_op)
         per = {}
         for k in keys.values():
             name = k["desc"]["kernel"] + (
@@ -209,7 +228,9 @@ def main() -> int:
             r["failed_calls"] += 0 if k["ok"] else k["count"]
             r["not_repeated"] += k["repeat"] is False
             r["worst_rel"] = max(r["worst_rel"], cs._worst_rel(w))
-            for f in ("stats_sum_err", "stats_sumsq_rel", "exact_rel_err"):
+            for f in ("stats_sum_err", "stats_sumsq_rel",
+                      "plain_stats_sum_err", "plain_stats_sumsq_rel",
+                      "exact_rel_err"):
                 if f in w:
                     v = max(w[f]) if isinstance(w[f], list) else w[f]
                     r[f] = max(r.get(f, 0.0), v)
@@ -219,93 +240,97 @@ def main() -> int:
                                      if f != "rel_err_by_output"}})
         ok = (got == expected and not fails
               and all(r["failed_calls"] == 0 for r in per.values()))
-        del calls, keys
-        torch.cuda.empty_cache()
         return {"draw": draw, "launches": got,
                 "launches_expected": expected, "kernels": per,
-                "k1_stats_f64": stats_f64, "calls_ok": ok}
+                "calls_ok": ok}
 
-    def step1(batch):
-        """phase 9's vae_step1: loss terms and gradients at lr 0."""
-        vae = ShapeVAE(n_class=2, dim=128, bottleneck=16384).cuda()
-        vae.load_state_dict(state0)
-        opt = T.optim.sgd(vae.parameters(), 0.0)
-        g = torch.Generator(device="cuda").manual_seed(args.seed)
-        aux = step(vae, opt, batch, g)
-        grads = {k: p.grad.detach().clone()
-                 for k, p in vae.named_parameters()}
-        torch.cuda.synchronize()
-        return {k: v.item() for k, v in aux.items()}, grads
-
+    real = {"conv3_dk": conv3.conv3_dk, "k1_bias": conv3.conv3_op}
+    attr = {"conv3_dk": "conv3_dk", "k1_bias": "conv3_op"}
     lines, per_draw = [], {}
     for draw in draws:
         batch = warps[draw]
-        with cs.plain_ops():
-            aux_p, grads_p = step1(batch)
-        with cs.plain_ops(reordered=True):
-            aux_r, grads_r = step1(batch)
-        with cs.plain_ops(reordered=True):
-            std_o = [encoder_std(batch)]
-        aux_s, drift_s = [], []
-        for seed in (1, 2, 3):
-            with cs.plain_ops(reordered=True, stats_seed=seed):
-                aux_k, grads_k = step1(batch)
-                std_o.append(encoder_std(batch))
-            aux_s.append(aux_k)
-            drift_s.append(cs.grad_drift(grads_k, grads_p))
-            del grads_k
-        orders = [{k: abs(a[k] - aux_p[k]) / abs(aux_p[k]) for k in aux_p}
-                  for a in (aux_r, *aux_s)]
-        gate = {k: max(cs.DRIFT_MULTIPLE * max(o[k] for o in orders), 1e-3)
-                for k in aux_p}
-        drift_all = {k: max(v, *(d[k] for d in drift_s))
-                     for k, v in cs.grad_drift(grads_r, grads_p).items()}
-        median_all = sorted(drift_all.values())[len(drift_all) // 2]
-        with cs.plain_ops():
-            std_p = encoder_std(batch)
-        head = {"root": root, "draw": draw, "losses_plain": aux_p,
-                "loss_gate": gate,
-                "std": small_std(std_p, encoder_std(batch), std_o)}
-        del std_p, std_o
-        lines.append(head)
-        print(json.dumps(head), flush=True)
-        calls_ok = True
-        if args.calls:
-            rec = check_calls(batch, draw)
-            calls_ok = rec["calls_ok"]
-            lines.append(rec)
-            print(json.dumps(rec), flush=True)
-        ratios, failed = [], 0
-        for run in range(args.runs):
-            ops.reset_launch_counts()
-            aux_k, grads_k = step1(batch)
-            err = {k: abs(aux_k[k] - aux_p[k]) / abs(aux_p[k])
-                   for k in aux_p}
-            err_k, _, worst = cs.drift_ratios(grads_k, grads_p, grads_r)
-            top = sorted(worst, key=worst.get, reverse=True)[:3]
-            all_orders = {k: v / max(drift_all[k], median_all)
-                          for k, v in err_k.items()}
-            top_all = max(all_orders, key=all_orders.get)
-            ok = (all(err[k] <= gate[k] for k in err)
-                  and all(v <= cs.DRIFT_MULTIPLE for v in worst.values())
-                  and all(bool(torch.isfinite(g).all())
-                          for g in grads_k.values()))
-            failed += not ok
-            ratios.append(worst[top[0]])
-            rec = {"draw": draw, "run": run, "worst_ratio": worst[top[0]],
-                   "worst": {k: worst[k] for k in top},
-                   "worst_ratio_all_orders": {top_all: all_orders[top_all]},
-                   "losses": aux_k,
-                   "loss_rel_err": err, "launches": ops.launch_counts(),
-                   "ok": ok}
-            lines.append(rec)
-            print(json.dumps(rec), flush=True)
-            del grads_k
-        per_draw[draw] = {"failed": failed, "worst_ratios": sorted(ratios),
-                          "calls_ok": calls_ok if args.calls else None}
-        del grads_p, grads_r
+        plain = terms(batch, reordered=False)
+        other = terms(batch, reordered=True)
+        shuffled = [terms(batch, reordered=True, stats_seed=seed)
+                    for seed in (1, 2, 3)]
+        calls = []
+        if args.calls or args.fault:
+            with cs.plain_ops(record=calls):
+                step1(batch)
+        target = cs_patch = None
+        if args.fault:
+            target = fault_target(cs, calls, args.fault)
+            cs_patch = mock.patch.object(
+                conv3, attr[args.fault],
+                FaultWrapper(cs, args.fault, target, real[args.fault]))
+            cs_patch.start()
+        try:
+            kern = terms(batch)
+            std_k = kern["std"]
+            head = {"root": root, "draw": draw, "fault": args.fault,
+                    "fault_call": None if target is None
+                    else json.loads(target),
+                    "losses_plain": plain["losses"],
+                    "std": small_std(plain["std"], std_k,
+                                     [o["std"] for o in (other, *shuffled)])}
+            lines.append(head)
+            print(json.dumps(head), flush=True)
+            calls_ok = None
+            if args.calls:
+                rec = check_calls(calls, draw)
+                calls_ok = rec["calls_ok"]
+                lines.append(rec)
+                print(json.dumps(rec), flush=True)
+            del calls
+            torch.cuda.empty_cache()
+            gates, failed = [], 0
+            for run in range(args.runs):
+                if run:
+                    kern = terms(batch)
+                gate = cs.vae_gate(torch, kern, plain, other, shuffled)
+                vae, g = fresh()
+                bwd = cs.vae_backward_gate(torch, ops, vae, batch, g,
+                                           bwd_expected)
+                del vae, kern
+                ok = gate["ok"] and bwd["backward_ok"]
+                failed += not ok
+                rec = {"draw": draw, "run": run, "ok": ok,
+                       "loss_rel_err": gate["loss_rel_err"],
+                       "loss_gate": gate["loss_gate"],
+                       "dice_worst_ratio": gate["dice_worst_ratio"],
+                       "dice_worst_tensor": gate["dice_worst_tensor"],
+                       "latent": gate["latent"],
+                       "backward_worst_ratio": bwd["backward_worst_ratio"],
+                       "backward_worst_tensor": bwd["backward_worst_tensor"],
+                       "backward_ok": bwd["backward_ok"],
+                       "kl_term_worst_ratio_not_gated":
+                           gate["kl_term_worst_ratio_not_gated"],
+                       "gate_ok": gate["ok"]}
+                gates.append(rec)
+                lines.append(rec)
+                print(json.dumps(rec), flush=True)
+        finally:
+            if cs_patch is not None:
+                cs_patch.stop()
+        per_draw[draw] = {
+            "failed": failed, "calls_ok": calls_ok,
+            "dice_worst_ratio": max(r["dice_worst_ratio"] for r in gates),
+            "backward_worst_ratio": max(r["backward_worst_ratio"]
+                                        for r in gates),
+            "latent_over_gate": max(
+                v["kernel_vs_plain"] / v["gate"]
+                for r in gates for v in r["latent"].values()),
+            "loss_over_gate": max(r["loss_rel_err"][t] / r["loss_gate"][t]
+                                  for r in gates for t in r["loss_gate"]),
+            "kl_term_worst_ratio_not_gated": max(
+                r["kl_term_worst_ratio_not_gated"] for r in gates)}
+        del plain, other, shuffled
+        torch.cuda.empty_cache()
     summary = {"root": root, "runs": args.runs, "draws": draws,
+               "fault": args.fault,
                "failed": sum(v["failed"] for v in per_draw.values()),
+               "calls_failed": sum(v["calls_ok"] is False
+                                   for v in per_draw.values()),
                "drift_multiple": cs.DRIFT_MULTIPLE, "per_draw": per_draw}
     lines.append(summary)
     if args.out:

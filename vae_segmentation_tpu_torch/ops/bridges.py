@@ -14,19 +14,21 @@ replacing ``upbridge.py::_run_down_bwd``, ``::_run_down_bwd_pre`` and
 wrapper launches its kernel on a CUDA tensor (or raises) and runs its plain
 version on a CPU tensor; the source notes say what bounds them on the H100.
 
+The forward kernels' tile, chunk and warp plan is ``bridge_plan``;
 ``down_k2s2.launches``, ``up_k2s2.launches``, ``down_k2s2_bwd.launches``
 and ``up_k2s2_bwd.launches`` count kernel launches.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from vae_segmentation_tpu_torch.ops.conv3 import (
-    _affine_relu, _pre_activation, _ptr, check_affine, check_tensor,
+    _affine_relu, _ceil, _pre_activation, _ptr, check_affine, check_tensor,
     plan_arg, raise_if, sm_count, tap_major, wgrad_plan, wgrad_workspace)
 
 Affine = Tuple[torch.Tensor, torch.Tensor]
@@ -64,6 +66,145 @@ def up_k2s2_plain(x: torch.Tensor, weight: torch.Tensor,
     return y.permute(0, 2, 3, 4, 1).to(x.dtype).contiguous()
 
 
+# ---- the plan of K2 and K3 (kernels/csrc/bridge.cu)
+
+# the plan's fields, in the order bridge.cu's PlanField reads them
+BRIDGE_FIELDS = ("td", "th", "tw", "tiles_d", "tiles_h", "tiles_w", "nc",
+                 "mt", "wm", "wk", "kc", "tpb")
+BRIDGE_KC = 256              # input channels a block stages at once, at most
+BRIDGE_TPB = 8               # bricks a block walks, at most
+SMEM_BYTES = 227 * 1024      # shared memory a block may use on an H100
+WARPS = 8                    # a block of 256 threads
+
+
+def _row_stride(cw: int) -> int:
+    """wgrad.cuh::row_stride: a shared-memory row of `cw` bf16 channels,
+    an odd number of 16-byte units apart."""
+    return cw if (cw // 8) % 2 == 1 else cw + 8
+
+
+def bridge_smem(up: bool, pre: bool, nvox: int, kc: int, nc: int, wk: int,
+                slots: int, kchunks: int) -> int:
+    """The shared memory a K2 / K3 block lays out (bridge.cu::
+    bridge_layout): a ring of `slots` staged inputs (K3: the brick's coarse
+    rows; K2: its 8 nvox fine rows, and the [2, kc] f32 (s, t) under the
+    prologue), the [8 kc, nc] weight rows (bf16, f32 under the prologue;
+    in the ring when K has more than one chunk), the brick's geometry
+    tables, 8 tap offsets, and the output staging (K3: the fine brick in
+    bf16; K2 without the prologue: the warps' f32 partials)."""
+    mpad = _ceil(nvox, 16) * 16
+    rows = mpad if up else 8 * nvox
+    slot = rows * _row_stride(kc) * 2 + (2 * kc * 4 if pre else 0)
+    wslot = 8 * kc * (nc * 4 if pre else _row_stride(nc) * 2)
+    wslots = slots if kchunks > 1 else 1
+    tables = (2 * mpad + 8 * nvox if up else rows) * 4
+    out = 8 * nvox * _row_stride(nc) * 2 if up \
+        else 0 if pre else wk * mpad * _row_stride(nc) * 4
+    return slots * slot + wslots * wslot + tables + 8 * 4 + out
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+@functools.lru_cache(maxsize=None)
+def bridge_plan(kind: str, batch: int, grid: Tuple[int, int, int], cin: int,
+                cout: int, prologue: bool, sms: int,
+                wk: Optional[int] = None) -> dict:
+    """The plan of one K2 ("down") or K3 ("up") call (``kernels/csrc/
+    bridge.cu``) on the input `grid`.
+
+    A brick is td x th x tw coarse voxels (K3's input, K2's output; M,
+    padded to m16 tiles) by a chunk of nc output channels (8 or 16); K is
+    staged in chunks of at most kc input channels (K2 with C_in <= 8: one
+    chunk of 8, two taps a k16 step). K3's brick holds at most 64 voxels
+    (128 at nc 8: a warp's m16n8 tiles, at most 8); K2's about 32 KB of fine
+    rows (256 voxels at C_in 8), at most 256 / (nc / 8) (one store a
+    thread). Where the grid holds fewer than 2 blocks an SM the brick
+    shrinks (down to 16 voxels), then nc falls to 8. K3's warps are its 8
+    taps, each over all mt m16 tiles (wm = wk = 1). K2's 8 warps are
+    wm x wk: wm split the m16 tiles (mt each), wk the k16 steps of each
+    chunk, their partials added in warp order; ``wk=1`` forces the one-pass
+    plan (wm = 8, warps past the brick's m16 tiles idle). K2 with the
+    prologue runs on the CUDA cores (``tensor_cores`` False), a thread a
+    coarse voxel and 8 channels. A block walks tpb bricks (at most
+    ``BRIDGE_TPB``, and so many that the grid keeps 2 blocks an SM) through
+    a two-slot input ring. Returns the fields the kernel reads
+    (``BRIDGE_FIELDS``, in ``fields``; their ctypes array in ``arg``) and
+    what they imply. The kernel lays out its shared memory from these
+    fields and refuses a plan that does not fit; ``smem`` is that layout's
+    size (``bridge_smem``), and a plan that would not fit halves kc, then
+    the brick. The result is cached: do not modify it."""
+    if kind not in ("up", "down"):
+        raise ValueError(f"bridge: unknown kind {kind!r}")
+    up = kind == "up"
+    if up and prologue:
+        raise ValueError("bridge: K3 has no prologue")
+    d, h, w = grid
+    coarse = grid if up else (d // 2, h // 2, w // 2)
+    if min(coarse) < 1 or cin < 1 or cout < 1:
+        raise ValueError(f"bridge: no {kind} call on {grid} x {cin} -> "
+                         f"{cout}")
+    cd, ch, cw = coarse
+    cpad = 8 if not up and cin <= 8 else _ceil(cin, 16) * 16
+    nc = 8 if cout <= 8 else 16
+    # K3: MT x NT <= 8 m16n8 tiles a warp; K2: about 32 KB of fine rows a
+    # brick, one thread a (coarse voxel, 8 channels) at the store
+    mmax = (128 if nc == 8 else 64) if up \
+        else min(256 * 8 // nc, max(16, 2048 // cpad))
+    tw, th = min(cw, 8), min(ch, 8)
+    tile = [min(cd, max(1, mmax // (tw * th))), th, tw]
+
+    def blocks():
+        return batch * _ceil(cout, nc) * _ceil(cd, tile[0]) \
+            * _ceil(ch, tile[1]) * _ceil(cw, tile[2])
+
+    while blocks() < 2 * sms and tile[0] * tile[1] * tile[2] > 16:
+        axis = next(i for i in range(3) if tile[i] == max(tile))
+        tile[axis] = _ceil(tile[axis], 2)
+    if blocks() < 2 * sms:
+        nc = 8
+    kc = min(cpad, BRIDGE_KC)
+    tpb = max(1, min(BRIDGE_TPB, blocks() // (2 * sms)))
+    while True:
+        nvox = tile[0] * tile[1] * tile[2]
+        mtiles = _ceil(nvox, 16)
+        if up:
+            wm, wk_, mt = 1, 1, _pow2_at_least(mtiles)
+        else:
+            wm = WARPS if wk == 1 else 1 << (min(mtiles, WARPS).bit_length()
+                                             - 1)
+            wk_ = WARPS // wm
+            mt = _pow2_at_least(_ceil(mtiles, wm))
+        kchunks = _ceil(cpad, kc)
+        slots = 2 if tpb * kchunks > 1 else 1
+        smem = bridge_smem(up, prologue, nvox, kc, nc, wk_, slots, kchunks)
+        if smem <= SMEM_BYTES:
+            break
+        if kc > 16:
+            kc = _ceil(kc // 2, 16) * 16
+        elif nvox > 16:
+            axis = next(i for i in range(3) if tile[i] == max(tile))
+            tile[axis] = _ceil(tile[axis], 2)
+        else:
+            raise ValueError(f"bridge: no {kind} plan fits {cin} -> {cout}")
+    td, th, tw = tile
+    tiles = (_ceil(cd, td), _ceil(ch, th), _ceil(cw, tw))
+    ntiles = batch * tiles[0] * tiles[1] * tiles[2]
+    plan = {"td": td, "th": th, "tw": tw, "tiles_d": tiles[0],
+            "tiles_h": tiles[1], "tiles_w": tiles[2], "nc": nc, "mt": mt,
+            "wm": wm, "wk": wk_, "kc": kc, "tpb": tpb}
+    plan.update(fields=[plan[k] for k in BRIDGE_FIELDS], kind=kind,
+                prologue=prologue, coarse=coarse, nvox=nvox,
+                mpad=16 * mtiles, mtiles=mtiles, cpad=cpad,
+                k_chunks=kchunks, co_chunks=_ceil(cout, nc),
+                ntiles=ntiles, launch_grid=(_ceil(ntiles, tpb),
+                                            _ceil(cout, nc)),
+                smem=smem, tensor_cores=not prologue)
+    plan["arg"] = plan_arg(plan["fields"])
+    return plan
+
+
 def _prepare(x, kweight, bias, who):
     if x.device.type != "cuda":
         raise RuntimeError(f"{who}: no kernel for device {x.device}")
@@ -81,6 +222,41 @@ def _prepare(x, kweight, bias, who):
     return b, d, h, w, cin, cout
 
 
+def bridge_launch(kind: str, x: torch.Tensor, kweight: torch.Tensor,
+                  bias: torch.Tensor, pre: Optional[Affine] = None,
+                  plan: Optional[dict] = None) -> torch.Tensor:
+    """One launch of K2 ("down") or K3 ("up") on CUDA tensors, under
+    `plan` (a ``bridge_plan`` of the call's shape) or the call's own.
+    ``down_k2s2_op`` / ``up_k2s2_op`` count it; chip_smoke.py also times
+    the one-pass plan beside one that splits K over the warps through
+    here."""
+    from vae_segmentation_tpu_torch.ops.kernels import build
+
+    up = kind == "up"
+    who = "up_k2s2" if up else "down_k2s2"
+    b, d, h, w, cin, cout = _prepare(x, kweight, bias, who)
+    s = t = None
+    if pre is not None:
+        s, t = check_affine(who, pre, x.device, b, cin)
+    if plan is None:
+        plan = bridge_plan(kind, b, (d, h, w), cin, cout, pre is not None,
+                           sm_count(x.device.index or 0))
+    if plan["kind"] != kind or (pre is not None) != plan["prologue"]:
+        raise ValueError(f"{who}: the kind or prologue differs from the "
+                         "plan's")
+    shape = (b, 2 * d, 2 * h, 2 * w, cout) if up \
+        else (b, d // 2, h // 2, w // 2, cout)
+    y = torch.empty(shape, dtype=torch.bfloat16, device=x.device)
+    lib = build.library("bridge")
+    with torch.cuda.device(x.device):
+        rc = lib.vaeseg_bridge(
+            int(up), x.data_ptr(), kweight.data_ptr(), bias.data_ptr(),
+            _ptr(s), _ptr(t), y.data_ptr(), b, d, h, w, cin, cout,
+            plan["arg"], torch.cuda.current_stream(x.device).cuda_stream)
+    raise_if(rc, lib, who)
+    return y
+
+
 def down_k2s2_op(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                  kweight: Optional[torch.Tensor] = None,
                  pre: Optional[Affine] = None) -> torch.Tensor:
@@ -88,22 +264,7 @@ def down_k2s2_op(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     and ``kweight`` the ``down_kernel_weight`` layout."""
     if x.device.type == "cpu":
         return down_k2s2_plain(x, weight, bias, pre)
-    from vae_segmentation_tpu_torch.ops.kernels import build
-
-    b, d, h, w, cin, cout = _prepare(x, kweight, bias, "down_k2s2")
-    s = t = None
-    if pre is not None:
-        s, t = check_affine("down_k2s2", pre, x.device, b, cin)
-    y = torch.empty((b, d // 2, h // 2, w // 2, cout), dtype=torch.bfloat16,
-                    device=x.device)
-    lib = build.library("bridge")
-    with torch.cuda.device(x.device):
-        rc = lib.vaeseg_down_k2s2(
-            x.data_ptr(), kweight.data_ptr(), bias.data_ptr(), _ptr(s),
-            _ptr(t), y.data_ptr(),
-            b, d, h, w, cin, cout,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    raise_if(rc, lib, "down_k2s2")
+    y = bridge_launch("down", x, kweight, bias, pre)
     down_k2s2.launches += 1
     return y
 
@@ -114,18 +275,7 @@ def up_k2s2_op(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     ``kweight`` the ``up_kernel_weight`` layout."""
     if x.device.type == "cpu":
         return up_k2s2_plain(x, weight, bias)
-    from vae_segmentation_tpu_torch.ops.kernels import build
-
-    b, d, h, w, cin, cout = _prepare(x, kweight, bias, "up_k2s2")
-    y = torch.empty((b, 2 * d, 2 * h, 2 * w, cout), dtype=torch.bfloat16,
-                    device=x.device)
-    lib = build.library("bridge")
-    with torch.cuda.device(x.device):
-        rc = lib.vaeseg_up_k2s2(
-            x.data_ptr(), kweight.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            b, d, h, w, cin, cout,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    raise_if(rc, lib, "up_k2s2")
+    y = bridge_launch("up", x, kweight, bias)
     up_k2s2.launches += 1
     return y
 

@@ -51,9 +51,7 @@ SIGNATURES = {
         "vaeseg_error_string": [_I],
     },
     "bridge": {
-        "vaeseg_down_k2s2": [_P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _P],
-        "vaeseg_up_k2s2": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "vaeseg_bridge": [_I] + [_P] * 6 + [_I] * 6 + [_P, _P],
         "vaeseg_error_string": [_I],
     },
     "bridge_bwd": {
