@@ -18,9 +18,10 @@ K order (chunk, tap, channel) and its split over the warps, the warps'
 partials added in order, where each output lands. With integer-valued
 inputs every f32 sum is exact, so the emulation must equal the plain
 version exactly: an index error (two taps' offsets swapped) fails.
-(c) The rules of chip_smoke.py's gates that this slice changed: K1's stats
-against their f64 value (``_compare``) and phase 9's per-term rule
-(``vae_gate``), each on synthetic tensors: a reordered sum passes, a
+(c) The rules of chip_smoke.py's gates: K1's stats epilogue by its two
+parts (``_compare``: its summation against the f64 sums of its own y, its
+stored y against the f64 conv rounded to bf16 once) and phase 9's per-term
+rule (``vae_gate``), each on synthetic tensors: a reordered sum passes, a
 planted fault of the size the card check plants fails.
 """
 
@@ -450,21 +451,38 @@ def _k1_call(seed=0):
     return (x, w, bias, aff), conv3.conv3_plain(x, w, bias, aff, stats=True)
 
 
+def _bits(y, step):
+    """bf16 y with each element `step` (a tensor or an int) representable
+    values further from zero (nearer, where negative)."""
+    return (y.view(torch.int16) + step).view(torch.bfloat16)
+
+
+def _with_own_stats(y):
+    """(y, the f32 stats of y summed in f64): a stats epilogue whose
+    summation is exact, so that only y's rules can fail."""
+    return y, cs.stats_of(torch, y).float()
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_k1_stats_rule_holds_a_reordered_sum(seed):
     """The plain version's own y with its stats summed as 64 partials in a
-    shuffled order (what K1's per-block partials do): inside the rule."""
+    shuffled order (what K1's per-block partials do): inside both parts of
+    the rule, its summation far inside K1_SUM_TOL."""
     inputs, want = _k1_call(seed)
     y = want[0]
     reordered = cs._shuffled_stats(torch, seed)(y)
     rec = cs._compare(torch, "conv3", False, (y, reordered), want, inputs)
     assert rec["ok"], rec
-    assert max(rec["stats_sum_err"], rec["stats_sumsq_rel"]) < 1e-4
+    assert max(rec["stats_own_sum_err"], rec["stats_own_sumsq_rel"]) \
+        < 0.1 * cs.K1_SUM_TOL
+    assert rec["y_beyond_ulp"] == 0 and rec["y_flips"] <= rec["y_flip_limit"]
 
 
 def test_k1_stats_rule_fails_a_dropped_bias():
-    """One output channel's bias dropped (its largest), y and stats alike:
-    outside the rule, by its stats against f64 and by y's bf16 rule."""
+    """One output channel's bias dropped (its largest), y and stats alike
+    (the stats the sums of the faulted y): outside the rule by the stored
+    y, its elements far beyond one ulp of the f64 conv, and by the bf16
+    rule against the plain version; its summation alone is right."""
     inputs, want = _k1_call()
     x, w, bias, aff = inputs
     planted = bias.clone()
@@ -472,24 +490,111 @@ def test_k1_stats_rule_fails_a_dropped_bias():
     got = conv3.conv3_plain(x, w, planted, aff, stats=True)
     rec = cs._compare(torch, "conv3", False, got, want, inputs)
     assert not rec["ok"]
-    assert rec["stats_sum_err"] > 10 * cs.STATS_TOL
+    assert rec["y_beyond_ulp"] >= 2 * 4 * 4 * 4
+    assert rec["max_abs_err"] > 1e-2 * rec["max_abs_y"]
+    assert max(rec["stats_own_sum_err"], rec["stats_own_sumsq_rel"]) \
+        <= cs.K1_SUM_TOL
+
+
+def test_k1_stats_rule_fails_a_summation_fault():
+    """One channel's sumsq 1e-4 off (relative), y untouched: outside the
+    summation rule, though its distance from the f64 stats stays under
+    the former gate of 1e-3 on that distance."""
+    inputs, want = _k1_call()
+    y, st = want
+    st = st.clone()
+    st[:, 1, int(st[0, 1].argmax())] *= 1 + 1e-4
+    rec = cs._compare(torch, "conv3", False, (y, st), want, inputs)
+    assert not rec["ok"]
+    assert rec["stats_own_sumsq_rel"] > cs.K1_SUM_TOL
+    assert rec["stats_sumsq_rel"] < 1e-3
+    assert rec["y_beyond_ulp"] == 0
+
+
+def test_k1_stats_rule_fails_a_stored_y_two_ulps_off():
+    """One element of y (the largest) two bf16 values off, its stats summed
+    from it exactly: outside the rule by that one element."""
+    inputs, want = _k1_call()
+    y = want[0].clone()
+    flat = y.view(-1)
+    k = int(flat.float().abs().argmax())
+    flat[k] = _bits(flat[k:k + 1], 2)[0]
+    rec = cs._compare(torch, "conv3", False, _with_own_stats(y), want,
+                      inputs)
+    assert not rec["ok"]
+    assert rec["y_beyond_ulp"] == 1
+
+
+def _flipped(ref, n):
+    """The f64 conv rounded to bf16 once, with its n elements nearest a
+    rounding midpoint rounded the other way: each within one ulp."""
+    ref = ref.contiguous()
+    once = ref.to(torch.bfloat16)
+    away = (once.double().abs() > ref.abs()).to(torch.int16)
+    other = _bits(once, 1 - 2 * away)
+    gap = ((ref - once.double()).abs() / cs.bf16_ulp(torch, ref)).view(-1)
+    out = once.clone().view(-1)
+    idx = gap.argsort(descending=True)[:n]
+    out[idx] = other.view(-1)[idx]
+    return out.view(once.shape)
 
 
 def test_k1_stats_rule_takes_the_plain_versions_distance_where_larger():
-    """A kernel no further from f64 than twice the plain version passes,
-    even where that is more than STATS_TOL; three times it fails."""
-    inputs, want = _k1_call()
-    exact = cs.k1_stats_exact(torch, *inputs)
-    y, st = want
-    # a plain version 2e-3 (sumsq) from f64, a kernel 3.9e-3 and 6e-3
-    plain = exact.float().clone()
-    plain[:, 1] *= 1 + 2e-3
-    for scale, ok in ((1 + 3.9e-3, True), (1 + 6e-3, False)):
-        kern = exact.float().clone()
-        kern[:, 1] *= scale
-        rec = cs._compare(torch, "conv3", False, (y, kern), (y, plain),
-                          inputs)
+    """Each element within one ulp, and K1's values off the once-rounded
+    f64 conv up to twice the plain version's count pass; three times it
+    fail."""
+    inputs, _ = _k1_call()
+    ref, _ = cs.k1_reference(torch, *inputs)
+    plain = _flipped(ref, 12)
+    want = _with_own_stats(plain)
+    for n, ok in ((24, True), (36, False)):
+        rec = cs._compare(torch, "conv3", False,
+                          _with_own_stats(_flipped(ref, n)), want, inputs)
+        assert rec["plain_y_flips"] == 12 and rec["y_flips"] == n
+        assert rec["y_beyond_ulp"] == 0
         assert rec["ok"] == ok, rec
+
+
+def test_k1_stats_rule_counts_a_value_many_voxels_share_once():
+    """A constant input gives every interior voxel of a channel one sum: a
+    path that rounds that one value the other way flips hundreds of
+    elements, but one distinct value a batch entry, inside the floor; a
+    path that flips as many distinct values as elements fails."""
+    inputs, _ = _k1_call()
+    x, w, bias, aff = inputs
+    x = torch.ones(2, 8, 8, 8, x.shape[-1]).bfloat16()
+    inputs = (x, w, bias, aff)
+    ref, _ = cs.k1_reference(torch, *inputs)
+    ref = ref.contiguous()
+    once = ref.to(torch.bfloat16)
+    want = _with_own_stats(once)
+    away = (once.double().abs() > ref.abs()).to(torch.int16)
+    other = _bits(once, 1 - 2 * away)
+    y = once.clone()
+    y[:, 1:-1, 1:-1, 1:-1, 0] = other[:, 1:-1, 1:-1, 1:-1, 0]
+    rec = cs._compare(torch, "conv3", False, _with_own_stats(y), want,
+                      inputs)
+    assert rec["y_flip_elements"] == 2 * 6 ** 3 and rec["y_flips"] == 2
+    assert rec["y_beyond_ulp"] == 0 and rec["ok"], rec
+    rec = cs._compare(torch, "conv3", False,
+                      _with_own_stats(_flipped(cs.k1_reference(
+                          torch, *_k1_call()[0])[0], 40)),
+                      _with_own_stats(_flipped(cs.k1_reference(
+                          torch, *_k1_call()[0])[0], 0)), _k1_call()[0])
+    assert rec["y_flips"] == rec["y_flip_elements"] == 40
+    assert not rec["ok"]
+
+
+def test_k1_stats_rule_has_a_floor_where_the_plain_version_flips_none():
+    """A plain version with no element off the once-rounded value: K1 may
+    have up to K1_FLIP_FLOOR."""
+    inputs, _ = _k1_call()
+    ref, _ = cs.k1_reference(torch, *inputs)
+    want = _with_own_stats(_flipped(ref, 0))
+    for n, ok in ((cs.K1_FLIP_FLOOR, True), (cs.K1_FLIP_FLOOR + 1, False)):
+        rec = cs._compare(torch, "conv3", False,
+                          _with_own_stats(_flipped(ref, n)), want, inputs)
+        assert rec["plain_y_flips"] == 0 and rec["ok"] == ok, rec
 
 
 def _terms(gen, base=None, noise=0.0):

@@ -593,23 +593,40 @@ def test_instance_norm_function_gradients(gen):
     assert _rel(got[0], want[0]) <= 5e-2
 
 
-@pytest.mark.parametrize("shape,cout,pre", [
-    ((2, 5, 9, 19, 3), 5, True),      # ragged tiles, odd channels
+MERGED_CASES = [
+    ((2, 5, 9, 19, 3), 5, True),      # ragged bricks, odd channels
     ((1, 3, 17, 7, 1), 8, False),
     ((1, 8, 8, 16, 16), 2, True),     # a head: Cout 2
-    ((2, 4, 4, 4, 24), 48, False),
-    ((1, 4, 4, 4, 256), 256, True),   # the deepest stage: 2 channels a block
-])
-def test_conv3_merged_backward_matches_plain(gen, shape, cout, pre):
-    """conv3_bwd against its plain version (the pair): dx within 1e-2 of
-    max|dx| (bf16), dk, db, ds, dt within 1e-3 of their largest element;
-    one launch."""
+    ((2, 4, 4, 4, 24), 48, False),    # three output-channel chunks
+    ((1, 1, 1, 1, 16), 16, True),     # one voxel
+    ((1, 4, 4, 4, 256), 256, True),
+    # the deep stages of a vae_train step at batch 4: several output-channel
+    # chunks (dx's partials added by the second pass), few bricks a block
+    ((4, 4, 4, 4, 256), 256, True),
+    ((4, 4, 4, 4, 128), 256, False),
+    ((4, 8, 8, 8, 256), 128, False),
+    ((4, 8, 8, 8, 128), 128, True),
+    ((4, 16, 16, 16, 64), 64, True),
+    ((2, 32, 32, 32, 32), 32, True),
+]
+
+
+def _merged_inputs(gen, shape, cout, pre):
     b, cin = shape[0], shape[-1]
     x = _rnd(gen, *shape).bfloat16()
     gy = _rnd(gen, *shape[:-1], cout).bfloat16()
     w = _rnd(gen, cout, cin, 3, 3, 3, scale=(27 * cin) ** -0.5)
     aff = (_rnd(gen, b, cin).abs() + 0.5, _rnd(gen, b, cin, scale=0.3)) \
         if pre else None
+    return x, gy, w, aff
+
+
+@pytest.mark.parametrize("shape,cout,pre", MERGED_CASES)
+def test_conv3_merged_backward_matches_plain(gen, shape, cout, pre):
+    """conv3_bwd against its plain version (the pair): dx within 1e-2 of
+    max|dx| (bf16), dk, db, ds, dt within 1e-3 of their largest element;
+    one launch."""
+    x, gy, w, aff = _merged_inputs(gen, shape, cout, pre)
     before = conv3.conv3_bwd.launches
     got = conv3.conv3_bwd(x, gy, w, conv3.kernel_weight(w), aff)
     torch.cuda.synchronize()
@@ -621,6 +638,22 @@ def test_conv3_merged_backward_matches_plain(gen, shape, cout, pre):
         assert _rel(got[3], want[3]) <= 1e-3
     else:
         assert got[3] is None
+
+
+@pytest.mark.parametrize("shape,cout,pre", [MERGED_CASES[i]
+                                            for i in (0, 3, 5, 9)])
+def test_conv3_merged_backward_repeats_bit_for_bit(gen, shape, cout, pre):
+    """dx, dk, db and (ds, dt) of the merged kernel come out the same bits
+    on every launch: each block writes its partials once and every sum is
+    added in a fixed order (no atomics)."""
+    x, gy, w, aff = _merged_inputs(gen, shape, cout, pre)
+    kw = conv3.kernel_weight(w)
+    first = [t.clone() for t in conv3.conv3_bwd(x, gy, w, kw, aff)
+             if t is not None]
+    for _ in range(3):
+        again = [t for t in conv3.conv3_bwd(x, gy, w, kw, aff)
+                 if t is not None]
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def test_conv3_merged_function_gradients(gen, monkeypatch):

@@ -46,12 +46,13 @@ import subprocess
 import sys
 
 # (batch, grid, cin, cout, prologue): the deepest convs (432 k16 steps,
-# split K), a 8^3 conv under the prologue, a 64^3 one, the 128^3 entry
+# split K), a 8^3 conv under the prologue, two 64^3 ones, the 128^3 entry
 # convs
 SHAPES = [(4, (4, 4, 4), 256, 256, True),
           (4, (4, 4, 4), 128, 256, False),
           (2, (8, 8, 8), 128, 128, True),
           (4, (64, 64, 64), 16, 16, True),
+          (4, (64, 64, 64), 8, 16, False),
           (4, (128, 128, 128), 16, 8, False),
           (4, (128, 128, 128), 8, 8, True)]
 ALL = 1 << 30     # a chain longer than any call's k16 steps

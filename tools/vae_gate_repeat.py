@@ -5,7 +5,8 @@ port tree at --root:
 
     python3 tools/vae_gate_repeat.py --root DIR [--runs 2] [--seed 0]
                                      [--draws 1-10] [--calls]
-                                     [--fault conv3_dk|k1_bias] [--out PATH]
+                                     [--fault conv3_dk|k1_bias|k1_stats]
+                                     [--out PATH]
 
 The tree's own chip_smoke.py supplies the constants, the plain path and the
 gate's rules (``vae_terms``, ``vae_gate``, ``vae_backward_gate``,
@@ -28,14 +29,21 @@ a rounding-level change moves across zero changes fc_std's gradient by up
 to 1e5 a unit, which is why the KL term is held on one shared forward.
 With --calls, each batch's plain step 1 is also recorded and every kernel
 call held against its plain version by phase 8's checks
-(chip_smoke.check_calls: the bf16 and f32 rules, K1's stats against their
-f64 value, the f64 gates of the weight gradients and norm sums, two more
-launches for the same bits); one line per batch gives each kernel's calls,
-failed calls and worst errors. --fault plants a fault in the kernel path
-(this tool's own wrappers; the package is untouched) to show that the
-rules catch it: ``conv3_dk`` scales one conv3_dk call's dk by 1.01;
-``k1_bias`` drops one output channel's bias (its largest) from one K1
-forward call with the stats epilogue. Each faulted call is the first in
+(chip_smoke.check_calls: the bf16 and f32 rules, K1's stats epilogue by
+its two parts, the f64 gates of the weight gradients and norm sums, two
+more launches for the same bits); one line per batch gives each kernel's
+calls, failed calls and worst errors (for K1's stats epilogue: its
+summation against the f64 sums of its own y, its y's elements beyond one
+bf16 ulp, its flips off the once-rounded f64 conv (distinct values, and
+elements) over their limit, and the stats' distance from the f64 stats,
+reported). --fault plants a fault
+in the kernel path (this tool's own wrappers; the package is untouched) to
+show that the rules catch it: ``conv3_dk`` scales one conv3_dk call's dk
+by 1.01; ``k1_bias`` drops one output channel's bias (its largest) from
+one K1 forward call with the stats epilogue; ``k1_stats`` scales one
+channel's sumsq (its largest) of such a call by 1 + 1e-4, a summation
+fault the 1e-3 rule on the stats' distance from f64 let pass. Each faulted
+call is the first in
 launch order whose description (chip_smoke.describe) no other call of the
 step shares. The last line is a summary: runs, failures and the worst
 ratios per batch. Put two trees in one command to compare them on the same
@@ -79,8 +87,8 @@ def torch_rows(paths, mask) -> list:
 class FaultWrapper:
     """The kernel wrapper `real` (conv3.conv3_dk or conv3.conv3_op) with a
     planted fault on the calls whose chip_smoke.describe() is `target`:
-    conv3_dk's dk times 1.01, or K1's bias with its largest channel
-    dropped. It shows `real`'s signature (chip_smoke.plain_ops binds calls
+    conv3_dk's dk times 1.01, K1's bias with its largest channel dropped,
+    or K1's largest sumsq times 1 + 1e-4. It shows `real`'s signature (chip_smoke.plain_ops binds calls
     by it) and its launch counter (the wrapper counts itself by name)."""
 
     def __init__(self, cs, kind: str, target: str, real):
@@ -108,6 +116,12 @@ class FaultWrapper:
         if self.kind == "conv3_dk":
             dk, db = self.real(**a)
             return dk * 1.01, db
+        if self.kind == "k1_stats":
+            y, st = self.real(**a)
+            st = st.clone()
+            c = int(st[0, 1].argmax())
+            st[:, 1, c] *= 1 + 1e-4
+            return y, st
         bias = a["bias"].clone()
         bias[bias.abs().argmax()] = 0.0
         return self.real(**{**a, "bias": bias})
@@ -134,7 +148,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--draws", default="8")
     ap.add_argument("--calls", action="store_true")
-    ap.add_argument("--fault", choices=("conv3_dk", "k1_bias"), default=None)
+    ap.add_argument("--fault", choices=("conv3_dk", "k1_bias", "k1_stats"),
+                    default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -228,9 +243,17 @@ def main() -> int:
             r["failed_calls"] += 0 if k["ok"] else k["count"]
             r["not_repeated"] += k["repeat"] is False
             r["worst_rel"] = max(r["worst_rel"], cs._worst_rel(w))
-            for f in ("stats_sum_err", "stats_sumsq_rel",
-                      "plain_stats_sum_err", "plain_stats_sumsq_rel",
-                      "exact_rel_err"):
+            if "y_flip_limit" in w:
+                w = dict(w, y_flips_over_limit=w["y_flips"]
+                         / w["y_flip_limit"])
+            for f in ("stats_own_sum_err", "stats_own_sumsq_rel",
+                      "y_beyond_ulp", "plain_y_beyond_ulp",
+                      "y_flips_over_limit", "y_flips", "plain_y_flips",
+                      "y_flip_elements", "plain_y_flip_elements",
+                      "y_flip_share",
+                      "plain_y_flip_share", "stats_sum_err",
+                      "stats_sumsq_rel", "plain_stats_sum_err",
+                      "plain_stats_sumsq_rel", "exact_rel_err"):
                 if f in w:
                     v = max(w[f]) if isinstance(w[f], list) else w[f]
                     r[f] = max(r.get(f, 0.0), v)
@@ -244,8 +267,10 @@ def main() -> int:
                 "launches_expected": expected, "kernels": per,
                 "calls_ok": ok}
 
-    real = {"conv3_dk": conv3.conv3_dk, "k1_bias": conv3.conv3_op}
-    attr = {"conv3_dk": "conv3_dk", "k1_bias": "conv3_op"}
+    real = {"conv3_dk": conv3.conv3_dk, "k1_bias": conv3.conv3_op,
+            "k1_stats": conv3.conv3_op}
+    attr = {"conv3_dk": "conv3_dk", "k1_bias": "conv3_op",
+            "k1_stats": "conv3_op"}
     lines, per_draw = [], {}
     for draw in draws:
         batch = warps[draw]

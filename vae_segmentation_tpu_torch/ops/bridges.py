@@ -29,7 +29,8 @@ import torch.nn.functional as F
 
 from vae_segmentation_tpu_torch.ops.conv3 import (
     _affine_relu, _ceil, _pre_activation, _ptr, check_affine, check_tensor,
-    plan_arg, raise_if, sm_count, tap_major, wgrad_plan, wgrad_workspace)
+    plan_arg, raise_if, row_stride, sm_count, tap_major, wgrad_plan,
+    wgrad_workspace)
 
 Affine = Tuple[torch.Tensor, torch.Tensor]
 
@@ -77,12 +78,6 @@ SMEM_BYTES = 227 * 1024      # shared memory a block may use on an H100
 WARPS = 8                    # a block of 256 threads
 
 
-def _row_stride(cw: int) -> int:
-    """wgrad.cuh::row_stride: a shared-memory row of `cw` bf16 channels,
-    an odd number of 16-byte units apart."""
-    return cw if (cw // 8) % 2 == 1 else cw + 8
-
-
 def bridge_smem(up: bool, pre: bool, nvox: int, kc: int, nc: int, wk: int,
                 slots: int, kchunks: int) -> int:
     """The shared memory a K2 / K3 block lays out (bridge.cu::
@@ -94,12 +89,12 @@ def bridge_smem(up: bool, pre: bool, nvox: int, kc: int, nc: int, wk: int,
     bf16; K2 without the prologue: the warps' f32 partials)."""
     mpad = _ceil(nvox, 16) * 16
     rows = mpad if up else 8 * nvox
-    slot = rows * _row_stride(kc) * 2 + (2 * kc * 4 if pre else 0)
-    wslot = 8 * kc * (nc * 4 if pre else _row_stride(nc) * 2)
+    slot = rows * row_stride(kc) * 2 + (2 * kc * 4 if pre else 0)
+    wslot = 8 * kc * (nc * 4 if pre else row_stride(nc) * 2)
     wslots = slots if kchunks > 1 else 1
     tables = (2 * mpad + 8 * nvox if up else rows) * 4
-    out = 8 * nvox * _row_stride(nc) * 2 if up \
-        else 0 if pre else wk * mpad * _row_stride(nc) * 4
+    out = 8 * nvox * row_stride(nc) * 2 if up \
+        else 0 if pre else wk * mpad * row_stride(nc) * 4
     return slots * slot + wslots * wslot + tables + 8 * 4 + out
 
 

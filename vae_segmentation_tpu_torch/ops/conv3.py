@@ -23,7 +23,9 @@ Under ``VAESEG_MERGED_BWD=1`` (``use_merged_bwd``, the JAX package's
 switch) a backward that needs both a dx-side gradient (x, s or t) and a
 weight-side one (weight or bias) launches ``conv3_bwd`` once instead of the
 pair: the merged kernel ``kernels/csrc/conv3_bwd.cu`` (replacing
-``stencil3.py::_run_bwd_grouped``) reads x and gy once for dx, dk and db.
+``stencil3.py::_run_bwd_grouped``) stages each brick of x and gy once for
+dx, dk and db, on the tensor cores from its own plan (``conv3_bwd_plan``),
+with every sum in a fixed order.
 
 ``conv3.launches`` / ``conv3_dk.launches`` / ``conv3_bwd.launches`` count
 kernel launches (never the plain versions).
@@ -204,19 +206,21 @@ CONV3_WS_BYTES = 32 << 20      # bound of a split plan's workspace
 WARPS = 8                      # a block of 256 threads
 
 
-def _warp_grid(mtiles: int, ntiles: int) -> Tuple[int, int, int, int]:
+def _warp_grid(mtiles: int, ntiles: int, sizes: Tuple[int, ...] = (1, 2, 4)
+               ) -> Tuple[int, int, int, int]:
     """(wm, wn, mt, nt): the 8 warps as wm x wn over the tile's m16 tiles
-    and the chunk's n8 tiles, mt x nt of them a warp (each 1, 2 or 4, at
-    most 8 together: a thread holds two f32 sets of them). The fewest tiles
-    a warp, then the fewest shared-memory loads per MMA."""
+    and the chunk's n8 tiles, mt x nt of them a warp (each one of `sizes`,
+    the kernel's instantiations, at most 8 together: a thread holds two f32
+    sets of them). The fewest tiles a warp, then the fewest shared-memory
+    loads per MMA."""
     best = None
     for wn in (1, 2, 4, 8):
         if ntiles % wn:
             continue
         wm = WARPS // wn
-        mt = next((m for m in (1, 2, 4) if m * wm >= mtiles), None)
+        mt = next((m for m in sizes if m * wm >= mtiles), None)
         nt = ntiles // wn
-        if mt is None or nt not in (1, 2, 4) or mt * nt > 8:
+        if mt is None or nt not in sizes or mt * nt > 8:
             continue
         key = (mt * nt, (mt + max(nt // 2, 1)) / (mt * nt))
         if best is None or key < best[0]:
@@ -503,6 +507,132 @@ def conv3_bwd_plain(x: torch.Tensor, gy: torch.Tensor, weight: torch.Tensor,
     return dx, dk, db, dst
 
 
+# ---- the plan of the merged backward (kernels/csrc/conv3_bwd.cu)
+
+# the plan's fields, in the order conv3_bwd.cu's PlanField reads them
+CONV3_BWD_FIELDS = ("td", "th", "tw", "tiles_d", "tiles_h", "tiles_w", "ci",
+                    "co", "wm", "wn", "mt", "nt", "splits", "rvox", "parts")
+CONV3_BWD_WS_BYTES = 64 << 20   # bound of the dk workspace
+SMEM_PER_SM = 113 << 10         # shared memory of one of two blocks an SM
+SMEM_PER_BLOCK = 227 << 10      # the most a block may use
+
+
+def row_stride(cw: int) -> int:
+    """wgrad.cuh::row_stride: a shared-memory row of `cw` bf16 channels,
+    an odd number of 16-byte units apart."""
+    return cw if (cw // 8) % 2 == 1 else cw + 8
+
+
+def conv3_bwd_smem(tile: Tuple[int, int, int], ci: int, co: int, wm: int,
+                   prologue: bool) -> int:
+    """The shared memory a merged-backward block lays out
+    (conv3_bwd.cu::bwd_layout): the x halo ring (two slots; under the
+    prologue also the lo half of xn), the gy halo ring (two slots, each
+    with a zero row past the halo), the weight slice [ci][(tap, o)], the
+    geometry tables, the warps' (ds, dt) sums and the f64 db parts."""
+    td, th, tw = tile
+    hrows = (td + 2) * (th + 2) * (tw + 2)
+    kpad = _ceil(td * th * tw, 16) * 16
+    xstr, gstr = row_stride(ci), row_stride(co)
+    wstr = _ceil(27 * co, 16) * 16 + 8
+    nbytes = (2 * hrows * xstr * 2 + (hrows * xstr * 2 if prologue else 0)
+              + 2 * (hrows + 1) * gstr * 2 + ci * wstr * 2 + 32 * 4
+              + hrows * 4 + 2 * kpad * 4 + wm * 2 * ci * 4)
+    return _ceil(nbytes, 8) * 8 + 256 * 8
+
+
+@functools.lru_cache(maxsize=None)
+def conv3_bwd_plan(batch: int, grid: Tuple[int, int, int], cin: int,
+                   cout: int, prologue: bool, sms: int) -> dict:
+    """The plan of one merged backward call (``kernels/csrc/conv3_bwd.cu``).
+
+    A block takes one input-channel chunk of ci (8 or 16), one
+    output-channel chunk of co (8 or 16) and a contiguous range of the
+    batch's td x th x tw bricks: split s of `splits` takes bricks
+    [s * ntiles // splits, (s + 1) * ntiles // splits). The brick is the
+    largest of at most 256 voxels whose block leaves room for two blocks
+    an SM (else the largest that fits one), halved while the grid holds
+    fewer than two blocks an SM, down to 64 voxels; the splits make the grid
+    one wave of the blocks the card holds at once. dx's warp grid is K1's
+    (``_warp_grid``, mt and nt 1 or 2). With several co chunks dx's f32
+    partials go to a workspace [co_chunks, B D H W Cin] that a second
+    kernel adds, rvox voxels a block (Cin at most 256).
+    Returns the fields the kernel reads (``CONV3_BWD_FIELDS``, in
+    ``fields``; their ctypes array in ``arg``) and what they imply: the
+    workspace shapes ``dx_ws_shape`` (or None), ``ws_shape`` (f32 dk
+    partials), ``wsdb_shape`` (f64 db partials), ``part_shape`` (f32
+    (ds, dt) partials under the prologue, or None) and ``smem``. The kernel
+    lays out its shared memory from these fields and refuses a plan that
+    does not fit. The result is cached: do not modify it."""
+    d, h, w = grid
+    ci = 8 if cin <= 8 else 16
+    co = 8 if cout <= 8 else 16
+    ci_chunks, co_chunks = _ceil(cin, ci), _ceil(cout, co)
+    pairs = ci_chunks * co_chunks
+    if pairs > 65535:
+        raise ValueError(f"conv3_bwd: {pairs} channel-chunk pairs")
+    if co_chunks > 1 and cin > 256:
+        raise ValueError(f"conv3_bwd: Cin {cin} > 256 with {co_chunks} "
+                         "output-channel chunks")
+    tw, th = min(w, 8), min(h, 8)
+    tile = [min(d, max(1, 256 // (tw * th))), th, tw]
+
+    def nvox(t):
+        return t[0] * t[1] * t[2]
+
+    def ntiles(t):
+        return batch * _ceil(d, t[0]) * _ceil(h, t[1]) * _ceil(w, t[2])
+
+    def smem(t):
+        wm = _warp_grid(_ceil(nvox(t), 16), ci // 8, (1, 2))[0]
+        return conv3_bwd_smem(tuple(t), ci, co, wm, prologue)
+
+    def halve(t):
+        axis = next(i for i in range(3) if t[i] == max(t))
+        t[axis] = _ceil(t[axis], 2)
+
+    while nvox(tile) > 64 and (smem(tile) > SMEM_PER_SM
+                               or ntiles(tile) * pairs < 2 * sms):
+        halve(tile)
+    while smem(tile) > SMEM_PER_BLOCK and nvox(tile) > 1:
+        halve(tile)
+    td, th, tw = tile
+    nv, nvol = nvox(tile), d * h * w
+    wm, wn, mt, nt = _warp_grid(_ceil(nv, 16), ci // 8, (1, 2))
+    n = ntiles(tile)
+    split_bytes = 4 * 27 * cin * cout + 8 * cout
+    # one wave: the blocks that fit the card at once (a block walks its
+    # bricks in turn, so a second, partial wave doubles the time)
+    resident = sms * (2 if smem(tile) <= SMEM_PER_SM else 1)
+    splits = max(1, min(n, resident // pairs,
+                        CONV3_BWD_WS_BYTES // split_bytes))
+    tiles = (_ceil(d, td), _ceil(h, th), _ceil(w, tw))
+    per_b = tiles[0] * tiles[1] * tiles[2]
+    rvox = parts = 0
+    if co_chunks > 1:
+        cpad = 1 << (cin - 1).bit_length()
+        rows = 256 // cpad
+        rvox = max(rows, _ceil(_ceil(batch * nvol, 2 * sms), rows) * rows)
+    if prologue:
+        parts = _ceil(nvol, rvox) if co_chunks > 1 else per_b
+    plan = {"td": td, "th": th, "tw": tw, "tiles_d": tiles[0],
+            "tiles_h": tiles[1], "tiles_w": tiles[2], "ci": ci, "co": co,
+            "wm": wm, "wn": wn, "mt": mt, "nt": nt, "splits": splits,
+            "rvox": rvox, "parts": parts}
+    plan.update(fields=[plan[k] for k in CONV3_BWD_FIELDS],
+                ci_chunks=ci_chunks, co_chunks=co_chunks, nvox=nv,
+                mtiles=_ceil(nv, 16), nks=_ceil(27 * co, 16), ntiles=n,
+                hrows=(td + 2) * (th + 2) * (tw + 2), prologue=prologue,
+                smem=smem(tile), launch_grid=(splits, pairs),
+                dx_ws_shape=(co_chunks, batch * nvol * cin)
+                if co_chunks > 1 else None,
+                ws_shape=(splits, 27, cin, cout), wsdb_shape=(splits, cout),
+                ws_bytes=splits * split_bytes,
+                part_shape=(batch, parts, 2, cin) if prologue else None)
+    plan["arg"] = plan_arg(plan["fields"])
+    return plan
+
+
 def conv3_bwd(x: torch.Tensor, gy: torch.Tensor, weight: torch.Tensor,
               kweight: Optional[torch.Tensor] = None,
               pre: Optional[Affine] = None):
@@ -529,24 +659,32 @@ def conv3_bwd(x: torch.Tensor, gy: torch.Tensor, weight: torch.Tensor,
                  (b, d, h, w, cout))
     check_tensor("conv3_bwd", "kweight", kweight, dev, torch.bfloat16,
                  (27, cin, cout))
-    s = t = dst = None
+    s = t = dst = part = wsx = None
+    plan = conv3_bwd_plan(b, (d, h, w), cin, cout, pre is not None,
+                          sm_count(dev.index or 0))
     if pre is not None:
         s, t = check_affine("conv3_bwd", pre, dev, b, cin)
-        dst = torch.zeros((b, 2, cin), dtype=torch.float32, device=dev)
+        dst = torch.empty((b, 2, cin), dtype=torch.float32, device=dev)
+        part = torch.empty(plan["part_shape"], dtype=torch.float32,
+                           device=dev)
+    if plan["dx_ws_shape"] is not None:
+        wsx = torch.empty(plan["dx_ws_shape"], dtype=torch.float32,
+                          device=dev)
+    ws, wsdb = wgrad_workspace(plan, dev)
     dx = torch.empty_like(x)
-    # f64 across the kernel's blocks (cancelling sums), rounded once here
-    dk = torch.zeros((27, cin, cout), dtype=torch.float64, device=dev)
-    db = torch.zeros((cout,), dtype=torch.float64, device=dev)
+    dk = torch.empty((27, cin, cout), dtype=torch.float32, device=dev)
+    db = torch.empty((cout,), dtype=torch.float32, device=dev)
     lib = build.library("conv3_bwd")
     with torch.cuda.device(dev):
         rc = lib.vaeseg_conv3_bwd(
             x.data_ptr(), gy.data_ptr(), kweight.data_ptr(), _ptr(s),
             _ptr(t), dx.data_ptr(), _ptr(dst), dk.data_ptr(), db.data_ptr(),
-            b, d, h, w, cin, cout,
+            _ptr(wsx), ws.data_ptr(), wsdb.data_ptr(), _ptr(part), b, d, h,
+            w, cin, cout, plan["arg"],
             torch.cuda.current_stream(dev).cuda_stream)
     raise_if(rc, lib, "conv3_bwd")
     conv3_bwd.launches += 1
-    return dx, dk.float(), db.float(), dst
+    return dx, dk, db, dst
 
 
 def stats_cotangent(y: torch.Tensor, gy: Optional[torch.Tensor],

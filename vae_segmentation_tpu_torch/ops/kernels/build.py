@@ -41,7 +41,7 @@ SIGNATURES = {
         "vaeseg_error_string": [_I],
     },
     "conv3_bwd": {
-        "vaeseg_conv3_bwd": [_P] * 9 + [_I] * 6 + [_P],
+        "vaeseg_conv3_bwd": [_P] * 13 + [_I] * 6 + [_P, _P],
         "vaeseg_error_string": [_I],
     },
     "instance_norm": {

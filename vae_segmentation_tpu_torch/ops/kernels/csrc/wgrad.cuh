@@ -63,7 +63,9 @@ namespace wgrad {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-enum Mode { kConv3 = 0, kDown = 1, kUp = 2 };
+// kMerged names dk_reduce_kernel after the merged conv backward
+// (conv3_bwd.cu), which adds its own blocks' dk partials with it
+enum Mode { kConv3 = 0, kDown = 1, kUp = 2, kMerged = 3 };
 
 // the plan's fields, in order (ops/conv3.py::wgrad_plan)
 enum PlanField {
