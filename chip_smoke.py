@@ -9,7 +9,9 @@ Phases, each printed as JSON records:
      (one nvcc per source, all at once); the tensor-core instructions
      (HMMA, HGMMA) in each built library's SASS (``cuobjdump -sass``):
      conv3's, conv3_dk's, conv3_bwd's, the bridges' and the bridge
-     backwards' must have them, and a toolkit without cuobjdump fails the
+     backwards' must have them, and so must the functions of K2's and K3's
+     dx kernels (``TENSOR_CORE_KERNELS``: bridge_bwd's HMMA could come from
+     its other kernels alone); a toolkit without cuobjdump fails the
      check.
   2. kernels: one Joint forward of the eval path runs through the plain
      PyTorch versions (f32 math, TF32 off) with hooks recording every
@@ -63,7 +65,10 @@ Phases, each printed as JSON records:
      backwards (dx, dk, db and K2's (ds, dt)), dice_sums and the norm sums
      must give the same bits (none of them adds with atomics); a bridge
      backward that computes dx and dk is also timed for each part alone,
-     and a K1 call whose plan splits K under the one-pass plan too.
+     K2's dx alone also as a replayed CUDA graph beside the dx-only
+     library call (``aten.convolution_backward``, mask (T, F, F)) by both
+     clocks (``down_dx_variants``), and a K1 call whose plan splits K under
+     the one-pass plan too.
      ``bound_ms`` as in phase 2, but a weight gradient under a prologue
      counts its products against 495 TFLOP/s (TF32: its operand xn is
      f32).
@@ -127,7 +132,10 @@ Phases, each printed as JSON records:
      against their f64 value), launches 58 / 9 / 9 / 56 / 56 per forward;
      phases 3-4 (the eval CLI, the forward's divergence gate,
      ``forward_ms``, a profile); one adaptation step recorded and every
-     call held likewise (norm_bwd_sums and norm_bwd_dx among them); phase
+     call held likewise (norm_bwd_sums and norm_bwd_dx among them; each
+     norm_stats and norm_bwd_sums call records its plan, one launch or two
+     passes, and where one launch can take it both plans' device time as a
+     replayed CUDA graph, ``norm_plans``); phase
      6's pseudo-label gradient gate and 3 steps; phase 10's 3 vae_train
      steps; each beside the default route's numbers.
  13. the merged backward (VAESEG_MERGED_BWD=1): conv3_bwd on the inputs of
@@ -757,9 +765,10 @@ FAMILIES = tuple((rf"\b{k}\b", f) for k, f in (
     (r"\bdk_reduce_kernel<2>", "up_k2s2_bwd/dk"),
     # the merged conv backward's dk reduction (mode 3 names it)
     (r"\bdk_reduce_kernel<3>", "conv3_bwd"),
-    # one template each serves two kernels of the table, by its mode
-    (r"\bnorm_reduce_kernel<0>", "norm_stats"),
-    (r"\bnorm_reduce_kernel<1>", "norm_bwd_sums"),
+    # one template each serves two kernels of the table, by its mode (the
+    # reduction's two plans: two passes, one launch)
+    (r"\bnorm_reduce(?:_cluster)?_kernel<0\b", "norm_stats"),
+    (r"\bnorm_reduce(?:_cluster)?_kernel<1\b", "norm_bwd_sums"),
     (r"\bnorm_elementwise_kernel<0>", "norm_apply"),
     (r"\bnorm_elementwise_kernel<1>", "norm_bwd_dx"))
 
@@ -775,7 +784,7 @@ def port_kernel_names() -> list:
         if f.endswith((".cu", ".cuh")):
             with open(os.path.join(CSRC, f)) as src:
                 names.update(re.findall(
-                    r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+                    r"__global__\s+void\s+(?:__\w+__\([^)]*\)\s+)*"
                     r"(\w+)", src.read()))
     return sorted(names)
 
@@ -1346,6 +1355,71 @@ def add_variants(t: dict, rec: dict, n: int) -> None:
         t["onepass_graph_ms"] += n * rec["onepass_graph_ms"]
 
 
+# K2's dx alone, summed over a pass (down_dx_variants)
+DX_FIELDS = ("dx_graph_ms", "dx_library_ms", "dx_library_graph_ms",
+             "dx_bound_ms")
+
+
+def down_dx_variants(torch, wrapper, d: dict, a: dict) -> dict:
+    """K2's dx alone on a recorded down_k2s2_bwd call (its kernel and,
+    under the prologue, the second pass of (ds, dt)): its plan, its device
+    time as a replayed CUDA graph, the dx-only library call
+    (``aten.convolution_backward``, output mask (T, F, F)) by CUDA events
+    and as a graph, and the bound of dx alone."""
+    from vae_segmentation_tpu_torch.ops import bridges, conv3
+
+    x = a["x"]
+    dx_d = {**d, "need_dk": False}
+    library = _library_fn(torch, dx_d, a)
+    plan = bridges.down_dx_plan(
+        x.shape[0], tuple(x.shape[1:4]), x.shape[-1], d["cout"], d["pre"],
+        conv3.sm_count(x.device.index or 0))
+    nbytes, flops, peak = op_work(dx_d)
+    return {"dx_graph_ms": graph_ms(torch, lambda: wrapper(**{
+                **a, "need_dk": False})),
+            "dx_library_ms": cuda_ms(torch, library),
+            "dx_library_graph_ms": graph_ms(torch, library),
+            "dx_bound_ms": max(1e3 * nbytes / HBM_BYTES_PER_S,
+                               1e3 * flops / peak),
+            "dx_plan": {k: plan[k] for k in bridges.DOWN_DX_FIELDS}}
+
+
+# the norm reduction's two plans, summed over a pass where one launch can
+# take the calls (norm_plans), and the wrapper's f64 -> f32 cast of the sums
+# alone
+PLAN_FIELDS = ("one_launch_graph_ms", "two_passes_graph_ms", "cast_graph_ms")
+
+
+def norm_plans(torch, d: dict, a: dict) -> dict:
+    """The plan a recorded norm_stats / norm_bwd_sums call took (one launch
+    or two passes) and, where one launch can take the call, both plans'
+    device time as a replayed CUDA graph on its inputs, beside the
+    wrapper's cast of the f64 sums to f32 alone."""
+    from vae_segmentation_tpu_torch.ops import instance_norm as N
+
+    x, g = a["x"], a.get("g")
+    plan = N.reduce_plan(x, g)
+    rec = {"plan": "one launch" if plan["one_launch"] else "two passes",
+           "plan_parts": plan["parts"]}
+    b, c = x.shape[0], x.shape[-1]
+    lanes = 8 if c % 8 == 0 else 1
+    if plan["lanes"] != 8 or c > N.NORM_CLUSTER_MAX_C \
+            or (c // lanes) & (c // lanes - 1):
+        return rec
+    kw = {} if g is None else {"g": g, "aff": (a["s"], a["t"])}
+    relu = bool(a.get("relu", False))
+    for one, f in ((True, "one_launch_graph_ms"),
+                   (False, "two_passes_graph_ms")):
+        forced = N.norm_reduce_plan(b, x.numel() // (b * c), c, True,
+                                    N.sm_count(x.device.index or 0),
+                                    one_launch=one)
+        rec[f] = graph_ms(torch, lambda: N._launch(d["kernel"], x, relu,
+                                                   plan=forced, **kw))
+    sums = torch.zeros(b, 2, c, dtype=torch.float64, device=x.device)
+    rec["cast_graph_ms"] = graph_ms(torch, lambda: sums.float())
+    return rec
+
+
 def check_calls(torch, calls, failures, phase: str) -> dict:
     """Every recorded kernel call, kernel on the plain path's inputs against
     the plain path's outputs (compare_call, exact_compare for EXACT), and
@@ -1404,6 +1478,8 @@ def check_step_calls(torch, calls, log, failures,
         if k["repeat"] is not None:
             rec["repeat_bitwise"] = k["repeat"]
         with torch.no_grad():
+            if d["kernel"] in ("norm_stats", "norm_bwd_sums"):
+                rec.update(norm_plans(torch, d, a))
             if d["kernel"] in NORM_KERNELS:
                 # a norm kernel at 4^3-64^3 runs for less time than its
                 # wrapper takes to enqueue it, so CUDA events around
@@ -1457,6 +1533,8 @@ def check_step_calls(torch, calls, log, failures,
                     rec["dk_ms"] = rec["kernel_ms"] if not d["need_dx"] \
                         else cuda_ms(torch, lambda: wrapper(
                             **{**a, "need_dx": False}))
+                if d["kernel"] == "down_k2s2_bwd" and d["need_dx"]:
+                    rec.update(down_dx_variants(torch, wrapper, d, a))
             if d["kernel"] == "conv3":
                 rec.update(k1_variants(
                     torch, lambda: wrapper(**a), library, a["x"],
@@ -1480,7 +1558,8 @@ def check_step_calls(torch, calls, log, failures,
             err=0.0, bf16_rel_err=0.0, f32_rel_err=0.0, kernel_ms=0.0,
             plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
             ops_ms=0.0, calls=0))
-        for f in ("pair_ms", "dx_ms", "dk_ms", "pair_graph_ms"):
+        for f in ("pair_ms", "dx_ms", "dk_ms", "pair_graph_ms") + DX_FIELDS \
+                + PLAN_FIELDS:
             if f in rec:
                 t[f] = t.get(f, 0.0) + k["count"] * rec[f]
         if d["kernel"] == "conv3_bwd":
@@ -1928,22 +2007,53 @@ def saved_checkpoints(work: str, prefix: str) -> list:
 
 # the libraries whose products run on the tensor cores
 TENSOR_CORE_LIBS = ("conv3", "conv3_dk", "conv3_bwd", "bridge", "bridge_bwd")
+# kernels (library, __global__ name) that must hold tensor-core
+# instructions in their own functions: a library may have them from
+# another of its kernels
+TENSOR_CORE_KERNELS = (("bridge_bwd", "down_dx_kernel"),
+                       ("bridge_bwd", "up_dx_kernel"))
+
+
+def sass_counts(sass: str) -> dict:
+    """{"HMMA": n, "HGMMA": n} in a piece of SASS."""
+    return {op: len(re.findall(rf"\b{op}\b", sass))
+            for op in ("HMMA", "HGMMA")}
 
 
 def tensor_core_sass(build):
     """{library: {"HMMA": n, "HGMMA": n}}: the tensor-core instructions in
-    each built library's SASS (``cuobjdump -sass``), or None where the
-    toolkit has no cuobjdump (the caller fails the run then)."""
+    each built library's SASS (``cuobjdump -sass``), and under "kernels"
+    {"library/kernel": counts} summed over the functions (template
+    instances) of each TENSOR_CORE_KERNELS entry; None where the toolkit
+    has no cuobjdump (the caller fails the run then)."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
         return None
-    out = {}
+    out, kernels = {}, {}
     for name in build.SIGNATURES:
         sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
                               capture_output=True, text=True).stdout
-        out[name] = {op: len(re.findall(rf"\b{op}\b", sass))
-                     for op in ("HMMA", "HGMMA")}
+        out[name] = sass_counts(sass)
+        for lib, kernel in TENSOR_CORE_KERNELS:
+            if lib == name:
+                kernels[f"{lib}/{kernel}"] = kernel_sass(sass, kernel)
+    out["kernels"] = kernels
+    return out
+
+
+def kernel_sass(sass: str, kernel: str) -> dict:
+    """{"HMMA": n, "HGMMA": n, "functions": n} over the functions of the
+    template `kernel` in `sass`: a function's SASS runs from its
+    "Function : <mangled name>" line to the next one, and the mangled name
+    of a template instance holds <length><name>I."""
+    parts = re.split(r"^\s*Function\s*:\s*(\S+)\s*$", sass, flags=re.M)
+    out = {"HMMA": 0, "HGMMA": 0, "functions": 0}
+    for fn, body in zip(parts[1::2], parts[2::2]):
+        if re.search(rf"\d{kernel}I", fn):
+            out["functions"] += 1
+            for op, n in sass_counts(body).items():
+                out[op] += n
     return out
 
 
@@ -1997,6 +2107,12 @@ def main() -> int:
     for n in TENSOR_CORE_LIBS:
         if sass is not None and not sum(sass[n].values()):
             failures.append(f"{n}: no tensor-core instruction in its SASS")
+    for lib, kernel in TENSOR_CORE_KERNELS:
+        k = None if sass is None else sass["kernels"].get(f"{lib}/{kernel}")
+        if sass is not None and (not k or not k["functions"]
+                                 or not k["HMMA"] + k["HGMMA"]):
+            failures.append(f"{lib}/{kernel}: no tensor-core instruction in "
+                            f"its functions' SASS ({k})")
     emit({"phase": "card", "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s, "ptxas": regs, "tensor_core_sass": sass}, log)
@@ -2797,7 +2913,8 @@ def main() -> int:
             else "cuda events"}
         rec.update({f: t[f] for f in (
             "graph_ms", "library_graph_ms", "split_calls", "split_ms",
-            "onepass_ms", "split_graph_ms", "onepass_graph_ms") if f in t})
+            "onepass_ms", "split_graph_ms", "onepass_graph_ms", "dx_ms")
+            + DX_FIELDS + PLAN_FIELDS if f in t})
         if name in route_of:
             switch, launched = route_of[name]
             rec.update(launches=launched[name], path=switch)

@@ -434,6 +434,299 @@ def test_a_tap_offset_error_fails_the_emulation():
     assert not torch.equal(y, bridges.up_k2s2_plain(x, weight, bias))
 
 
+# ---- (d) K2's dx on the tensor cores (bridge_bwd.cu::down_dx_kernel)
+
+
+def _down_dx_smem(plan, pre):
+    """The shared memory a block of K2's dx kernel lays out
+    (bridge_bwd.cu::dd_layout), counted here on its own."""
+    nvox, nc, kpad = plan["nvox"], plan["nc"], plan["kpad"]
+    mpad = -(-nvox // 16) * 16
+    slots = 2 if plan["tpb"] > 1 else 1
+    gstr = _row_stride(kpad)
+    out = 8 * nvox * ((nc + 4) * 4 if pre else _row_stride(nc) * 2)
+    return slots * mpad * gstr * 2 + 8 * nc * gstr * 2 \
+        + (2 * mpad + 8 * nvox) * 4 + out + WARPS * 2 * 16 * 4
+
+
+def _check_dx_plan(plan, batch, grid, cin, cout, pre, sms=H100_SMS):
+    assert plan["fields"] == [plan[k] for k in bridges.DOWN_DX_FIELDS]
+    assert list(plan["arg"]) == plan["fields"]
+    cover = tuple(-(-e // 2) for e in grid)
+    assert plan["cover"] == cover
+    # every covering coarse voxel in exactly one brick
+    for extent, size, n in zip(cover, (plan["td"], plan["th"], plan["tw"]),
+                               (plan["tiles_d"], plan["tiles_h"],
+                                plan["tiles_w"])):
+        assert (_cover(extent, size, n) == 1).all()
+    nvox = plan["td"] * plan["th"] * plan["tw"]
+    assert plan["nvox"] == nvox and plan["mpad"] == -(-nvox // 16) * 16
+    # a batch entry's blocks walk its bricks blk + k blocks (k < tpb) once
+    per_b = plan["tiles_d"] * plan["tiles_h"] * plan["tiles_w"]
+    blocks, tpb = plan["blocks"], plan["tpb"]
+    assert blocks == -(-per_b // tpb) and 1 <= tpb <= bridges.BRIDGE_TPB
+    walked = sorted(b + k * blocks for b in range(blocks)
+                    for k in range(tpb) if b + k * blocks < per_b)
+    assert walked == list(range(per_b))
+    assert all(b < per_b for b in range(blocks))   # no block without one
+    nc, chunks = plan["nc"], plan["chunks"]
+    assert nc in (8, 16) and chunks == -(-cin // nc) <= 65535
+    assert plan["launch_grid"] == (blocks, chunks, batch)
+    assert plan["kpad"] == -(-cout // 16) * 16
+    # warp = tap over all m16 tiles: MT x NT <= 8 m16n8 tiles, and at most
+    # 4 store items a thread
+    assert plan["mt"] in (1, 2, 4, 8) and 16 * plan["mt"] >= nvox
+    assert plan["mt"] * nc // 8 <= 8 and 8 * nvox * nc // 8 <= 4 * 256
+    assert 2 * max(plan["td"], plan["th"], plan["tw"]) <= 1023
+    assert _down_dx_smem(plan, pre) == plan["smem"] <= SMEM_BYTES
+    if batch * chunks * per_b < 2 * sms:
+        assert nvox <= 16 and nc == 8
+
+
+def down_calls():
+    return [(g, cin, cout, pre) for kind, g, cin, cout, pre
+            in main_path_calls() if kind == "down"]
+
+
+@pytest.mark.parametrize("batch", [1, 2, 4])
+def test_down_dx_plans_of_the_main_path(batch):
+    calls = down_calls()
+    assert ((128, 128, 128), 8, 8, True) in calls and len(calls) == 6
+    for grid, cin, cout, pre in calls:
+        plan = bridges.down_dx_plan(batch, grid, cin, cout, pre, H100_SMS)
+        _check_dx_plan(plan, batch, grid, cin, cout, pre)
+
+
+@pytest.mark.parametrize("batch,grid,cin,cout,pre,sms", [
+    (3, (5, 9, 19), 40, 12, True, H100_SMS),   # odd fine extents
+    (1, (7, 3, 2), 1, 1, True, H100_SMS),
+    (2, (9, 17, 5), 12, 40, False, H100_SMS),
+    (1, (6, 6, 6), 300, 24, False, H100_SMS),  # Cin past 16: chunks
+    (1, (12, 12, 12), 24, 300, True, H100_SMS),  # K past 8 k16 steps
+    (2, (64, 64, 64), 16, 16, False, 2),       # bricks through the ring
+    (1, (8, 8, 8), 16, 640, False, H100_SMS),   # the slice shrinks the brick
+])
+def test_down_dx_edge_plans(batch, grid, cin, cout, pre, sms):
+    plan = bridges.down_dx_plan(batch, grid, cin, cout, pre, sms)
+    _check_dx_plan(plan, batch, grid, cin, cout, pre, sms)
+
+
+def test_down_dx_plan_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError):     # no coarse voxel
+        bridges.down_dx_plan(1, (1, 4, 4), 8, 8, False, H100_SMS)
+    with pytest.raises(ValueError):
+        bridges.down_dx_plan(1, (4, 4, 4), 0, 8, False, H100_SMS)
+    with pytest.raises(ValueError):     # the weight slice cannot fit
+        bridges.down_dx_plan(1, (8, 8, 8), 16, 8192, False, H100_SMS)
+
+
+def emulate_down_dx(x, gy, weight, pre, plan, swap_taps=False):
+    """K2's dx kernel on f32 tensors, block by block: (batch entry,
+    channel chunk, block) walks its bricks; a brick's gy rows staged by
+    their positions (zero past nvox and outside the coarse grid), warp
+    `tap` computing rows @ the weight rows [nc, kpad]^T, its sums placed at
+    the fine voxel mfine[m] + the tap's offset of the fine brick, the fine
+    brick stored item by item (fine voxel i // G, channel group i % G),
+    thread tid = i % 256 taking items tid, tid + 256, ...; under the
+    prologue gm = g where x * s + t > 0, dx = gm * s, and each thread's
+    (ds, dt) summed over its items in order, then a butterfly over the lanes
+    of its channel group, the warps in order, the block's partial written
+    into dpart once; dst = the partials added in f64 as parts_reduce adds
+    them. Returns dx (NaN where nothing landed), the writes of each dx
+    element, dst and the writes of each dpart element."""
+    b, fd, fh_, fw_, cin = x.shape
+    cout = weight.shape[0]
+    dc, hc, wc = fd // 2, fh_ // 2, fw_ // 2
+    td, th, tw, nc = plan["td"], plan["th"], plan["tw"], plan["nc"]
+    nvox, mpad, kpad = plan["nvox"], plan["mpad"], plan["kpad"]
+    blocks, tpb, chunks = plan["blocks"], plan["tpb"], plan["chunks"]
+    G = nc // 8
+    fh, fw = 2 * th, 2 * tw
+    wk = weight.permute(2, 3, 4, 1, 0).reshape(8, cin, cout).float()
+    wk = F.pad(wk, (0, kpad - cout, 0, chunks * nc - cin))   # [8, c, o]
+    gyp = F.pad(gy.float(), (0, kpad - cout))
+    pos, mfine = [], []
+    for m in range(mpad):
+        kd, kh, kw = m // (th * tw), (m // tw) % th, m % tw
+        pos.append(_pack(kd, kh, kw) if m < nvox else -1)
+        mfine.append((2 * kd * fh + 2 * kh) * fw + 2 * kw if m < nvox else -1)
+    fpos = [_pack(v // (fh * fw), (v // fw) % fh, v % fw)
+            for v in range(8 * nvox)]
+    toff = [((t >> 2) * fh + ((t >> 1) & 1)) * fw + (t & 1) for t in range(8)]
+    if swap_taps:
+        toff[1], toff[2] = toff[2], toff[1]
+    dx = torch.full(x.shape, float("nan"))
+    writes = torch.zeros(x.shape, dtype=torch.int32)
+    dpart = torch.full((b, blocks, 2, cin), float("nan"))
+    pwrites = torch.zeros(dpart.shape, dtype=torch.int32)
+    hw = plan["tiles_h"] * plan["tiles_w"]
+    per_b = plan["tiles_d"] * hw
+    items = 8 * nvox * G
+    for bb in range(b):
+        if pre is not None:
+            s = F.pad(pre[0][bb].float(), (0, chunks * nc - cin))
+            t = F.pad(pre[1][bb].float(), (0, chunks * nc - cin))
+        for ch in range(chunks):
+            c0 = ch * nc
+            for blk in range(blocks):
+                sums = torch.zeros(256, 2, 8)    # each thread's (ds, dt)
+                for k in range(tpb):
+                    tile = blk + k * blocks
+                    if tile >= per_b:
+                        break
+                    kd, r = divmod(tile, hw)
+                    kh, kw = divmod(r, plan["tiles_w"])
+                    d0, h0, w0 = kd * td, kh * th, kw * tw
+                    rows = torch.zeros(mpad, kpad)
+                    for m, p in enumerate(pos):
+                        if p < 0:
+                            continue
+                        pd, ph, pw = _unpack(p)
+                        gd, gh, gw = d0 + pd, h0 + ph, w0 + pw
+                        if gd < dc and gh < hc and gw < wc:
+                            rows[m] = gyp[bb, gd, gh, gw]
+                    ys = torch.zeros(8 * nvox, nc)
+                    for tap in range(8):
+                        acc = rows @ wk[tap, c0:c0 + nc].T     # [mpad, nc]
+                        for m in range(mpad):
+                            if mfine[m] >= 0:
+                                ys[mfine[m] + toff[tap]] = acc[m]
+                    for it in range(4):
+                        for tid in range(256):
+                            i = tid + 256 * it
+                            if i >= items:
+                                break
+                            v, u = divmod(i, G)
+                            pd, ph, pw = _unpack(fpos[v])
+                            vd, vh, vw = 2 * d0 + pd, 2 * h0 + ph, 2 * w0 + pw
+                            cu = c0 + 8 * u
+                            if vd >= fd or vh >= fh_ or vw >= fw_ or cu >= cin:
+                                continue
+                            n = min(8, cin - cu)
+                            gv = ys[v, 8 * u:8 * u + 8]
+                            if pre is None:
+                                out = gv
+                            else:
+                                xv = F.pad(x[bb, vd, vh, vw, cu:cu + n]
+                                           .float(), (0, 8 - n))
+                                sv, tv = s[cu:cu + 8], t[cu:cu + 8]
+                                gm = torch.where(xv * sv + tv > 0, gv,
+                                                 torch.zeros(8))
+                                out = gm * sv
+                                sums[tid, 0] += gm * xv
+                                sums[tid, 1] += gm
+                            dx[bb, vd, vh, vw, cu:cu + n] = out[:n]
+                            writes[bb, vd, vh, vw, cu:cu + n] += 1
+                if pre is None:
+                    continue
+                # the butterfly over each group's lanes, the warps in order
+                lanes = sums.view(8, 32, 2, 8)
+                o = 16
+                while o >= G:
+                    lanes = lanes + lanes[:, torch.arange(32) ^ o]
+                    o //= 2
+                part = lanes[0, :G]
+                for w in range(1, 8):
+                    part = part + lanes[w, :G]
+                for u in range(G):
+                    for r in range(2):
+                        for e in range(8):
+                            c = c0 + 8 * u + e
+                            if c < cin:
+                                dpart[bb, blk, r, c] = part[u, r, e]
+                                pwrites[bb, blk, r, c] += 1
+    dst = None
+    if pre is not None:
+        # parts_reduce: warp w adds partials w, w + 32, ... in f64, then the
+        # 32 warps' sums in order
+        p64 = dpart.double()
+        warp_sums = [p64[:, w::32].sum(dim=1) if w < blocks else
+                     torch.zeros(b, 2, cin, dtype=torch.float64)
+                     for w in range(32)]
+        total = warp_sums[0]
+        for w in range(1, 32):
+            total = total + warp_sums[w]
+        dst = total.float()
+    return dx, writes, dst, pwrites
+
+
+DOWN_DX_EMULATED = [
+    ((2, 7, 9, 10, 12), 40, True, H100_SMS),    # odd fine extent, Cin 12
+    ((2, 7, 9, 10, 12), 40, False, H100_SMS),
+    ((1, 6, 5, 4, 1), 1, True, H100_SMS),
+    ((1, 8, 8, 8, 40), 12, False, H100_SMS),    # three channel chunks
+    ((1, 16, 16, 16, 8), 8, True, H100_SMS),
+    ((2, 16, 12, 16, 8), 8, True, 1),           # bricks through the ring
+    ((1, 6, 4, 4, 16), 160, False, H100_SMS),   # K past 8 k16 steps
+]
+
+
+@pytest.mark.parametrize("shape,cout,pre,sms", DOWN_DX_EMULATED)
+def test_down_dx_tiling_equals_plain(shape, cout, pre, sms):
+    """With integer-valued inputs every f32 sum is exact: the emulated
+    blocks must equal down_k2s2_bwd_plain on the even part of the fine
+    grid, each dx element written once, an odd extent's planes 0, each
+    dpart element written once and dst equal."""
+    b, d, h, w, cin = shape
+    x, weight, _, aff = _down_case(shape, cout, pre)
+    gen = torch.Generator().manual_seed(3)
+    gy = _ints(gen, b, d // 2, h // 2, w // 2, cout)
+    plan = bridges.down_dx_plan(b, (d, h, w), cin, cout, pre, sms)
+    dx, writes, dst, pwrites = emulate_down_dx(x, gy, weight, aff, plan)
+    assert (writes == 1).all()
+    e = (2 * (d // 2), 2 * (h // 2), 2 * (w // 2))
+    want_dx, _, _, want_dst = bridges.down_k2s2_bwd_plain(
+        x[:, :e[0], :e[1], :e[2]].contiguous(), gy, weight, aff)
+    assert torch.equal(dx[:, :e[0], :e[1], :e[2]], want_dx)
+    rest = torch.ones(dx.shape, dtype=torch.bool)
+    rest[:, :e[0], :e[1], :e[2]] = False
+    assert (dx[rest] == 0).all()
+    if pre:
+        assert (pwrites == 1).all()
+        assert torch.equal(dst, want_dst)
+    if sms == 1:
+        assert plan["tpb"] > 1
+
+
+def test_a_tap_offset_error_fails_the_dx_emulation():
+    """Two taps' fine-voxel offsets swapped in K2's dx: the emulated blocks
+    no longer equal the plain version."""
+    shape, cout = (1, 4, 6, 8, 12), 12
+    x, weight, _, aff = _down_case(shape, cout, True)
+    gy = _ints(torch.Generator().manual_seed(3), 1, 2, 3, 4, cout)
+    plan = bridges.down_dx_plan(1, shape[1:4], 12, cout, True, H100_SMS)
+    dx, _, dst, _ = emulate_down_dx(x, gy, weight, aff, plan,
+                                    swap_taps=True)
+    want_dx, _, _, want_dst = bridges.down_k2s2_bwd_plain(x, gy, weight, aff)
+    assert not torch.equal(dx, want_dx)
+
+
+_SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_114down_dx_kernelILi8ELi1ELb1ELb0EEEvNS_10DownDxArgsE
+\t.headerflags\t@"EF_CUDA_SM90"
+        /*0100*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0110*/                   HMMA.16816.F32.BF16 R16, R8, R14, R16 ;
+\t\tFunction : _ZN12_GLOBAL__N_112up_dx_kernelILi1EEEvNS_6DxArgsE
+        /*0100*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+\t\tFunction : _ZN12_GLOBAL__N_114down_dx_kernelILi1ELi2ELb0ELb0EEEvNS_10DownDxArgsE
+        /*0100*/                   FFMA R4, R8, R12, R4 ;
+\t\tFunction : _ZN5wgrad9dk_kernelILi1ELi2ELi16ELb1EEEvNS_4ArgsE
+        /*0100*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+"""
+
+
+def test_phase1_counts_tensor_core_instructions_by_kernel():
+    """chip_smoke.py's phase 1 counts a kernel's HMMA in its own functions
+    (every template instance), not in the library's others."""
+    assert cs.kernel_sass(_SASS, "down_dx_kernel") == {
+        "HMMA": 2, "HGMMA": 0, "functions": 2}
+    assert cs.kernel_sass(_SASS, "up_dx_kernel")["HMMA"] == 1
+    assert cs.kernel_sass(_SASS, "dk_kernel")["functions"] == 1
+    assert cs.kernel_sass(_SASS, "norm_reduce_kernel")["functions"] == 0
+    assert ("bridge_bwd", "down_dx_kernel") in cs.TENSOR_CORE_KERNELS
+
+
 # ---- (c) the gate rules of chip_smoke.py
 
 

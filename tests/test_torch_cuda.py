@@ -9,6 +9,8 @@ This file imports torch only, so it also runs on a machine without JAX:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+from unittest import mock
+
 import pytest
 import torch
 
@@ -253,6 +255,138 @@ def test_bridge_backward_kernels_match_plain(gen, up, shape, cout, pre):
     assert only_dk[0] is None and only_dk[3] is None
     assert _rel(only_dk[1], want[1]) <= 1e-3
     assert _rel(only_dk[2], want[2]) <= 1e-3
+
+
+# K2's dx on the tensor cores (bridge_bwd.cu::down_dx_kernel): the
+# main-path shapes (fine grid x Cin, Cout = Cin, batch 2), odd fine extents
+# (the last plane written as 0) and channel counts that are not a multiple
+# of 16 or of 8
+DOWN_DX_CASES = [
+    ((2, 128, 128, 128, 8), 8, True),    # the Down entry, with the prologue
+    ((2, 128, 128, 128, 8), 8, False),   # its norm-route twin
+    ((2, 64, 64, 64, 16), 16, False),
+    ((2, 32, 32, 32, 32), 32, False),
+    ((4, 16, 16, 16, 64), 64, False),
+    ((2, 8, 8, 8, 128), 128, False),
+    ((1, 8, 8, 8, 128), 256, True),      # K past 8 k16 steps: the fold
+    ((2, 7, 9, 11, 12), 40, True),       # odd fine extents, Cin 12
+    ((2, 7, 9, 11, 12), 40, False),
+    ((1, 6, 10, 4, 3), 5, True),         # Cin and Cout not multiples of 8
+    ((1, 5, 4, 6, 24), 8, False),        # Cin 24: a ragged channel chunk
+]
+
+
+@pytest.mark.parametrize("shape,cout,pre", DOWN_DX_CASES)
+def test_down_dx_kernel_matches_plain(gen, shape, cout, pre):
+    """K2's dx (and (ds, dt) under the prologue) alone against the plain
+    version on the even part of the fine grid: dx bf16 within 1e-2 of
+    max|dx|, (ds, dt) within 2e-4 of their largest element; the planes of an
+    odd extent are 0; two more launches give the same bits."""
+    b, d, h, w_, cin = shape
+    x = _rnd(gen, *shape).bfloat16()
+    gy = _rnd(gen, b, d // 2, h // 2, w_ // 2, cout).bfloat16()
+    w = _rnd(gen, cout, cin, 2, 2, 2, scale=(8 * cout) ** -0.5)
+    kw = bridges.down_kernel_weight(w)
+    aff = (_rnd(gen, b, cin).abs() + 0.5, _rnd(gen, b, cin, scale=0.3)) \
+        if pre else None
+
+    def run():
+        return bridges._launch_bwd("down_k2s2_bwd", False, x, gy, kw, aff,
+                                   True, False)
+    dx, _, _, dst = run()
+    torch.cuda.synchronize()
+    e = (2 * (d // 2), 2 * (h // 2), 2 * (w_ // 2))
+    xe = x[:, :e[0], :e[1], :e[2]].contiguous()
+    want_dx, _, _, want_dst = bridges.down_k2s2_bwd_plain(xe, gy, w, aff)
+    assert _rel(dx[:, :e[0], :e[1], :e[2]], want_dx) <= 1e-2
+    rest = torch.ones_like(dx, dtype=torch.bool)
+    rest[:, :e[0], :e[1], :e[2]] = False
+    assert not dx[rest].any()
+    if pre:
+        assert _rel(dst, want_dst) <= 2e-4
+    else:
+        assert dst is None
+    for _ in range(2):
+        again = run()
+        assert torch.equal(again[0], dx)
+        assert pre is False or torch.equal(again[3], dst)
+
+
+def test_down_dx_plan_refuses_what_the_kernel_does_not_take(gen):
+    """A plan of another call is refused by the kernel (its bricks do not
+    cover the grid), and the plan raises for a Cout whose weight slice
+    cannot fit."""
+    x = _rnd(gen, 1, 8, 8, 8, 16).bfloat16()
+    gy = _rnd(gen, 1, 4, 4, 4, 16).bfloat16()
+    w = _rnd(gen, 16, 16, 2, 2, 2)
+    other = bridges.down_dx_plan(1, (4, 4, 4), 16, 16, False,
+                                 conv3.sm_count(0))
+    with mock.patch.object(bridges, "down_dx_plan",
+                           lambda *a, **k: other):
+        with pytest.raises(RuntimeError):
+            bridges._launch_bwd("down_k2s2_bwd", False, x, gy,
+                                bridges.down_kernel_weight(w), None, True,
+                                False)
+    with pytest.raises(ValueError):
+        bridges.down_dx_plan(1, (8, 8, 8), 16, 8192, False, 132)
+
+
+# the reduction's two plans (instance_norm.cu): shapes on either side of
+# the one-launch threshold, both modes, C a multiple of 8 and not
+NORM_REDUCE_CASES = [
+    (1, 128, 8), (2, 64, 16), (1, 32, 32), (2, 32, 32), (4, 16, 64),
+    (2, 8, 128), (1, 4, 256), (2, 24, 24), (1, 9, 3),
+]
+
+
+def _norm_sums_f64(x, g=None, s=None, t=None, relu=True):
+    """The [B, 2, C] sums in f64 of the bf16 inputs (xhat rounded in f32 as
+    the kernel rounds it)."""
+    x32 = x.float()
+    if g is None:
+        x64 = x32.double()
+        return torch.stack([x64.sum(dim=(1, 2, 3)),
+                            (x64 * x64).sum(dim=(1, 2, 3))], dim=1)
+    xhat = x32 * s[:, None, None, None, :] + t[:, None, None, None, :]
+    gm = g.float()
+    if relu:
+        gm = torch.where(xhat > 0, gm, torch.zeros_like(gm))
+    gm, xhat = gm.double(), xhat.double()
+    return torch.stack([gm.sum(dim=(1, 2, 3)),
+                        (gm * xhat).sum(dim=(1, 2, 3))], dim=1)
+
+
+@pytest.mark.parametrize("b,e,c", NORM_REDUCE_CASES)
+def test_norm_reduce_plans_match_f64(gen, b, e, c):
+    """norm_stats and norm_bwd_sums under the call's own plan and under the
+    other plan (where C allows one launch) against their f64 value: within
+    2e-5 of the largest |sum| (f32 sums of at most a few hundred terms,
+    added in f64 across blocks); each plan repeats bit for bit."""
+    x = (_rnd(gen, b, e, e, e, c) * 3 + 1).bfloat16()
+    g = _rnd(gen, b, e, e, e, c).bfloat16()
+    n = e ** 3
+    st = instance_norm.norm_stats(x)
+    s, t = instance_norm.affine_from_stats(st, n)
+    own = instance_norm.reduce_plan(x)
+    plans = [own]
+    groups = c // 8
+    if c % 8 == 0 and groups & (groups - 1) == 0:
+        plans.append(instance_norm.norm_reduce_plan(
+            b, n, c, True, conv3.sm_count(0),
+            one_launch=not own["one_launch"]))
+    for relu in (True, False):
+        for who, args, want in (
+                ("norm_stats", dict(), _norm_sums_f64(x)),
+                ("norm_bwd_sums", dict(g=g, aff=(s, t)),
+                 _norm_sums_f64(x, g, s, t, relu))):
+            for plan in plans:
+                def run():
+                    return instance_norm._launch(who, x, relu, plan=plan,
+                                                 **args)
+                got = run()
+                err = (got.double() - want).abs().max().item()
+                assert err <= 2e-5 * want.abs().max().item(), (who, plan)
+                assert torch.equal(run(), got) and torch.equal(run(), got)
 
 
 def _weight_grads(kind, gen, pre):

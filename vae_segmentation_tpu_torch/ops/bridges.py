@@ -14,9 +14,11 @@ replacing ``upbridge.py::_run_down_bwd``, ``::_run_down_bwd_pre`` and
 wrapper launches its kernel on a CUDA tensor (or raises) and runs its plain
 version on a CPU tensor; the source notes say what bounds them on the H100.
 
-The forward kernels' tile, chunk and warp plan is ``bridge_plan``;
-``down_k2s2.launches``, ``up_k2s2.launches``, ``down_k2s2_bwd.launches``
-and ``up_k2s2_bwd.launches`` count kernel launches.
+The forward kernels' tile, chunk and warp plan is ``bridge_plan``; the
+dx kernels' plans are ``up_dx_plan`` (K3) and ``down_dx_plan`` (K2, the
+mirror of K3's forward on the tensor cores); ``down_k2s2.launches``,
+``up_k2s2.launches``, ``down_k2s2_bwd.launches`` and
+``up_k2s2_bwd.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -342,11 +344,106 @@ def up_dx_plan(batch: int, grid: Tuple[int, int, int], cin: int,
     return plan
 
 
+# the down dx plan's fields, in the order bridge_bwd.cu's DownDxField reads
+# them
+DOWN_DX_FIELDS = ("td", "th", "tw", "tiles_d", "tiles_h", "tiles_w", "nc",
+                  "mt", "tpb", "blocks")
+
+
+def down_dx_smem(nvox: int, kpad: int, nc: int, slots: int,
+                 prologue: bool) -> int:
+    """The shared memory a block of K2's dx kernel lays out
+    (bridge_bwd.cu::dd_layout): the ring of staged gy rows, the [8 nc,
+    kpad] weight rows, the brick's tables, the fine brick (bf16, f32 under
+    the prologue) and the warps' (ds, dt)."""
+    mpad = _ceil(nvox, 16) * 16
+    gstr = row_stride(kpad)
+    out = 8 * nvox * ((nc + 4) * 4 if prologue else row_stride(nc) * 2)
+    return (slots * mpad * gstr * 2 + 8 * nc * gstr * 2
+            + (2 * mpad + 8 * nvox) * 4 + out + WARPS * 2 * 16 * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def down_dx_plan(batch: int, grid: Tuple[int, int, int], cin: int,
+                 cout: int, prologue: bool, sms: int) -> dict:
+    """The plan of K2's dx kernel (``bridge_bwd.cu::down_dx_kernel``) on the
+    fine `grid`, the mirror of K3's forward plan (``bridge_plan("up")``).
+
+    The bricks tile the coarse voxels that cover the fine grid,
+    ceil(fine / 2) an axis (an odd extent's last plane is written as 0 by
+    the brick that holds it). A brick is td x th x tw coarse voxels (M,
+    padded to m16 tiles; warp w computes tap w over all mt of them) by a
+    chunk of nc (8 or 16) of the Cin output channels, K = Cout staged
+    whole (kpad, a multiple of 16). It holds at most 128 voxels at nc 8,
+    64 at 16 (a warp's m16n8 tiles, at most 8); where the grid holds fewer
+    than 2 blocks an SM the brick shrinks (down to 16 voxels), then nc
+    falls to 8, and where the shared memory would not fit the brick
+    shrinks, then nc. A block takes one channel chunk of one batch entry
+    and walks tpb bricks (at most ``BRIDGE_TPB``, so many that the grid
+    keeps 2 blocks an SM) through a two-slot ring: ``blocks`` blocks a
+    batch entry, each writing one [2, Cin] partial of (ds, dt) under the
+    prologue. Returns the fields the kernel reads (``DOWN_DX_FIELDS``, in
+    ``fields``; their ctypes array in ``arg``) and what they imply; raises
+    ValueError for a call no plan fits. The result is cached: do not
+    modify it."""
+    if min(grid) < 2 or cin < 1 or cout < 1 or batch < 1:
+        raise ValueError(f"down_dx: no K2 dx on {grid} x {cin} <- {cout}")
+    cover = tuple(_ceil(e, 2) for e in grid)
+    cd, ch, cw = cover
+    kpad = _ceil(cout, 16) * 16
+    nc = 8 if cin <= 8 else 16
+    mmax = 128 if nc == 8 else 64
+    tw, th = min(cw, 8), min(ch, 8)
+    tile = [min(cd, max(1, mmax // (tw * th))), th, tw]
+
+    def nvox():
+        return tile[0] * tile[1] * tile[2]
+
+    def halve():
+        axis = next(i for i in range(3) if tile[i] == max(tile))
+        tile[axis] = _ceil(tile[axis], 2)
+
+    def blocks():
+        return batch * _ceil(cin, nc) * _ceil(cd, tile[0]) \
+            * _ceil(ch, tile[1]) * _ceil(cw, tile[2])
+
+    while blocks() < 2 * sms and nvox() > 16:
+        halve()
+    if blocks() < 2 * sms:
+        nc = 8
+    tpb = max(1, min(BRIDGE_TPB, blocks() // (2 * sms)))
+    while down_dx_smem(nvox(), kpad, nc, 2 if tpb > 1 else 1, prologue) \
+            > SMEM_BYTES:
+        if nvox() > 16:
+            halve()
+        elif nc > 8:
+            nc = 8
+        else:
+            raise ValueError(f"down_dx: no plan fits Cout {cout}")
+    td, th, tw = tile
+    tiles = (_ceil(cd, td), _ceil(ch, th), _ceil(cw, tw))
+    per_b = tiles[0] * tiles[1] * tiles[2]
+    tpb = min(tpb, per_b)
+    mtiles = _ceil(nvox(), 16)
+    plan = {"td": td, "th": th, "tw": tw, "tiles_d": tiles[0],
+            "tiles_h": tiles[1], "tiles_w": tiles[2], "nc": nc,
+            "mt": _pow2_at_least(mtiles), "tpb": tpb,
+            "blocks": _ceil(per_b, tpb)}
+    plan.update(fields=[plan[k] for k in DOWN_DX_FIELDS], cover=cover,
+                nvox=nvox(), mpad=16 * mtiles, kpad=kpad,
+                chunks=_ceil(cin, nc), prologue=prologue,
+                launch_grid=(plan["blocks"], _ceil(cin, nc), batch),
+                smem=down_dx_smem(nvox(), kpad, nc, 2 if tpb > 1 else 1,
+                                  prologue))
+    plan["arg"] = plan_arg(plan["fields"])
+    return plan
+
+
 def _launch_bwd(who: str, up: bool, x, gy, kweight, pre, need_dx, need_dk):
     """Shared launch of ``bridge_bwd.cu``: x is the forward's input (the
     coarse grid for K3, the fine grid for K2), gy the output cotangent. dk
     and db come from the split plan ``conv3.wgrad_plan`` (mode "up" or
-    "down"), K3's dx from ``up_dx_plan``."""
+    "down"), dx from ``up_dx_plan`` (K3) or ``down_dx_plan`` (K2)."""
     if x.device.type != "cuda":
         raise RuntimeError(f"{who}: no kernel for device {x.device}")
     from vae_segmentation_tpu_torch.ops.kernels import build
@@ -368,24 +465,26 @@ def _launch_bwd(who: str, up: bool, x, gy, kweight, pre, need_dx, need_dk):
     if pre is not None:
         s, t = check_affine(who, pre, dev, b, cin)
     dx = torch.empty_like(x) if need_dx else None
-    dst = dpart = None
-    if need_dx and pre is not None:
-        # K2's dx kernel writes one [2, Cin] partial per block of 256 fine
-        # voxels; a second pass adds them in a fixed order
-        dst = torch.empty((b, 2, cin), dtype=torch.float32, device=dev)
-        dpart = torch.empty((b, -(-d * h * w // 256), 2, cin),
-                            dtype=torch.float32, device=dev)
-    dk = db = ws = wsdb = dk_plan = dx_plan = None
+    sms = sm_count(dev.index or 0)
+    dst = dpart = dx_plan = None
+    if need_dx:
+        plan = up_dx_plan(b, (d, h, w), cin, cout) if up else \
+            down_dx_plan(b, (d, h, w), cin, cout, pre is not None, sms)
+        dx_plan = plan_arg(plan["fields"])
+        if pre is not None:
+            # each block of K2's dx kernel writes one [2, Cin] partial; a
+            # second pass adds the plan's blocks in a fixed order
+            dst = torch.empty((b, 2, cin), dtype=torch.float32, device=dev)
+            dpart = torch.empty((b, plan["blocks"], 2, cin),
+                                dtype=torch.float32, device=dev)
+    dk = db = ws = wsdb = dk_plan = None
     if need_dk:
-        sms = sm_count(dev.index or 0)
         plan = wgrad_plan("up", b, (d, h, w), cout, cin, sms) if up else \
             wgrad_plan("down", b, gshape[1:4], cin, cout, sms)
         ws, wsdb = wgrad_workspace(plan, dev)
         dk = torch.empty((8, cin, cout), dtype=torch.float32, device=dev)
         db = torch.empty((cout,), dtype=torch.float32, device=dev)
         dk_plan = plan_arg(plan["fields"])
-    if up and need_dx:
-        dx_plan = plan_arg(up_dx_plan(b, (d, h, w), cin, cout)["fields"])
     lib = build.library("bridge_bwd")
     with torch.cuda.device(dev):
         rc = lib.vaeseg_bridge_bwd(

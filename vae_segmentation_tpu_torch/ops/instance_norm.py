@@ -16,7 +16,10 @@ each with its plain version, launched on CUDA tensors and counted in
 ``norm_apply`` replaces ``::_apply_per_lane``, ``norm_bwd_sums`` and
 ``norm_bwd_dx`` replace the two ``pallas_call``s of ``::_bwd``. The TPU's
 128-lane flat view and its zero padding are not ported: the kernels reduce
-per (B, C) over the channels-last data as it is.
+per (B, C) over the channels-last data as it is. The two reductions
+(``norm_stats``, ``norm_bwd_sums``) follow ``norm_reduce_plan``: one launch
+(a thread-block cluster a batch entry) for the small calls, two passes for
+the large.
 
 Numerics kept from the JAX function: the one-pass variance E[x^2] - mean^2
 clamped at 0, eps 1e-5 (``_fold_lane_stats``), and xhat = x * scale +
@@ -34,7 +37,7 @@ from typing import Optional, Tuple
 import torch
 
 from vae_segmentation_tpu_torch.ops.conv3 import (
-    _pre_activation, _ptr, check_affine, check_tensor, raise_if)
+    _pre_activation, _ptr, check_affine, check_tensor, raise_if, sm_count)
 
 EPS = 1e-5
 Affine = Tuple[torch.Tensor, torch.Tensor]
@@ -115,19 +118,74 @@ def norm_bwd_dx_plain(x: torch.Tensor, g: torch.Tensor, s: torch.Tensor,
 # ---- the kernels
 
 
+# the plans of the reduction (instance_norm.cu's norm_reduce_kernel and
+# norm_reduce_cluster_kernel)
+NORM_THREADS = 256           # threads a block of either plan
+NORM_CLUSTER = 8             # blocks (a cluster) a batch entry, one launch
+NORM_CLUSTER_MAX_C = 1024    # channels the one-launch plan takes
+# items (8 channels of a voxel) a batch entry up to which one launch wins:
+# 8^3 x 128 and below (NVIDIA H100 80GB HBM3, chip_smoke.py's norm_plans)
+NORM_ONE_LAUNCH_ITEMS = 1 << 13
+NORM_ITEMS_A_THREAD = 4      # the two-pass plan's items a thread, about
+NORM_BLOCKS_A_SM = 4         # its blocks an SM over the batch, at most
+
+
 @functools.lru_cache(maxsize=None)
-def _parts(lib, b: int, n: int, c: int) -> int:
-    """The blocks a batch entry of ``vaeseg_norm_reduce`` launches: the
-    partials its workspace holds (the kernel refuses another count)."""
-    return lib.vaeseg_norm_parts(b, n, c)
+def norm_reduce_plan(batch: int, nvox: int, c: int, vec: bool,
+                     sms: int, one_launch: Optional[bool] = None) -> dict:
+    """The plan of one ``norm_stats`` / ``norm_bwd_sums`` call on [batch,
+    nvox, c]: ``parts`` 0 for one launch (a cluster of ``NORM_CLUSTER``
+    blocks a batch entry; rank 0 adds the blocks' sums in f64), else the
+    blocks a batch entry of the two passes (each block's [2, c] partial
+    written once, then added in f64 by ``common.cuh::parts_reduce``).
+
+    An item is 8 channels of one voxel (`vec`: c % 8 == 0 and x, g
+    16-byte aligned) or one element; ``groups`` = c / 8 or c. A thread's
+    items lie ``stride`` items apart, a multiple of ``groups``, so its
+    channel group is fixed. One launch takes a batch entry of at most
+    ``NORM_ONE_LAUNCH_ITEMS`` items (vec, c <= ``NORM_CLUSTER_MAX_C``,
+    groups a power of two); two passes size the grid for about
+    ``NORM_ITEMS_A_THREAD`` items a thread, at most ``NORM_BLOCKS_A_SM``
+    blocks an SM over the batch, rounded up to keep the stride a multiple
+    of ``groups``. `one_launch` True or False forces a plan (chip_smoke.py
+    times both; True raises where one launch cannot take the call). The
+    result is cached: do not modify it."""
+    if batch < 1 or nvox < 1 or c < 1:
+        raise ValueError(f"norm reduce: no call on [{batch}, {nvox}, {c}]")
+    lanes = 8 if vec and c % 8 == 0 else 1
+    groups = c // lanes
+    items = nvox * c // lanes
+    can = lanes == 8 and c <= NORM_CLUSTER_MAX_C \
+        and groups & (groups - 1) == 0
+    if one_launch and not can:
+        raise ValueError(f"norm reduce: one launch cannot take C {c}")
+    one = can and items <= NORM_ONE_LAUNCH_ITEMS if one_launch is None \
+        else one_launch
+    threads = NORM_THREADS
+    if one:
+        parts, blocks = 0, NORM_CLUSTER
+    else:
+        blocks = min(-(-items // (threads * NORM_ITEMS_A_THREAD)),
+                     -(-NORM_BLOCKS_A_SM * sms // batch))
+        q = groups // math.gcd(groups, threads)
+        parts = blocks = -(-blocks // q) * q
+    return {"parts": parts, "one_launch": one, "lanes": lanes,
+            "groups": groups, "items": items, "blocks": blocks,
+            "threads": threads, "stride": blocks * threads}
+
+
+def _aligned(*ts) -> bool:
+    return all(t is None or t.data_ptr() % 16 == 0 for t in ts)
 
 
 def _launch(who: str, x: torch.Tensor, relu: bool,
             g: Optional[torch.Tensor] = None, aff: Optional[Affine] = None,
-            m: Optional[torch.Tensor] = None) -> torch.Tensor:
+            m: Optional[torch.Tensor] = None,
+            plan: Optional[dict] = None) -> torch.Tensor:
     """Check the inputs and launch one kernel of ``instance_norm.cu``:
-    a reduction to [B, 2, C] (``norm_stats``, ``norm_bwd_sums``) or an
-    elementwise pass to x's shape (``norm_apply``, ``norm_bwd_dx``)."""
+    a reduction to [B, 2, C] (``norm_stats``, ``norm_bwd_sums``; under
+    `plan`, a ``norm_reduce_plan`` of the call's shape, or the call's own)
+    or an elementwise pass to x's shape (``norm_apply``, ``norm_bwd_dx``)."""
     if x.device.type != "cuda":
         raise RuntimeError(f"{who}: no kernel for device {x.device}")
     from vae_segmentation_tpu_torch.ops.kernels import build
@@ -150,16 +208,17 @@ def _launch(who: str, x: torch.Tensor, relu: bool,
     n = x.numel() // (b * c)
     with torch.cuda.device(dev):
         if reduce:
-            # each block's f32 partial, summed across the blocks in f64 in
-            # a fixed order (sums of 2M voxels at 128^3 that cancel in the
+            # f32 sums a block, added across the blocks in f64 in a fixed
+            # order (sums of 2M voxels at 128^3 that cancel in the
             # backward), rounded once here
-            parts = _parts(lib, b, n, c)
-            part = torch.empty((b, parts, 2, c), dtype=torch.float32,
-                               device=dev)
+            if plan is None:
+                plan = reduce_plan(x, g)
+            part = None if plan["one_launch"] else torch.empty(
+                (b, plan["parts"], 2, c), dtype=torch.float32, device=dev)
             out = torch.empty((b, 2, c), dtype=torch.float64, device=dev)
             rc = lib.vaeseg_norm_reduce(
-                x.data_ptr(), _ptr(g), _ptr(s), _ptr(t), part.data_ptr(),
-                parts, out.data_ptr(), int(relu), b, n, c, stream)
+                x.data_ptr(), _ptr(g), _ptr(s), _ptr(t), _ptr(part),
+                plan["parts"], out.data_ptr(), int(relu), b, n, c, stream)
         else:
             out = torch.empty_like(x)
             rc = lib.vaeseg_norm_elementwise(
@@ -167,6 +226,14 @@ def _launch(who: str, x: torch.Tensor, relu: bool,
                 out.data_ptr(), int(relu), b, n, c, stream)
     raise_if(rc, lib, who)
     return out.float() if reduce else out
+
+
+def reduce_plan(x: torch.Tensor, g: Optional[torch.Tensor] = None) -> dict:
+    """The ``norm_reduce_plan`` a reduction over x (and g) on the card
+    takes."""
+    b, c = x.shape[0], x.shape[-1]
+    return norm_reduce_plan(b, x.numel() // (b * c), c, _aligned(x, g),
+                            sm_count(x.device.index or 0))
 
 
 def norm_stats(x: torch.Tensor) -> torch.Tensor:

@@ -45,7 +45,6 @@ SIGNATURES = {
         "vaeseg_error_string": [_I],
     },
     "instance_norm": {
-        "vaeseg_norm_parts": [_I, _L, _I],
         "vaeseg_norm_reduce": [_P] * 5 + [_L, _P, _I, _I, _L, _I, _P],
         "vaeseg_norm_elementwise": [_P] * 6 + [_I, _I, _L, _I, _P],
         "vaeseg_error_string": [_I],

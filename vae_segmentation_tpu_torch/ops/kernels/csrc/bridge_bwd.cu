@@ -32,11 +32,29 @@
 //   8 fine rows and the matching [8, nc, 16] weight slice, 16 channels of
 //   gy at a time, by cp.async into a two-slot ring, and runs mma.sync
 //   (ldmatrix without transpose: the fine rows are channels-last already).
-// - down's dx (down_dx_kernel): a thread per fine voxel and CT of its
-//   channels on the CUDA cores; the prologue backward's ds/dt reduced by
-//   warp shuffles and the warps in a fixed order in shared memory, each
-//   block's [2, CT] partial written once and the blocks' partials added in
-//   f64 in a fixed order (common.cuh::parts_reduce): no atomics.
+// - down's dx: the mirror of K3's forward (bridge.cu), a GEMM per tap on
+//   the tensor cores, M = coarse voxels, K = Cout, N = (tap, Cin): a block
+//   takes one chunk of nc input channels (its [8, nc, Cout] weight slice
+//   staged once) of one batch entry and walks tpb bricks of coarse voxels,
+//   their gy rows staged by cp.async into a two-slot ring. Warp w computes
+//   tap w (mma.sync, ldmatrix without transpose on both operands: gy's rows
+//   and the weight's rows are K-contiguous); its f32 sums, rounded to bf16
+//   once (f32 under the prologue), go into the brick's fine voxels 2i + w
+//   in shared memory, and the block writes each fine row with 16-byte
+//   stores. The bricks tile ceil(fine / 2) coarse voxels, so an odd fine
+//   extent's last plane, which no coarse voxel feeds, is in a brick whose
+//   staged gy rows there are zero: it is written as 0. Under the prologue
+//   the store reads x's fine rows with 16-byte loads alongside, masks g
+//   where x * s + t > 0 (common.cuh's rounding: the forward's mask), writes
+//   dx = gm * s and sums ds = gm * x and dt = gm in f32 a thread (its
+//   channel group is fixed), then by warp shuffles and the warps in a fixed
+//   order: each block's [2, nc] partial is written once and the blocks'
+//   partials added in f64 in a fixed order (common.cuh::parts_reduce): no
+//   atomics.
+// The plans (K3's dx: ops/bridges.py::up_dx_plan; K2's: down_dx_plan) are
+// computed by the wrapper and passed in; each C function checks its plan
+// and lays out the shared memory it needs, refusing a plan that does not
+// fit.
 
 #include "wgrad.cuh"
 
@@ -44,19 +62,6 @@ namespace {
 
 using wgrad::kThreads;
 using wgrad::kWarps;
-
-struct BwdArgs {
-  const __nv_bfloat16* x;   // forward input: the fine grid (down)
-  const __nv_bfloat16* gy;  // output cotangent: the coarse grid (down)
-  const __nv_bfloat16* w;   // [8, Cin, Cout], a = (ad * 2 + ah) * 2 + aw
-  const float* s;           // [B, Cin] prologue scale, or null
-  const float* t;           // [B, Cin] prologue shift
-  __nv_bfloat16* dx;        // like x
-  float* dpart;             // [B, blocks, 2, Cin] f32 partials of dst
-  int B, Dc, Hc, Wc;        // coarse grid
-  int Df, Hf, Wf;           // fine grid as stored (>= 2 * coarse)
-  int Cin, Cout;
-};
 
 // the up dx plan's fields, in order (ops/bridges.py::up_dx_plan)
 enum DxField {
@@ -204,92 +209,435 @@ __global__ void __launch_bounds__(kThreads) up_dx_kernel(const DxArgs a) {
   }
 }
 
-// dx of K2: one thread per fine voxel of batch blockIdx.z and CT input
-// channels, with the prologue's backward when s is given.
-template <int CT>
-__global__ void down_dx_kernel(const BwdArgs a) {
-  __shared__ float red[kWarps][2 * CT];
-  const int tid = threadIdx.x;
-  const int b = blockIdx.z;
-  const int c0 = blockIdx.y * CT;
-  const int64_t per_b = (int64_t)a.Df * a.Hf * a.Wf;
-  const int64_t f = (int64_t)blockIdx.x * blockDim.x + tid;
-  const bool in = f < per_b;
-  int64_t r = in ? f : 0;
-  const int fw = (int)(r % a.Wf); r /= a.Wf;
-  const int fh = (int)(r % a.Hf);
-  const int fd = (int)(r / a.Hf);
-  const int id = fd >> 1, ih = fh >> 1, iw = fw >> 1;
-  // an odd fine extent leaves a last plane the forward never read
-  const bool live = in && id < a.Dc && ih < a.Hc && iw < a.Wc;
-  float acc[CT];
-#pragma unroll
-  for (int c = 0; c < CT; ++c) acc[c] = 0.f;
-  if (live) {
-    const int tap = ((fd & 1) * 2 + (fh & 1)) * 2 + (fw & 1);
-    const __nv_bfloat16* gp =
-        a.gy + ((((int64_t)b * a.Dc + id) * a.Hc + ih) * a.Wc + iw) * a.Cout;
-    const __nv_bfloat16* wp = a.w + ((int64_t)tap * a.Cin + c0) * a.Cout;
-    for (int o = 0; o < a.Cout; ++o) {
-      const float gv = __bfloat162float(gp[o]);
-#pragma unroll
-      for (int c = 0; c < CT; ++c)
-        acc[c] = fmaf(gv, __bfloat162float(wp[(int64_t)c * a.Cout + o]), acc[c]);
+// ---- K2's dx on the tensor cores
+
+// the down dx plan's fields, in order (ops/bridges.py::DOWN_DX_FIELDS)
+enum DownDxField {
+  kDdTd, kDdTh, kDdTw, kDdTilesD, kDdTilesH, kDdTilesW, kDdNc, kDdMt,
+  kDdTpb, kDdBlocks
+};
+
+// k16 steps a chain of MMAs, at most (bridge.cu's kFold)
+constexpr int kFold = 8;
+// fine-brick items (a fine voxel's 8 channels) a thread stores a brick, at
+// most: 8 nvox nc / 8 <= 8 m16n8 tiles a warp x 128 = 4 kThreads
+constexpr int kDdItems = 4;
+
+struct DownDxArgs {
+  const __nv_bfloat16* x;   // [B, Df, Hf, Wf, Cin] the forward's input
+  const __nv_bfloat16* gy;  // [B, Dc, Hc, Wc, Cout]
+  const __nv_bfloat16* w;   // [8, Cin, Cout], a = (ad * 2 + ah) * 2 + aw
+  const float* s;           // [B, Cin] prologue scale, or null
+  const float* t;           // [B, Cin] prologue shift
+  __nv_bfloat16* dx;        // like x
+  float* dpart;             // [B, blocks, 2, Cin] f32 partials of dst
+  int B, Dc, Hc, Wc, Df, Hf, Wf, Cin, Cout;
+  int td, th, tw, tiles_d, tiles_h, tiles_w, nc, mt, tpb, blocks;
+  int nvox, mpad, kpad, gstr, slots;
+  bool gvec, wvec, xvec;    // 16-byte rows of gy, w, and x / dx
+};
+
+// byte offsets of the down dx kernel's shared memory: the ring of staged gy
+// rows [slots][mpad][gstr] bf16; the weight rows [8 nc][gstr] bf16 (row
+// tap * nc + c holds wk[tap, c0 + c, :]); the brick's tables (each coarse
+// row's position, its fine voxel 2i, each fine voxel's position); the fine
+// brick, [8 nvox] rows of nc channels, bf16 at row_stride(nc), or f32 at
+// nc + 4 under the prologue (its mask and sums take the f32 sum); the
+// warps' (ds, dt) [kWarps][2][16] f32
+struct DdLayout {
+  int g, w, pos, out, red, bytes;
+};
+
+__host__ __device__ inline DdLayout dd_layout(int slots, int mpad, int gstr,
+                                              int nc, int nvox, bool pre) {
+  DdLayout l;
+  l.g = 0;
+  l.w = slots * mpad * gstr * 2;
+  l.pos = l.w + 8 * nc * gstr * 2;
+  l.out = l.pos + (2 * mpad + 8 * nvox) * 4;
+  l.red = l.out + 8 * nvox * (pre ? (nc + 4) * 4 : wgrad::row_stride(nc) * 2);
+  l.bytes = l.red + kWarps * 2 * 16 * 4;
+  return l;
+}
+
+// dx of K2: block (bricks blockIdx.x + k gridDim.x of batch entry
+// blockIdx.z, channel chunk blockIdx.y); warp w computes tap w: MT m16
+// tiles (the brick's coarse voxels) by NT n8 tiles (nc = 8 NT input
+// channels), K = Cout in k16 steps (chains of at most kFold, FOLD). PRE:
+// the prologue's backward, its (ds, dt) partial of the block written once.
+template <int MT, int NT, bool PRE, bool FOLD>
+__global__ void __launch_bounds__(kThreads) down_dx_kernel(const DownDxArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int NC = 8 * NT, G = NT;   // G: channel groups of 8 in a chunk
+  const DdLayout L = dd_layout(a.slots, a.mpad, a.gstr, NC, a.nvox, PRE);
+  __nv_bfloat16* sg = reinterpret_cast<__nv_bfloat16*>(smem + L.g);
+  __nv_bfloat16* sw = reinterpret_cast<__nv_bfloat16*>(smem + L.w);
+  int* pos = reinterpret_cast<int*>(smem + L.pos);   // [mpad]
+  int* mfine = pos + a.mpad;                         // [mpad], -1 past nvox
+  int* fpos = mfine + a.mpad;                        // [8 nvox]
+  __nv_bfloat16* ysb = reinterpret_cast<__nv_bfloat16*>(smem + L.out);
+  float* ysf = reinterpret_cast<float*>(smem + L.out);
+  float* red = reinterpret_cast<float*>(smem + L.red);
+  const int tid = threadIdx.x, lane = tid & 31, tap = tid >> 5;
+  const int b = blockIdx.z, c0 = blockIdx.y * NC;
+  const int fh = 2 * a.th, fw = 2 * a.tw;
+  const int ystr = PRE ? NC + 4 : wgrad::row_stride(NC);
+  const int tapoff = ((tap >> 2) * fh + ((tap >> 1) & 1)) * fw + (tap & 1);
+  const int hw = a.tiles_h * a.tiles_w;
+  const int nb = min(a.tpb, (a.tiles_d * hw - 1 - (int)blockIdx.x) /
+                                (int)gridDim.x + 1);
+  const int units = a.kpad >> 3;     // 16-byte units of a staged row
+
+  // the brick's geometry, once
+  for (int m = tid; m < a.mpad; m += kThreads) {
+    const int kd = m / (a.th * a.tw), kh = (m / a.tw) % a.th, kw = m % a.tw;
+    pos[m] = m < a.nvox ? wgrad::pack(kd, kh, kw) : -1;
+    mfine[m] = m < a.nvox ? (2 * kd * fh + 2 * kh) * fw + 2 * kw : -1;
+  }
+  for (int v = tid; v < 8 * a.nvox; v += kThreads)
+    fpos[v] = wgrad::pack(v / (fh * fw), (v / fw) % fh, v % fw);
+  // the chunk's weight rows, once (zero past Cin and Cout)
+  for (int i = tid; i < 8 * NC * units; i += kThreads) {
+    const int row = i / units, u = i - row * units;
+    const int c = c0 + row % NC, o = 8 * u;
+    const bool ok = c < a.Cin && o < a.Cout;
+    const int64_t off = ok ? ((int64_t)(row / NC) * a.Cin + c) * a.Cout + o : 0;
+    __nv_bfloat16* out = sw + row * a.gstr + 8 * u;
+    if (a.wvec) {
+      wgrad::cp_async16(out, a.w + off, ok);
+    } else {
+      for (int j = 0; j < 8; ++j)
+        out[j] = (ok && o + j < a.Cout) ? a.w[off + j] : __float2bfloat16(0.f);
     }
   }
-  const int64_t off = ((int64_t)b * per_b + f) * a.Cin + c0;
-  if (a.s == nullptr) {
-    if (in) {
+  __syncthreads();   // the tables, before the first staging reads them
+
+  auto origin = [&](int k, int& d0, int& h0, int& w0) {
+    int tile = (int)blockIdx.x + k * (int)gridDim.x;
+    const int kd = tile / hw;
+    tile -= kd * hw;
+    const int kh = tile / a.tiles_w;
+    d0 = kd * a.td;
+    h0 = kh * a.th;
+    w0 = (tile - kh * a.tiles_w) * a.tw;
+  };
+  // brick k's gy rows into slot k % slots: zero past nvox, outside the
+  // coarse grid (the odd fine extent's last plane) and past Cout
+  auto stage = [&](int k) {
+    int d0, h0, w0;
+    origin(k, d0, h0, w0);
+    __nv_bfloat16* dst = sg + (k % a.slots) * a.mpad * a.gstr;
+    for (int i = tid; i < a.mpad * units; i += kThreads) {
+      const int r = i / units, u = i - r * units;
+      const int pp = pos[r];
+      const int gd = d0 + (pp >> 20), gh = h0 + ((pp >> 10) & 1023),
+                gw = w0 + (pp & 1023);
+      const int o = 8 * u;
+      const bool ok = pp >= 0 && gd < a.Dc && gh < a.Hc && gw < a.Wc &&
+                      o < a.Cout;
+      const int64_t off =
+          ok ? ((((int64_t)b * a.Dc + gd) * a.Hc + gh) * a.Wc + gw) * a.Cout +
+                   o
+             : 0;
+      __nv_bfloat16* out = dst + r * a.gstr + 8 * u;
+      if (a.gvec) {
+        wgrad::cp_async16(out, a.gy + off, ok);
+      } else {
+        for (int j = 0; j < 8; ++j)
+          out[j] = (ok && o + j < a.Cout) ? a.gy[off + j]
+                                          : __float2bfloat16(0.f);
+      }
+    }
+  };
+
+  // this thread's channel group (its store items are tid + k kThreads, and
+  // kThreads is a multiple of G), its 8 channels' (s, t) and (ds, dt) sums
+  const int cu = c0 + 8 * (tid % G);
+  float sv[8], tv[8], ds[8], dt[8];
 #pragma unroll
-      for (int c = 0; c < CT; ++c) a.dx[off + c] = __float2bfloat16(acc[c]);
+  for (int e = 0; e < 8; ++e) {
+    sv[e] = tv[e] = ds[e] = dt[e] = 0.f;
+    if (PRE && cu + e < a.Cin) {
+      sv[e] = a.s[b * a.Cin + cu + e];
+      tv[e] = a.t[b * a.Cin + cu + e];
     }
-    return;
   }
+
+  const int a_row = lane & 15, a_kh = (lane >> 4) << 3;
+  const int bn = (lane & 7) + ((lane >> 4) << 3), bk = ((lane >> 3) & 1) << 3;
+  const int g = lane >> 2, q = lane & 3;
+  const int nks = a.kpad >> 4;
+  stage(0);
+  wgrad::cp_async_commit();   // with the weight rows
+  for (int k = 0; k < nb; ++k) {
+    if (k + 1 < nb) stage(k + 1);
+    wgrad::cp_async_commit();
+    wgrad::cp_async_wait_one();   // this brick's rows have landed
+    __syncthreads();
+    const __nv_bfloat16* gs = sg + (k % a.slots) * a.mpad * a.gstr;
+    float acc[MT][NT][4];
+    float tot[FOLD ? MT : 1][FOLD ? NT : 1][4];
 #pragma unroll
-  for (int c = 0; c < CT; ++c) {
-    const int sc = b * a.Cin + c0 + c;
-    const float sv = a.s[sc];
-    const float xv = in ? __bfloat162float(a.x[off + c]) : 0.f;
-    const float gm = (live && pre_activation(xv, sv, a.t[sc]) > 0.f) ? acc[c] : 0.f;
-    if (in) a.dx[off + c] = __float2bfloat16(gm * sv);
-    float ds = gm * xv, dt = gm;
-    for (int o = 16; o > 0; o >>= 1) {
-      ds += __shfl_down_sync(0xffffffffu, ds, o);
-      dt += __shfl_down_sync(0xffffffffu, dt, o);
+    for (int j = 0; j < MT; ++j)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[j][n][e] = 0.f;
+          if (FOLD) tot[FOLD ? j : 0][FOLD ? n : 0][e] = 0.f;
+        }
+    auto fold = [&]() {
+#pragma unroll
+      for (int j = 0; j < MT; ++j)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float& t = tot[FOLD ? j : 0][FOLD ? n : 0][e];
+            t = __fadd_rn(t, acc[j][n][e]);
+            acc[j][n][e] = 0.f;
+          }
+    };
+    int chain = 0;
+    for (int ks = 0; ks < nks; ++ks) {
+      uint32_t bf[NT][2];
+      const __nv_bfloat16* wrow = sw + (tap * NC + bn) * a.gstr + 16 * ks + bk;
+      if (NT == 1) {
+        wgrad::ldmatrix_x2(bf[0], wrow);
+      } else {
+#pragma unroll
+        for (int p = 0; p < NT / 2; ++p) {
+          uint32_t r4[4];
+          wgrad::ldmatrix_x4(r4, wrow + 16 * p * a.gstr);
+          bf[2 * p][0] = r4[0]; bf[2 * p][1] = r4[1];
+          bf[2 * p + 1][0] = r4[2]; bf[2 * p + 1][1] = r4[3];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < MT; ++j) {
+        if (16 * j >= a.mpad) break;   // warp-uniform
+        uint32_t af[4];
+        wgrad::ldmatrix_x4(af, gs + (16 * j + a_row) * a.gstr + 16 * ks + a_kh);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) wgrad::mma_bf16(acc[j][n], af, bf[n]);
+      }
+      if (FOLD && ++chain == kFold) {
+        chain = 0;
+        fold();
+      }
     }
-    if ((tid & 31) == 0) {
-      red[tid >> 5][c] = ds;
-      red[tid >> 5][CT + c] = dt;
+    if (FOLD) {
+      fold();
+#pragma unroll
+      for (int j = 0; j < MT; ++j)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[j][n][e] = tot[FOLD ? j : 0][FOLD ? n : 0][e];
     }
+    // the C fragments (lane (g, q): rows g and g + 8 of each m16 tile,
+    // columns 2q and 2q + 1 of each n8 tile) into the fine brick at 2i + tap
+#pragma unroll
+    for (int j = 0; j < MT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = 16 * j + g + 8 * h;
+        if (m >= a.mpad) break;
+        const int f = mfine[m];
+        if (f < 0) continue;
+        const int row = (f + tapoff) * ystr;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          if (PRE) {
+            *reinterpret_cast<float2*>(ysf + row + 8 * n + 2 * q) =
+                make_float2(acc[j][n][2 * h], acc[j][n][2 * h + 1]);
+          } else {
+            *reinterpret_cast<__nv_bfloat162*>(ysb + row + 8 * n + 2 * q) =
+                __floats2bfloat162_rn(acc[j][n][2 * h], acc[j][n][2 * h + 1]);
+          }
+        }
+      }
+    __syncthreads();
+
+    // the fine brick out: item i = (fine voxel i / G, channel group i % G),
+    // neighbouring threads on neighbouring channel groups, then voxels
+    // along w; under the prologue x's rows are loaded first, all at once
+    int d0, h0, w0;
+    origin(k, d0, h0, w0);
+    const int items = 8 * a.nvox * G;
+    int64_t off[kDdItems];
+    bool in[kDdItems];
+    uint4 xr[kDdItems];
+#pragma unroll
+    for (int it = 0; it < kDdItems; ++it) {
+      const int i = tid + it * kThreads;
+      in[it] = false;
+      off[it] = 0;
+      if (i < items) {
+        const int pp = fpos[i / G];
+        const int vd = 2 * d0 + (pp >> 20), vh = 2 * h0 + ((pp >> 10) & 1023),
+                  vw = 2 * w0 + (pp & 1023);
+        in[it] = vd < a.Df && vh < a.Hf && vw < a.Wf && cu < a.Cin;
+        off[it] = ((((int64_t)b * a.Df + vd) * a.Hf + vh) * a.Wf + vw) * a.Cin +
+                  cu;
+      }
+      if (PRE && in[it] && a.xvec)
+        xr[it] = *reinterpret_cast<const uint4*>(a.x + off[it]);
+    }
+#pragma unroll
+    for (int it = 0; it < kDdItems; ++it) {
+      if (!in[it]) continue;
+      const int v = (tid + it * kThreads) / G, col = cu - c0;
+      __nv_bfloat16* out = a.dx + off[it];
+      if (!PRE) {
+        const __nv_bfloat16* src = ysb + v * ystr + col;
+        if (a.xvec) {
+          *reinterpret_cast<uint4*>(out) = *reinterpret_cast<const uint4*>(src);
+        } else {
+          for (int e = 0; e < 8 && cu + e < a.Cin; ++e) out[e] = src[e];
+        }
+        continue;
+      }
+      const float4* src = reinterpret_cast<const float4*>(ysf + v * ystr + col);
+      const float4 g0 = src[0], g1 = src[1];
+      const float gv[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+      __align__(16) __nv_bfloat16 xb[8];
+      if (a.xvec) {
+        *reinterpret_cast<uint4*>(xb) = xr[it];
+      } else {
+        for (int e = 0; e < 8; ++e)
+          xb[e] = cu + e < a.Cin ? a.x[off[it] + e] : __float2bfloat16(0.f);
+      }
+      __align__(16) __nv_bfloat16 ob[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float xv = __bfloat162float(xb[e]);
+        const float gm = pre_activation(xv, sv[e], tv[e]) > 0.f ? gv[e] : 0.f;
+        ob[e] = __float2bfloat16(gm * sv[e]);
+        ds[e] = fmaf(gm, xv, ds[e]);
+        dt[e] += gm;
+      }
+      if (a.xvec) {
+        *reinterpret_cast<uint4*>(out) = *reinterpret_cast<const uint4*>(ob);
+      } else {
+        for (int e = 0; e < 8 && cu + e < a.Cin; ++e) out[e] = ob[e];
+      }
+    }
+    __syncthreads();   // this brick's slot and the fine brick are free again
   }
-  __syncthreads();
-  if (tid < 2 * CT) {
-    const int row = tid / CT, c = tid % CT;
-    float sum = 0.f;
-    for (int w = 0; w < kWarps; ++w) sum += red[w][tid];
-    a.dpart[(((int64_t)b * gridDim.x + blockIdx.x) * 2 + row) * a.Cin + c0 + c] =
-        sum;
+  if constexpr (PRE) {
+    // (ds, dt): the lanes of one channel group by shuffles (lane l holds
+    // group l % G), then the warps in order; the block's partial written once
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      for (int o = 16; o >= G; o >>= 1) {
+        ds[e] += __shfl_xor_sync(0xffffffffu, ds[e], o);
+        dt[e] += __shfl_xor_sync(0xffffffffu, dt[e], o);
+      }
+    if (lane < G) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        red[(tap * 2 + 0) * 16 + 8 * lane + e] = ds[e];
+        red[(tap * 2 + 1) * 16 + 8 * lane + e] = dt[e];
+      }
+    }
+    __syncthreads();
+    if (tid < 2 * NC) {
+      const int r = tid / NC, c = tid % NC;
+      float sum = 0.f;
+      for (int w = 0; w < kWarps; ++w) sum += red[(w * 2 + r) * 16 + c];
+      if (c0 + c < a.Cin)
+        a.dpart[(((int64_t)b * a.blocks + blockIdx.x) * 2 + r) * a.Cin + c0 + c] =
+            sum;
+    }
   }
 }
 
-template <int CT>
-cudaError_t launch_down_dx(const BwdArgs& a, cudaStream_t stream) {
-  const int nthr = 256;
-  const int64_t per_b = (int64_t)a.Df * a.Hf * a.Wf;
-  const int64_t nblk = (per_b + nthr - 1) / nthr;
-  if (nblk > 0x7fffffff || a.B > 65535) return cudaErrorInvalidValue;
-  dim3 grid((unsigned)nblk, (unsigned)(a.Cin / CT), (unsigned)a.B);
-  dim3 block(nthr, 1, 1);
-  down_dx_kernel<CT><<<grid, block, 0, stream>>>(a);
+template <int MT, int NT, bool PRE, bool FOLD>
+cudaError_t launch_down_dx(const DownDxArgs& a, int smem, cudaStream_t st) {
+  static bool sized = false;
+  if (!sized) {
+    cudaError_t err = cudaFuncSetAttribute(
+        down_dx_kernel<MT, NT, PRE, FOLD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
+    if (err != cudaSuccess) return err;
+    sized = true;
+  }
+  const dim3 grid((unsigned)a.blocks, (unsigned)((a.Cin + 8 * NT - 1) / (8 * NT)),
+                  (unsigned)a.B);
+  down_dx_kernel<MT, NT, PRE, FOLD><<<grid, kThreads, smem, st>>>(a);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_down_dx(const BwdArgs& a, cudaStream_t st) {
-  if (a.Cin % 16 == 0) return launch_down_dx<16>(a, st);
-  if (a.Cin % 8 == 0) return launch_down_dx<8>(a, st);
-  if (a.Cin % 4 == 0) return launch_down_dx<4>(a, st);
-  if (a.Cin % 2 == 0) return launch_down_dx<2>(a, st);
-  return launch_down_dx<1>(a, st);
+template <int NT, bool PRE, bool FOLD>
+cudaError_t dispatch_down_dx_mt(const DownDxArgs& a, int smem,
+                                cudaStream_t st) {
+  switch (a.mt) {
+    case 1: return launch_down_dx<1, NT, PRE, FOLD>(a, smem, st);
+    case 2: return launch_down_dx<2, NT, PRE, FOLD>(a, smem, st);
+    case 4: return launch_down_dx<4, NT, PRE, FOLD>(a, smem, st);
+    case 8:
+      if constexpr (NT == 1) return launch_down_dx<8, 1, PRE, FOLD>(a, smem, st);
+      return cudaErrorInvalidValue;
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <bool PRE, bool FOLD>
+cudaError_t dispatch_down_dx_nt(const DownDxArgs& a, int smem,
+                                cudaStream_t st) {
+  return a.nc == 8 ? dispatch_down_dx_mt<1, PRE, FOLD>(a, smem, st)
+                   : dispatch_down_dx_mt<2, PRE, FOLD>(a, smem, st);
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// K2's dx (and, with s and t, dpart's partials) under `plan`, the fields of
+// ops/bridges.py::down_dx_plan on the fine grid (Df, Hf, Wf).
+cudaError_t down_dx(DownDxArgs a, const int* plan, cudaStream_t st) {
+  if (plan == nullptr) return cudaErrorInvalidValue;
+  a.td = plan[kDdTd]; a.th = plan[kDdTh]; a.tw = plan[kDdTw];
+  a.tiles_d = plan[kDdTilesD]; a.tiles_h = plan[kDdTilesH];
+  a.tiles_w = plan[kDdTilesW];
+  a.nc = plan[kDdNc]; a.mt = plan[kDdMt]; a.tpb = plan[kDdTpb];
+  a.blocks = plan[kDdBlocks];
+  const bool pre = a.s != nullptr;
+  // the bricks tile the coarse voxels that cover the fine grid
+  const int cd = (a.Df + 1) / 2, ch = (a.Hf + 1) / 2, cw = (a.Wf + 1) / 2;
+  const int64_t per_b = (int64_t)a.tiles_d * a.tiles_h * a.tiles_w;
+  const bool shape_ok =
+      a.td > 0 && a.th > 0 && a.tw > 0 && a.tiles_d > 0 && a.tiles_h > 0 &&
+      a.tiles_w > 0 && 2 * a.td <= 1023 && 2 * a.th <= 1023 &&
+      2 * a.tw <= 1023 && a.tiles_d * a.td >= cd &&
+      (a.tiles_d - 1) * a.td < cd && a.tiles_h * a.th >= ch &&
+      (a.tiles_h - 1) * a.th < ch && a.tiles_w * a.tw >= cw &&
+      (a.tiles_w - 1) * a.tw < cw && (a.nc == 8 || a.nc == 16) && a.tpb > 0 &&
+      per_b < 0x7fffffff && a.blocks == (per_b + a.tpb - 1) / a.tpb;
+  if (!shape_ok) return cudaErrorInvalidValue;
+  a.nvox = a.td * a.th * a.tw;
+  a.mpad = wgrad::round_up(a.nvox, 16);
+  a.kpad = wgrad::round_up(a.Cout, 16);
+  a.gstr = wgrad::row_stride(a.kpad);
+  a.slots = a.tpb > 1 ? 2 : 1;
+  a.gvec = (a.Cout & 7) == 0 && aligned16(a.gy);
+  a.wvec = (a.Cout & 7) == 0 && aligned16(a.w);
+  a.xvec = (a.Cin & 7) == 0 && aligned16(a.dx) && (!pre || aligned16(a.x));
+  const DdLayout L = dd_layout(a.slots, a.mpad, a.gstr, a.nc, a.nvox, pre);
+  if (a.mt * 16 < a.mpad || a.mt * a.nc / 8 > 8 ||
+      (a.mt != 1 && a.mt != 2 && a.mt != 4 && a.mt != 8) ||
+      8 * a.nvox * (a.nc / 8) > kDdItems * kThreads || a.B > 65535 ||
+      (a.Cin + a.nc - 1) / a.nc > 65535 || L.bytes > 227 * 1024 ||
+      (pre && (a.t == nullptr || a.dpart == nullptr)))
+    return cudaErrorInvalidValue;
+  const bool fold = a.kpad / 16 > kFold;
+  if (pre)
+    return fold ? dispatch_down_dx_nt<true, true>(a, L.bytes, st)
+                : dispatch_down_dx_nt<true, false>(a, L.bytes, st);
+  return fold ? dispatch_down_dx_nt<false, true>(a, L.bytes, st)
+              : dispatch_down_dx_nt<false, false>(a, L.bytes, st);
 }
 
 template <int NT>
@@ -349,11 +697,11 @@ const char* vaeseg_error_string(int code) {
 // [B, D/2, H/2, W/2, Cout] for K2). dx (like x) and dk [8, Cin, Cout] with
 // db [Cout] may each be null; dk and db are written whole from the
 // workspace ws [splits, 8, Cin, Cout] f32 and wsdb [splits, Cout] f64 of
-// dk_plan (ops/conv3.py::wgrad_plan, mode 2 for K3, 1 for K2); K3's dx
-// follows dx_plan (ops/bridges.py::up_dx_plan). dst [B, 2, Cin] f32 is
-// written whole and goes with s and t (K2's prologue) and needs dx, and
-// with its workspace dpart [B, ceil(D H W / 256), 2, Cin] f32. Returns the
-// first launch error (0 on success).
+// dk_plan (ops/conv3.py::wgrad_plan, mode 2 for K3, 1 for K2); dx follows
+// dx_plan (ops/bridges.py::up_dx_plan for K3, ::down_dx_plan for K2). dst
+// [B, 2, Cin] f32 is written whole and goes with s and t (K2's prologue)
+// and needs dx, and with its workspace dpart [B, blocks, 2, Cin] f32, blocks
+// the dx plan's. Returns the first launch error (0 on success).
 int vaeseg_bridge_bwd(int up, const void* x, const void* gy, const void* w,
                       const void* s, const void* t, void* dx, void* dk,
                       void* db, void* dst, void* dpart, void* ws, void* wsdb,
@@ -378,7 +726,7 @@ int vaeseg_bridge_bwd(int up, const void* x, const void* gy, const void* w,
                  static_cast<__nv_bfloat16*>(dx), B, D, H, W, Cin, Cout,
                  static_cast<const int*>(dx_plan), st);
     } else {
-      BwdArgs a;
+      DownDxArgs a;
       a.x = xb; a.gy = gb;
       a.w = static_cast<const __nv_bfloat16*>(w);
       a.s = static_cast<const float*>(s);
@@ -388,11 +736,11 @@ int vaeseg_bridge_bwd(int up, const void* x, const void* gy, const void* w,
       a.B = B; a.Cin = Cin; a.Cout = Cout;
       a.Dc = D / 2; a.Hc = H / 2; a.Wc = W / 2;
       a.Df = D; a.Hf = H; a.Wf = W;
-      rc = dispatch_down_dx(a, st);
+      const int* p = static_cast<const int*>(dx_plan);
+      rc = down_dx(a, p, st);
       if (rc == cudaSuccess && s != nullptr)
         rc = parts_reduce<float>(a.dpart, static_cast<float*>(dst), B,
-                                 (int)((int64_t(D) * H * W + 255) / 256),
-                                 2 * Cin, st);
+                                 p[kDdBlocks], 2 * Cin, st);
     }
     if (rc != cudaSuccess) return rc;
   }

@@ -20,22 +20,46 @@
 //
 // What bounds them on the H100: the bytes (one read of x, and of g in the
 // backward, and one write in the elementwise modes; a few operations per
-// element). Both kernels walk the flat [N * C] slice of one batch entry with
-// a stride that is a multiple of C, so every element a thread visits
-// belongs to one channel: its (s, t, m1, m2) sit in registers and no element
-// needs a division, while neighbouring threads read neighbouring addresses.
-// The reduction keeps f32 partials per thread (chains of N * C / stride
-// elements), adds a block's threads of one channel in a fixed order in
-// shared memory, writes the block's [2, C] partial once, and a second pass
-// (common.cuh::parts_reduce) adds the blocks' partials in f64 in a fixed
-// order: at 128^3 a channel sums 2.1M voxels, and sum g_m * xhat cancels
-// far below its terms. No atomics: the same bits on every run.
+// element), and at the deep stages (32^3 and below, a few MB or less) the
+// launches. The elementwise kernel walks the flat [N * C] slice of one
+// batch entry with a stride that is a multiple of C, so every element a
+// thread visits belongs to one channel: its (s, t, m1, m2) sit in registers
+// and no element needs a division, while neighbouring threads read
+// neighbouring addresses.
+// The reduction (norm_reduce_kernel, norm_reduce_cluster_kernel) reads an
+// item at a time: where C % 8 == 0 (every norm of the nets: C 8-256) 8
+// channels of one voxel in one 16-byte load (of x, and of g), else one
+// element. A thread's items lie a stride apart that is a multiple of the
+// C / 8 channel groups (of C), so its channel group is fixed: its (s, t)
+// and its 8 lanes' f32 sums sit in registers. It loads kUnroll items at
+// once before it adds them, so enough loads are in flight to keep HBM busy
+// with a grid that fills the SMs. A block adds its threads' sums in a fixed
+// order: the lanes of a channel group by warp shuffles (a butterfly, whose
+// lanes end with the same bits), the warps in order (or, for channel group
+// counts that are not a power of two up to 32, each channel's threads in
+// order in shared memory). Two plans (ops/instance_norm.py::
+// norm_reduce_plan):
+// - two passes, for the large calls: `parts` blocks a batch entry each
+//   write their [2, C] f32 partial once, and a second pass
+//   (common.cuh::parts_reduce) adds them in f64 in a fixed order;
+// - one launch, for the small calls, whose two dependent launches cost more
+//   than their bytes: a thread-block cluster of kCluster blocks a batch
+//   entry (portable size); the blocks leave their [2, C] partials in shared
+//   memory, and after cluster.sync() rank 0 adds them through distributed
+//   shared memory in rank order, in f64, and writes the f64 sums whole.
+// At 128^3 a channel sums 2.1M voxels, and sum g_m * xhat cancels far below
+// its terms: every partial past a thread's is added in f64 or in a fixed
+// f32 tree of at most 256 terms. No atomics: the same bits on every run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -47,7 +71,8 @@ struct NormArgs {
   const float* s;          // [B, C] scale (rstd), or null in mode 0 of reduce
   const float* t;          // [B, C] shift (-mean * rstd)
   const float* m;          // [B, 2, C] (m1, m2), elementwise mode 1
-  float* part;             // reduce: [B, gridDim.x, 2, C] block partials
+  float* part;             // reduce, two passes: [B, parts, 2, C] partials
+  double* out;             // reduce, one launch: [B, 2, C] sums
   __nv_bfloat16* y;        // elementwise: [B, N, C]
   int64_t n;               // N * C elements per batch entry
   int C, relu;
@@ -57,44 +82,168 @@ __device__ __forceinline__ float masked(float g, float xhat, int relu) {
   return (!relu || xhat > 0.f) ? g : 0.f;
 }
 
-// grid (gx, B) with gx * kThreads a multiple of C.
-template <int MODE>
-__global__ void __launch_bounds__(kThreads) norm_reduce_kernel(const NormArgs a) {
-  __shared__ float sacc[2][kThreads];
-  const int tid = threadIdx.x, b = blockIdx.y;
-  const int64_t first = (int64_t)blockIdx.x * kThreads + tid;
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  const int64_t base = (int64_t)b * a.n;
-  const int c = (int)(first % a.C);
-  float s = 0.f, t = 0.f;
-  if (MODE == 1) {
-    s = a.s[b * a.C + c];
-    t = a.t[b * a.C + c];
+// ---- the reduction
+
+constexpr int kCluster = 8;         // blocks a batch entry, one-launch plan
+constexpr int kClusterMaxC = 1024;  // channels the one-launch plan takes
+constexpr int kUnroll = 4;          // items a thread loads before it adds them
+
+// The f32 sums of this thread's items first + k stride of batch entry b:
+// an item is 8 channels of one voxel (VEC) or one element, L = 8 or 1 lanes;
+// stride is a multiple of the item groups G = C / L, so every item holds
+// the channels of group first % G. kUnroll items are loaded before they
+// are added. MODE 0: (sum x, sum x^2); MODE 1: (sum g_m, sum g_m * xhat).
+template <int MODE, bool VEC>
+__device__ __forceinline__ void thread_sums(const NormArgs& a, int b,
+                                            int64_t first, int64_t stride,
+                                            float acc0[], float acc1[]) {
+  constexpr int L = VEC ? 8 : 1;
+  const int64_t items = VEC ? a.n >> 3 : a.n;
+  const int G = VEC ? a.C >> 3 : a.C;
+  const int c0 = (int)(first % G) * L;
+  float s[L], t[L];
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    acc0[j] = acc1[j] = 0.f;
+    s[j] = MODE == 1 ? a.s[b * a.C + c0 + j] : 0.f;
+    t[j] = MODE == 1 ? a.t[b * a.C + c0 + j] : 0.f;
   }
-  float acc0 = 0.f, acc1 = 0.f;
-  for (int64_t e = first; e < a.n; e += stride) {
-    const float xv = __bfloat162float(a.x[base + e]);
-    if (MODE == 0) {
-      acc0 += xv;
-      acc1 = fmaf(xv, xv, acc1);
-    } else {
-      const float xhat = pre_activation(xv, s, t);
-      const float gm = masked(__bfloat162float(a.g[base + e]), xhat, a.relu);
-      acc0 += gm;
-      acc1 = fmaf(gm, xhat, acc1);
+  const __nv_bfloat16* xb = a.x + (int64_t)b * a.n;
+  const __nv_bfloat16* gb = MODE == 1 ? a.g + (int64_t)b * a.n : nullptr;
+  auto add = [&](const __nv_bfloat16* xv, const __nv_bfloat16* gv) {
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      const float x = __bfloat162float(xv[j]);
+      if (MODE == 0) {
+        acc0[j] += x;
+        acc1[j] = fmaf(x, x, acc1[j]);
+      } else {
+        const float xhat = pre_activation(x, s[j], t[j]);
+        const float gm = masked(__bfloat162float(gv[j]), xhat, a.relu);
+        acc0[j] += gm;
+        acc1[j] = fmaf(gm, xhat, acc1[j]);
+      }
+    }
+  };
+  int64_t e = first;
+  if (VEC) {
+    const uint4* xq = reinterpret_cast<const uint4*>(xb);
+    const uint4* gq = reinterpret_cast<const uint4*>(gb);
+    uint4 xr[kUnroll], gr[kUnroll];
+    for (; e + (kUnroll - 1) * stride < items; e += kUnroll * stride) {
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        xr[k] = __ldcs(xq + e + k * stride);
+        if (MODE == 1) gr[k] = __ldcs(gq + e + k * stride);
+      }
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k)
+        add(reinterpret_cast<const __nv_bfloat16*>(&xr[k]),
+            reinterpret_cast<const __nv_bfloat16*>(&gr[k]));
+    }
+    for (; e < items; e += stride) {
+      xr[0] = __ldcs(xq + e);
+      if (MODE == 1) gr[0] = __ldcs(gq + e);
+      add(reinterpret_cast<const __nv_bfloat16*>(&xr[0]),
+          reinterpret_cast<const __nv_bfloat16*>(&gr[0]));
+    }
+  } else {
+    for (; e < items; e += stride) add(xb + e, MODE == 1 ? gb + e : nullptr);
+  }
+}
+
+// The [2, C] f32 sums of a block (block blk of nblk of batch entry b) into
+// out[0 .. 2C), in a fixed order. red: kThreads * 16 floats of shared
+// scratch.
+template <int MODE, bool VEC>
+__device__ __forceinline__ void block_sums(const NormArgs& a, int b, int blk,
+                                           int nblk, float* red, float* out) {
+  constexpr int L = VEC ? 8 : 1, WARPS = kThreads / 32;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int G = VEC ? a.C >> 3 : a.C;
+  float acc0[L], acc1[L];
+  thread_sums<MODE, VEC>(a, b, (int64_t)blk * kThreads + tid,
+                         (int64_t)nblk * kThreads, acc0, acc1);
+  // the group of the block's thread 0; thread tid holds group (g0 + tid) % G
+  const int g0 = (int)((int64_t)blk * kThreads % G);
+  if (g0 == 0 && G <= 32 && (G & (G - 1)) == 0) {
+    // lane l holds group l % G: a butterfly over the lanes of each group
+    // (commutative adds: its lanes end with the same bits), then the warps
+    // in order; red[(warp 2 + r) C + c], C = G L <= 256
+    for (int o = 16; o >= G; o >>= 1)
+#pragma unroll
+      for (int j = 0; j < L; ++j) {
+        acc0[j] += __shfl_xor_sync(0xffffffffu, acc0[j], o);
+        acc1[j] += __shfl_xor_sync(0xffffffffu, acc1[j], o);
+      }
+    if (lane < G) {
+#pragma unroll
+      for (int j = 0; j < L; ++j) {
+        red[(warp * 2 + 0) * a.C + lane * L + j] = acc0[j];
+        red[(warp * 2 + 1) * a.C + lane * L + j] = acc1[j];
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < 2 * a.C; i += kThreads) {
+      const int r = i / a.C, c = i - r * a.C;
+      float sum = 0.f;
+      for (int w = 0; w < WARPS; ++w) sum += red[(w * 2 + r) * a.C + c];
+      out[i] = sum;
+    }
+  } else {
+    // each channel's threads in order: red[(r L + j) kThreads + tid]
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      red[(0 * L + j) * kThreads + tid] = acc0[j];
+      red[(1 * L + j) * kThreads + tid] = acc1[j];
+    }
+    __syncthreads();
+    for (int i = tid; i < 2 * a.C; i += kThreads) {
+      const int r = i / a.C, c = i - r * a.C, grp = c / L, j = c - grp * L;
+      float sum = 0.f;
+      for (int k = (grp - g0 + G) % G; k < kThreads; k += G)
+        sum += red[(r * L + j) * kThreads + k];
+      out[i] = sum;
     }
   }
-  sacc[0][tid] = acc0;
-  sacc[1][tid] = acc1;
-  __syncthreads();
-  // the threads of channel cc are tid = (cc - first channel) mod C + k C
-  const int c0 = (int)((int64_t)blockIdx.x * kThreads % a.C);
-  for (int i = tid; i < 2 * a.C; i += kThreads) {
-    const int r = i / a.C, cc = i % a.C;
-    float sum = 0.f;
-    for (int k = (cc - c0 + a.C) % a.C; k < kThreads; k += a.C) sum += sacc[r][k];
-    a.part[((int64_t)b * gridDim.x + blockIdx.x) * 2 * a.C + i] = sum;
+}
+
+// The two-pass plan's first pass: grid (parts, B), parts * kThreads a
+// multiple of the item groups; block (blk, b) writes its [2, C] partial to
+// part[b, blk] once.
+template <int MODE, bool VEC>
+__global__ void __launch_bounds__(kThreads) norm_reduce_kernel(const NormArgs a) {
+  __shared__ float red[kThreads * 16];
+  const int b = blockIdx.y;
+  block_sums<MODE, VEC>(
+      a, b, blockIdx.x, gridDim.x, red,
+      a.part + ((int64_t)b * gridDim.x + blockIdx.x) * 2 * a.C);
+}
+
+// The one-launch plan: grid (kCluster, B), one cluster a batch entry, C a
+// multiple of 8. Each block leaves its [2, C] f32 sums in its shared
+// memory; rank 0 adds the ranks' in rank order in f64 and writes out[b]
+// whole.
+template <int MODE>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
+    norm_reduce_cluster_kernel(const NormArgs a) {
+  __shared__ float red[kThreads * 16];
+  __shared__ float sums[2 * kClusterMaxC];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int b = blockIdx.y;
+  block_sums<MODE, true>(a, b, (int)cluster.block_rank(), kCluster, red,
+                         sums);
+  cluster.sync();   // every rank's sums are in its shared memory
+  if (cluster.block_rank() == 0) {
+    for (int i = threadIdx.x; i < 2 * a.C; i += kThreads) {
+      double total = 0.0;
+#pragma unroll
+      for (int r = 0; r < kCluster; ++r)
+        total += cluster.map_shared_rank(sums, r)[i];
+      a.out[(int64_t)b * 2 * a.C + i] = total;
+    }
   }
+  cluster.sync();   // no block leaves while rank 0 reads its shared memory
 }
 
 // grid (gx, B) with gx * kThreads a multiple of C.
@@ -135,9 +284,9 @@ int sm_count() {
   return sms;
 }
 
-// Blocks per batch entry: enough for eight elements a thread, at most ~16
-// blocks per SM over the batch, rounded up so that the stride gx * kThreads
-// is a multiple of C.
+// The elementwise kernel's blocks per batch entry: enough for eight elements
+// a thread, at most ~16 blocks per SM over the batch, rounded up so that
+// the stride gx * kThreads is a multiple of C.
 long long grid_x(long long n, int C, int B) {
   long long gx = (n + (long long)kThreads * 8 - 1) / ((long long)kThreads * 8);
   const long long cap = (16LL * sm_count() + B - 1) / B;
@@ -152,6 +301,10 @@ long long grid_x(long long n, int C, int B) {
   return (gx + q - 1) / q * q;
 }
 
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 bool bad_shape(int B, long long nvox, int C) {
   return B <= 0 || B > 65535 || nvox <= 0 || C <= 0;
 }
@@ -164,22 +317,20 @@ const char* vaeseg_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// The blocks a batch entry of vaeseg_norm_reduce launches: its workspace
-// holds [B, blocks, 2, C] f32.
-long long vaeseg_norm_parts(int B, long long nvox, int C) {
-  if (bad_shape(B, nvox, C)) return 0;
-  return grid_x(nvox * C, C, B);
-}
-
 // x (and g with the backward's sums): [B, nvox, C] bf16; s, t: [B, C] f32,
 // both null for the forward's statistics (mode 0), both given for the
-// backward's (mode 1, g given too); part: [B, parts, 2, C] f32 workspace,
-// parts = vaeseg_norm_parts(B, nvox, C); sums: [B, 2, C] f64, written whole.
-// Returns the first launch error (0 on success).
+// backward's (mode 1, g given too); sums: [B, 2, C] f64, written whole.
+// parts (ops/instance_norm.py::norm_reduce_plan): 0 for the one-launch plan
+// (C a multiple of 8 up to kClusterMaxC, C / 8 a power of two, x and g
+// 16-byte aligned; part unused), else the blocks a batch entry of the
+// two-pass plan, parts * kThreads a multiple of the item groups (C / 8
+// where C % 8 == 0 and x and g are 16-byte aligned, else C), with part its
+// [B, parts, 2, C] f32 workspace. Returns the first launch error (0 on
+// success).
 int vaeseg_norm_reduce(const void* x, const void* g, const void* s, const void* t,
                        void* part, long long parts, void* sums, int relu, int B,
                        long long nvox, int C, void* stream) {
-  if (bad_shape(B, nvox, C)) return cudaErrorInvalidValue;
+  if (bad_shape(B, nvox, C) || sums == nullptr) return cudaErrorInvalidValue;
   const bool bwd = g != nullptr;
   if (bwd != (s != nullptr) || bwd != (t != nullptr)) return cudaErrorInvalidValue;
   NormArgs a;
@@ -189,22 +340,38 @@ int vaeseg_norm_reduce(const void* x, const void* g, const void* s, const void* 
   a.t = static_cast<const float*>(t);
   a.m = nullptr;
   a.part = static_cast<float*>(part);
+  a.out = static_cast<double*>(sums);
   a.y = nullptr;
   a.n = nvox * C;
   a.C = C;
   a.relu = relu;
-  const long long gx = grid_x(a.n, C, B);
-  if (parts != gx) return cudaErrorInvalidValue;
-  const dim3 grid((unsigned)gx, B, 1);
+  const bool vec = (C & 7) == 0 && aligned16(x) && (!bwd || aligned16(g));
+  const int groups = vec ? C >> 3 : C;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bwd)
-    norm_reduce_kernel<1><<<grid, kThreads, 0, st>>>(a);
-  else
-    norm_reduce_kernel<0><<<grid, kThreads, 0, st>>>(a);
+  if (parts == 0) {
+    if (!vec || C > kClusterMaxC || (groups & (groups - 1)) != 0)
+      return cudaErrorInvalidValue;
+    const dim3 grid(kCluster, B, 1);
+    if (bwd)
+      norm_reduce_cluster_kernel<1><<<grid, kThreads, 0, st>>>(a);
+    else
+      norm_reduce_cluster_kernel<0><<<grid, kThreads, 0, st>>>(a);
+    return cudaGetLastError();
+  }
+  if (parts < 0 || parts > 0x7fffffff || part == nullptr ||
+      parts * kThreads % groups != 0)
+    return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)parts, B, 1);
+  if (bwd) {
+    if (vec) norm_reduce_kernel<1, true><<<grid, kThreads, 0, st>>>(a);
+    else norm_reduce_kernel<1, false><<<grid, kThreads, 0, st>>>(a);
+  } else {
+    if (vec) norm_reduce_kernel<0, true><<<grid, kThreads, 0, st>>>(a);
+    else norm_reduce_kernel<0, false><<<grid, kThreads, 0, st>>>(a);
+  }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return parts_reduce<double>(a.part, static_cast<double*>(sums), B, (int)gx,
-                              2 * C, st);
+  return parts_reduce<double>(a.part, a.out, B, (int)parts, 2 * C, st);
 }
 
 // x: [B, nvox, C] bf16; s, t: [B, C] f32; with g ([B, nvox, C] bf16) and m
@@ -225,6 +392,7 @@ int vaeseg_norm_elementwise(const void* x, const void* g, const void* s,
   a.t = static_cast<const float*>(t);
   a.m = static_cast<const float*>(m);
   a.part = nullptr;
+  a.out = nullptr;
   a.y = static_cast<__nv_bfloat16*>(y);
   a.n = nvox * C;
   a.C = C;
