@@ -11,8 +11,14 @@ Phases, each printed as JSON records:
      conv3's, conv3_dk's, conv3_bwd's, the bridges' and the bridge
      backwards' must have them, and so must the functions of K2's and K3's
      dx kernels (``TENSOR_CORE_KERNELS``: bridge_bwd's HMMA could come from
-     its other kernels alone); a toolkit without cuobjdump fails the
-     check.
+     its other kernels alone); the functions of the two 16-byte
+     elementwise kernels (``VECTOR_KERNELS``: norm_elementwise_kernel,
+     softmax_vjp_c2_kernel) must hold 128-bit global loads and stores
+     (LDG.*.128, STG.*.128); a toolkit without cuobjdump fails the check.
+     Then the device kernels of one norm, forward (instance_norm_act) and
+     backward (norm_bwd), at each norm shape of the norm route's eval
+     forward (``NORM_SHAPES``), by the profiler: 2-3 each way
+     (``kernels_per_norm``).
   2. kernels: one Joint forward of the eval path runs through the plain
      PyTorch versions (f32 math, TF32 off) with hooks recording every
      kernel-backed call (58 + 9 + 9). Each call's kernel then runs on that
@@ -60,10 +66,13 @@ Phases, each printed as JSON records:
      call is timed beside its plain version and one library call
      (``aten.convolution_backward`` with the matching output mask for the
      backward rows, ``aten._softmax_backward_data`` for softmax_vjp; none
-     for dice_sums). Two more launches of every recorded call of K1 (y, the
-     stats or the post epilogue's dx and (ds, dt)), conv3_dk, the bridge
-     backwards (dx, dk, db and K2's (ds, dt)), dice_sums and the norm sums
-     must give the same bits (none of them adds with atomics); a bridge
+     for dice_sums; softmax_vjp and its library call also as a replayed
+     CUDA graph). softmax_vjp must equal its plain version bit for bit
+     (it rounds as the plain version does). Two more launches of every
+     recorded call of K1 (y, the stats or the post epilogue's dx and (ds,
+     dt)), conv3_dk, the bridge backwards (dx, dk, db and K2's (ds, dt)),
+     dice_sums, softmax_vjp and the norm kernels must give the same bits
+     (none of them adds with atomics); a bridge
      backward that computes dx and dk is also timed for each part alone,
      K2's dx alone also as a replayed CUDA graph beside the dx-only
      library call (``aten.convolution_backward``, mask (T, F, F)) by both
@@ -129,10 +138,13 @@ Phases, each printed as JSON records:
      same functions as phases 3-6 and 10: one Joint eval forward recorded
      on the plain path, every call (K1, K2, K3, norm_stats, norm_apply)
      held against its plain version under phase 5's rules (the norm sums
-     against their f64 value), launches 58 / 9 / 9 / 56 / 56 per forward;
-     phases 3-4 (the eval CLI, the forward's divergence gate,
-     ``forward_ms``, a profile); one adaptation step recorded and every
-     call held likewise (norm_bwd_sums and norm_bwd_dx among them; each
+     against their f64 value; norm_apply's y, s and t and norm_bwd_dx bit
+     for bit, on the recorded sums and again on their reduction kernel's
+     own f64 sums: ``on_kernel_sums``), launches 58 / 9 / 9 / 56 / 56 per
+     forward, its norms of the shapes phase 1 counted; phases 3-4
+     (the eval CLI, the forward's divergence gate, ``forward_ms``, a
+     profile); one adaptation step recorded and every call held likewise
+     (norm_bwd_sums and norm_bwd_dx among them; each
      norm_stats and norm_bwd_sums call records its plan, one launch or two
      passes, and where one launch can take it both plans' device time as a
      replayed CUDA graph, ``norm_plans``); phase
@@ -381,7 +393,7 @@ def kernel_ops() -> list:
              reparam.reparam_kl_seeded_plain),
             ("conv3_bwd", conv3, "conv3_bwd", conv3.conv3_bwd_plain),
             ("norm_stats", norm, "norm_stats", norm.norm_stats_plain),
-            ("norm_apply", norm, "norm_apply", norm.norm_apply_plain),
+            ("norm_apply", norm, "norm_apply", norm.fold_apply_plain),
             ("norm_bwd_sums", norm, "norm_bwd_sums",
              norm.norm_bwd_sums_plain),
             ("norm_bwd_dx", norm, "norm_bwd_dx", norm.norm_bwd_dx_plain)]
@@ -769,8 +781,8 @@ FAMILIES = tuple((rf"\b{k}\b", f) for k, f in (
     # reduction's two plans: two passes, one launch)
     (r"\bnorm_reduce(?:_cluster)?_kernel<0\b", "norm_stats"),
     (r"\bnorm_reduce(?:_cluster)?_kernel<1\b", "norm_bwd_sums"),
-    (r"\bnorm_elementwise_kernel<0>", "norm_apply"),
-    (r"\bnorm_elementwise_kernel<1>", "norm_bwd_dx"))
+    (r"\bnorm_elementwise_kernel<0\b", "norm_apply"),
+    (r"\bnorm_elementwise_kernel<1\b", "norm_bwd_dx"))
 
 
 CSRC = os.path.join(REPO, "vae_segmentation_tpu_torch", "ops", "kernels",
@@ -842,6 +854,66 @@ def profile_run(torch, fn, reps: int, phase: str, failures: list) -> dict:
             "device_ms_by_family": by_family,
             "largest_other": sorted(other, reverse=True)[:5],
             "port_kernels_in_no_family": unnamed}
+
+
+def device_kernels(torch, fn, reps: int = 20) -> list:
+    """The names of the device activities (kernels, copies, fills) of one
+    fn() call, by the profiler's events over reps calls (the first rep's
+    share), or None where their count is no multiple of reps (a session
+    that lost or gained events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA]
+    if len(names) % reps:
+        return None
+    return names[:len(names) // reps]
+
+
+# device kernels a norm forward or backward launches: the reduction's one
+# or two and the elementwise pass
+MIN_KERNELS_A_NORM, MAX_KERNELS_A_NORM = 2, 3
+# the norms of the flagship Joint at 128^3 (fmaps 8-256), batch 1: the
+# shapes of the norm route's eval forward
+NORM_SHAPES = tuple((1, 128 >> k, 128 >> k, 128 >> k, 8 << k)
+                    for k in range(6))
+
+
+def kernels_per_norm(torch, shapes, failures) -> dict:
+    """The device activities of one instance_norm_act forward and of its
+    backward (norm_bwd on the forward's (s, t)) at each [B, D, H, W, C] of
+    `shapes`, by the profiler; fewer than MIN_KERNELS_A_NORM or more than
+    MAX_KERNELS_A_NORM either way fails the run. Run before any other
+    profile: later in the process, short sessions lost their device
+    events on an H100 (torch 2.11), and such a count is refused."""
+    from vae_segmentation_tpu_torch.ops import instance_norm as N
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for shape in shapes:
+        x = (torch.randn(shape, device="cuda", generator=gen) * 3 + 1) \
+            .bfloat16()
+        g = torch.randn(shape, device="cuda", generator=gen).bfloat16()
+        with torch.no_grad():
+            _, s, t = N.norm_apply(x, N.norm_stats(x, f64=True))
+            fwd = device_kernels(torch, lambda: N.instance_norm_act(x))
+            bwd = device_kernels(torch, lambda: N.norm_bwd(x, g, s, t))
+        out[str(list(shape))] = {"forward": fwd, "backward": bwd}
+        if not all(k is not None and MIN_KERNELS_A_NORM <= len(k)
+                   <= MAX_KERNELS_A_NORM for k in (fwd, bwd)):
+            failures.append(f"a norm at {list(shape)} launches {fwd} "
+                            f"forward, {bwd} backward (by the profiler; "
+                            f"{MIN_KERNELS_A_NORM}-{MAX_KERNELS_A_NORM} "
+                            "each way)")
+    return out
 
 
 def graph_ms(torch, fn, n: int = 20, replays: int = 3) -> float:
@@ -977,15 +1049,19 @@ def op_work(d: dict) -> tuple:
         return (2 * n * c * (1 + t) + 4 * b * (1 + 2 * t) * c,
                 n * c * (1 + 3 * t), F32_FLOPS_PER_S)
     if k in NORM_KERNELS:
-        # bf16 volumes read (x; g in the backward) and written (y, dx); f32
-        # (s, t), (m1, m2) and [B, 2, C] sums; per element: sum and square
-        # (2), affine and ReLU (3), affine, mask and two products (5),
-        # affine, mask and the dx expression (7)
-        vols, small, ops = {"norm_stats": (1, 1, 2), "norm_apply": (2, 1, 3),
-                            "norm_bwd_sums": (2, 2, 5),
-                            "norm_bwd_dx": (3, 2, 7)}[k]
-        return 2 * n * c * vols + 8 * b * c * small, ops * n * c, \
-            F32_FLOPS_PER_S
+        # bf16 volumes read (x; g in the backward) and written (y, dx);
+        # bytes a (b, c): the reductions write their f64 [B, 2, C] sums (16;
+        # norm_bwd_sums also reads (s, t), 8), norm_apply reads the f64 sums
+        # and writes (s, t) (24), norm_bwd_dx reads (s, t) and the f64 sums
+        # (24); operations an element: sum and square (2), affine and ReLU
+        # (3), affine, mask and two products (5), affine, mask and the dx
+        # expression (7), and a (b, c)'s fold (8: two means, mean^2, the
+        # variance, clamp, eps, rsqrt, shift; norm_bwd_dx its two means)
+        vols, small, ops, fold = {
+            "norm_stats": (1, 16, 2, 0), "norm_apply": (2, 24, 3, 8),
+            "norm_bwd_sums": (2, 24, 5, 0), "norm_bwd_dx": (3, 24, 7, 2)}[k]
+        return 2 * n * c * vols + small * b * c, \
+            ops * n * c + fold * b * c, F32_FLOPS_PER_S
     cout, pre = d["cout"], d["pre"]
     aff = 8 * b * c if pre else 0
     if k == "conv3_bwd":
@@ -1044,14 +1120,42 @@ def compare_call(torch, d: dict, got, want, args: dict) -> dict:
         scale = max(w.float().abs().max().item(), 1e-30)
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         rec["rel_err_by_output"].append(err / scale)
-        if g.dtype == torch.float32:
+        if g.dtype in (torch.float32, torch.float64):
             rec["f32_rel_err"] = max(rec["f32_rel_err"], err / scale)
             ok = err <= F32_TOL * scale
         else:
             rec["bf16_rel_err"] = max(rec["bf16_rel_err"], err / scale)
             ok = err <= (1e-2 if d.get("softmax") else 1e-2 * scale)
         rec["ok"] = rec["ok"] and ok and bool(torch.isfinite(g).all())
+    if d["kernel"] in BITWISE:
+        rec["bitwise"] = all(g is None or torch.equal(g, w) for g, w in zip(
+            _outputs(got), _outputs(want)))
+        rec["ok"] = rec["ok"] and rec["bitwise"]
     return rec
+
+
+# the kernels that round as their plain versions do, each operation once:
+# every output equal to the plain version's on the same inputs (y, s and t
+# of norm_apply's fold; norm_bwd_dx with its means; softmax_vjp)
+BITWISE = ("softmax_vjp", "norm_apply", "norm_bwd_dx")
+
+
+def on_kernel_sums(torch, kernel: str, a: dict) -> bool:
+    """A recorded norm_apply / norm_bwd_dx call again on the f64 sums its
+    reduction's kernel gives (the recording hands it the plain version's
+    f32 sums, widened, whose rounding to f32 is exact): kernel and plain
+    version equal bit for bit, output by output."""
+    from vae_segmentation_tpu_torch.ops import instance_norm as N
+
+    if kernel == "norm_apply":
+        args = {**a, "sums": N.norm_stats(a["x"], f64=True)}
+        got, want = N.norm_apply(**args), N.fold_apply_plain(**args)
+    else:
+        args = {**a, "sums": N.norm_bwd_sums(a["x"], a["g"], a["s"], a["t"],
+                                             a["relu"], f64=True)}
+        got, want = N.norm_bwd_dx(**args), N.norm_bwd_dx_plain(**args)
+    return all(torch.equal(g, w) for g, w in zip(_outputs(got),
+                                                 _outputs(want)))
 
 
 def conv3_dk_exact(torch, a: dict) -> tuple:
@@ -1260,7 +1364,7 @@ def merged_calls(calls) -> list:
 # merged backward's dx, dk, db and (ds, dt), the Dice and norm sums)
 REPEATS = ("conv3", "down_k2s2", "up_k2s2", "conv3_dk", "down_k2s2_bwd",
            "up_k2s2_bwd", "conv3_bwd", "dice_sums", "norm_stats",
-           "norm_bwd_sums")
+           "norm_bwd_sums") + BITWISE
 BRIDGE_BWD = ("down_k2s2_bwd", "up_k2s2_bwd")
 
 
@@ -1385,16 +1489,14 @@ def down_dx_variants(torch, wrapper, d: dict, a: dict) -> dict:
 
 
 # the norm reduction's two plans, summed over a pass where one launch can
-# take the calls (norm_plans), and the wrapper's f64 -> f32 cast of the sums
-# alone
-PLAN_FIELDS = ("one_launch_graph_ms", "two_passes_graph_ms", "cast_graph_ms")
+# take the calls (norm_plans)
+PLAN_FIELDS = ("one_launch_graph_ms", "two_passes_graph_ms")
 
 
 def norm_plans(torch, d: dict, a: dict) -> dict:
     """The plan a recorded norm_stats / norm_bwd_sums call took (one launch
     or two passes) and, where one launch can take the call, both plans'
-    device time as a replayed CUDA graph on its inputs, beside the
-    wrapper's cast of the f64 sums to f32 alone."""
+    device time as a replayed CUDA graph on its inputs."""
     from vae_segmentation_tpu_torch.ops import instance_norm as N
 
     x, g = a["x"], a.get("g")
@@ -1415,8 +1517,6 @@ def norm_plans(torch, d: dict, a: dict) -> dict:
                                     one_launch=one)
         rec[f] = graph_ms(torch, lambda: N._launch(d["kernel"], x, relu,
                                                    plan=forced, **kw))
-    sums = torch.zeros(b, 2, c, dtype=torch.float64, device=x.device)
-    rec["cast_graph_ms"] = graph_ms(torch, lambda: sums.float())
     return rec
 
 
@@ -1437,6 +1537,10 @@ def check_calls(torch, calls, failures, phase: str) -> dict:
             if d["kernel"] in EXACT:
                 rec = exact_compare(torch, d["kernel"], c["args"], got,
                                     c["out"], rec)
+            if d["kernel"] in ("norm_apply", "norm_bwd_dx"):
+                rec["bitwise_on_kernel_sums"] = on_kernel_sums(
+                    torch, d["kernel"], c["args"])
+                rec["ok"] = rec["ok"] and rec["bitwise_on_kernel_sums"]
             repeat = repeats_bitwise(
                 torch, lambda: wrapper(**c["args"]), got) \
                 if d["kernel"] in REPEATS else None
@@ -1505,6 +1609,10 @@ def check_step_calls(torch, calls, log, failures,
                 rec["library_ms"] = None if library is None \
                     else cuda_ms(torch, library)
                 rec["timed_by"] = "cuda events"
+            if d["kernel"] == "softmax_vjp":
+                # also as a replayed CUDA graph, beside its library call
+                rec.update(graph_ms=graph_ms(torch, lambda: wrapper(**a)),
+                           library_graph_ms=graph_ms(torch, library))
             if d["kernel"] == "conv3_bwd":
                 # the pair it replaces and its library call, also as a
                 # replayed CUDA graph (a deep call is shorter than its
@@ -1562,7 +1670,7 @@ def check_step_calls(torch, calls, log, failures,
                 + PLAN_FIELDS:
             if f in rec:
                 t[f] = t.get(f, 0.0) + k["count"] * rec[f]
-        if d["kernel"] == "conv3_bwd":
+        if d["kernel"] in ("conv3_bwd", "softmax_vjp"):
             for f in ("graph_ms", "library_graph_ms"):
                 t[f] = t.get(f, 0.0) + k["count"] * rec[f]
         n = k["count"]
@@ -2012,20 +2120,29 @@ TENSOR_CORE_LIBS = ("conv3", "conv3_dk", "conv3_bwd", "bridge", "bridge_bwd")
 # another of its kernels
 TENSOR_CORE_KERNELS = (("bridge_bwd", "down_dx_kernel"),
                        ("bridge_bwd", "up_dx_kernel"))
+# kernels (library, __global__ name) whose own functions must hold 128-bit
+# global loads and stores: their items are 16 bytes
+VECTOR_KERNELS = (("instance_norm", "norm_elementwise_kernel"),
+                  ("losses", "softmax_vjp_c2_kernel"))
+SASS_OPS = {"HMMA": r"\bHMMA\b", "HGMMA": r"\bHGMMA\b",
+            "LDG.128": r"\bLDG(?:\.\w+)*\.128\b",
+            "STG.128": r"\bSTG(?:\.\w+)*\.128\b"}
 
 
 def sass_counts(sass: str) -> dict:
-    """{"HMMA": n, "HGMMA": n} in a piece of SASS."""
-    return {op: len(re.findall(rf"\b{op}\b", sass))
-            for op in ("HMMA", "HGMMA")}
+    """{"HMMA": n, "HGMMA": n, "LDG.128": n, "STG.128": n} in a piece of
+    SASS: the tensor-core instructions and the 128-bit global loads and
+    stores (any cache qualifiers)."""
+    return {op: len(re.findall(pat, sass)) for op, pat in SASS_OPS.items()}
 
 
 def tensor_core_sass(build):
-    """{library: {"HMMA": n, "HGMMA": n}}: the tensor-core instructions in
-    each built library's SASS (``cuobjdump -sass``), and under "kernels"
-    {"library/kernel": counts} summed over the functions (template
-    instances) of each TENSOR_CORE_KERNELS entry; None where the toolkit
-    has no cuobjdump (the caller fails the run then)."""
+    """{library: sass_counts}: the tensor-core instructions and 128-bit
+    global accesses in each built library's SASS (``cuobjdump -sass``), and
+    under "kernels" {"library/kernel": counts} summed over the functions
+    (template instances) of each TENSOR_CORE_KERNELS and VECTOR_KERNELS
+    entry; None where the toolkit has no cuobjdump (the caller fails the
+    run then)."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
@@ -2035,7 +2152,7 @@ def tensor_core_sass(build):
         sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
                               capture_output=True, text=True).stdout
         out[name] = sass_counts(sass)
-        for lib, kernel in TENSOR_CORE_KERNELS:
+        for lib, kernel in TENSOR_CORE_KERNELS + VECTOR_KERNELS:
             if lib == name:
                 kernels[f"{lib}/{kernel}"] = kernel_sass(sass, kernel)
     out["kernels"] = kernels
@@ -2043,14 +2160,15 @@ def tensor_core_sass(build):
 
 
 def kernel_sass(sass: str, kernel: str) -> dict:
-    """{"HMMA": n, "HGMMA": n, "functions": n} over the functions of the
-    template `kernel` in `sass`: a function's SASS runs from its
-    "Function : <mangled name>" line to the next one, and the mangled name
-    of a template instance holds <length><name>I."""
+    """sass_counts and {"functions": n} over the functions of the kernel
+    `kernel` in `sass`: a function's SASS runs from its "Function :
+    <mangled name>" line to the next one, and the mangled name holds
+    <length><name>I (a template instance) or <length><name>E (a function
+    of a namespace)."""
     parts = re.split(r"^\s*Function\s*:\s*(\S+)\s*$", sass, flags=re.M)
-    out = {"HMMA": 0, "HGMMA": 0, "functions": 0}
+    out = {**{op: 0 for op in SASS_OPS}, "functions": 0}
     for fn, body in zip(parts[1::2], parts[2::2]):
-        if re.search(rf"\d{kernel}I", fn):
+        if re.search(rf"\d{kernel}[IE]", fn):
             out["functions"] += 1
             for op, n in sass_counts(body).items():
                 out[op] += n
@@ -2113,9 +2231,24 @@ def main() -> int:
                                  or not k["HMMA"] + k["HGMMA"]):
             failures.append(f"{lib}/{kernel}: no tensor-core instruction in "
                             f"its functions' SASS ({k})")
+    for lib, kernel in VECTOR_KERNELS:
+        k = None if sass is None else sass["kernels"].get(f"{lib}/{kernel}")
+        if sass is not None and (not k or not k["functions"]
+                                 or not k["LDG.128"] or not k["STG.128"]):
+            failures.append(f"{lib}/{kernel}: no 128-bit global load or "
+                            f"store in its functions' SASS ({k})")
     emit({"phase": "card", "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s, "ptxas": regs, "tensor_core_sass": sass}, log)
+    # the device kernels of one norm, forward and backward, at the norm
+    # route's shapes (before any other profile)
+    per_norm = kernels_per_norm(torch, NORM_SHAPES, failures)
+    emit({"phase": "norm_kernels_per_norm",
+          "kernels": {k: {d: None if v is None else len(v)
+                          for d, v in r.items()}
+                      for k, r in per_norm.items()},
+          "limits": [MIN_KERNELS_A_NORM, MAX_KERNELS_A_NORM],
+          "names": per_norm}, log)
 
     work = os.path.join(REPO, ".smoke_work")
     shutil.rmtree(work, ignore_errors=True)
@@ -2775,7 +2908,13 @@ def main() -> int:
             _, norm_fwd_totals, calls = record_checked(
                 eval_forward, norm_fwd, "norm_fwd_kernel",
                 "norm-route Joint forward")
+            shapes = {tuple(c["args"]["x"].shape) for c in calls
+                      if c["kernel"] == "norm_apply"}
             del calls
+            if shapes != set(NORM_SHAPES):
+                failures.append(f"the norm route's forward took norms of "
+                                f"{sorted(shapes)}, phase 1 counted "
+                                f"{list(NORM_SHAPES)}")
             norm_eval_launches, _ = eval_path(
                 "smoke_norm", norm_fwd, "norm_main_path", "norm_profile",
                 {"default_route_forward_ms": fwd_ms})

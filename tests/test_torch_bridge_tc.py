@@ -720,7 +720,7 @@ def test_phase1_counts_tensor_core_instructions_by_kernel():
     """chip_smoke.py's phase 1 counts a kernel's HMMA in its own functions
     (every template instance), not in the library's others."""
     assert cs.kernel_sass(_SASS, "down_dx_kernel") == {
-        "HMMA": 2, "HGMMA": 0, "functions": 2}
+        "HMMA": 2, "HGMMA": 0, "LDG.128": 0, "STG.128": 0, "functions": 2}
     assert cs.kernel_sass(_SASS, "up_dx_kernel")["HMMA"] == 1
     assert cs.kernel_sass(_SASS, "dk_kernel")["functions"] == 1
     assert cs.kernel_sass(_SASS, "norm_reduce_kernel")["functions"] == 0

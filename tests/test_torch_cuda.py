@@ -681,35 +681,84 @@ def test_vae_train_step_on_the_card(gen):
                                    (2, 7, 6, 5, 16), (1, 4, 4, 4, 128)])
 def test_norm_kernels_match_plain(gen, shape):
     """norm_stats and norm_bwd_sums within 1e-4 of their largest element
-    (f64 across blocks against the plain f32 sums), norm_apply and
-    norm_bwd_dx within 1e-2 of max|y| (bf16), relu on and off; one launch
-    each."""
+    (f64 across blocks against the plain f32 sums); norm_apply (y, s, t)
+    and norm_bwd_dx equal to their plain versions on the kernels' own f64
+    sums, bit for bit, relu on and off; one launch each."""
     b, c = shape[0], shape[-1]
     x = (_rnd(gen, *shape) * 3 + 1).bfloat16()
     g = _rnd(gen, *shape).bfloat16()
-    n = x.numel() // (b * c)
     before = {k: getattr(instance_norm, k).launches for k in (
         "norm_stats", "norm_apply", "norm_bwd_sums", "norm_bwd_dx")}
-    st = instance_norm.norm_stats(x)
+    st = instance_norm.norm_stats(x, f64=True)
+    assert st.dtype == torch.float64
     st_plain = instance_norm.norm_stats_plain(x)
     for r in range(2):
         assert _rel(st[:, r], st_plain[:, r]) <= 1e-4, r
-    s, t = instance_norm.affine_from_stats(st, n)
     for relu in (True, False):
-        _close(instance_norm.norm_apply(x, s, t, relu),
-               instance_norm.norm_apply_plain(x, s, t, relu), 1e-2)
-        sums = instance_norm.norm_bwd_sums(x, g, s, t, relu)
+        got = instance_norm.norm_apply(x, st, relu)
+        want = instance_norm.fold_apply_plain(x, st, relu)
+        assert all(torch.equal(a, w) for a, w in zip(got, want))
+        y, s, t = got
+        sums = instance_norm.norm_bwd_sums(x, g, s, t, relu, f64=True)
         want = instance_norm.norm_bwd_sums_plain(x, g, s, t, relu)
         for r in range(2):
             assert _rel(sums[:, r], want[:, r]) <= 1e-4, r
-        m = want / n
-        _close(instance_norm.norm_bwd_dx(x, g, s, t, m, relu),
-               instance_norm.norm_bwd_dx_plain(x, g, s, t, m, relu), 1e-2)
+        assert torch.equal(
+            instance_norm.norm_bwd_dx(x, g, s, t, sums, relu),
+            instance_norm.norm_bwd_dx_plain(x, g, s, t, sums, relu))
     torch.cuda.synchronize()
     assert {k: getattr(instance_norm, k).launches - v
             for k, v in before.items()} == {
         "norm_stats": 1, "norm_apply": 2, "norm_bwd_sums": 2,
         "norm_bwd_dx": 2}
+
+
+@pytest.mark.parametrize("c,n,offset", [(4096, 105, 0), (24, 105, 0),
+                                        (3, 64, 0), (16, 105, 1)])
+def test_norm_fold_gives_torch_bits(gen, c, n, offset):
+    """The kernels' fold on arbitrary f64 sums (means up to 1e3, variances
+    from 1e-12 to 1e6 and negative ones that clamp, a voxel count that is no
+    power of two): norm_apply's (s, t) and y equal affine_from_stats +
+    norm_apply_plain on the card bit for bit (ATen's f32 reciprocal of the
+    count, its rsqrt), and norm_bwd_dx equals its plain version's means;
+    on the vector path (C % 8 == 0), the element path (C 3) and a
+    misaligned volume (offset 1: elements)."""
+    b = 2
+    mean = _rnd(gen, b, c, scale=100.0).double()
+    var = torch.exp(_rnd(gen, b, c, scale=6.0)).double() \
+        * torch.where(_rnd(gen, b, c) > -1.5, 1.0, -1e-3).double()
+    sums = torch.stack([mean * n, (var + mean * mean) * n], dim=1)
+    flat = (_rnd(gen, offset + b * n * c) * 3).bfloat16()
+    x = flat[offset:].view(b, 1, 1, n, c)
+    g = _rnd(gen, *x.shape).bfloat16()
+    assert instance_norm._aligned(x) == (offset == 0)
+    for relu in (True, False):
+        y, s, t = instance_norm.norm_apply(x, sums, relu)
+        ws, wt = instance_norm.affine_from_stats(sums.float(), n)
+        assert torch.equal(s, ws) and torch.equal(t, wt)
+        assert torch.equal(y, instance_norm.norm_apply_plain(x, s, t, relu))
+        bsums = sums * 1e-3
+        assert torch.equal(
+            instance_norm.norm_bwd_dx(x, g, s, t, bsums, relu),
+            instance_norm.norm_bwd_dx_plain(x, g, s, t, bsums, relu))
+
+
+@pytest.mark.parametrize("shape,offset", [
+    ((2, 7, 9, 11, 2), 0), ((1, 4, 4, 4, 2), 0), ((1, 3, 3, 3, 2), 0),
+    ((1, 1, 1, 5, 2), 0), ((1, 1, 1, 3, 2), 0), ((2, 7, 9, 11, 2), 1),
+    ((2, 32, 32, 32, 2), 0)])
+def test_softmax_vjp_gives_plain_bits(gen, shape, offset):
+    """softmax_vjp for two classes equals softmax_vjp_plain bit for bit:
+    4-voxel items with tails of 0-3 voxels, no item (3 voxels), and a
+    misaligned cotangent (element path); the same bits again."""
+    n = 1
+    for e in shape:
+        n *= e
+    y = torch.softmax(_rnd(gen, *shape), dim=-1).bfloat16()
+    g = (_rnd(gen, offset + n)).bfloat16()[offset:].view(shape)
+    got = losses.softmax_vjp(g, y)
+    assert torch.equal(got, losses.softmax_vjp_plain(g, y))
+    assert torch.equal(losses.softmax_vjp(g, y), got)
 
 
 def test_instance_norm_function_gradients(gen):
@@ -827,8 +876,12 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(gen):
     s, t = _rnd(gen, 1, 8).abs() + 0.5, _rnd(gen, 1, 8)
     with pytest.raises(ValueError):  # f32 activations
         instance_norm.norm_stats(x)
+    with pytest.raises(ValueError):  # f32 sums: the kernel takes f64
+        instance_norm.norm_apply(x.bfloat16(),
+                                 torch.stack([s, t], dim=1))
     with pytest.raises(ValueError):  # an affine of the wrong shape
-        instance_norm.norm_apply(x.bfloat16(), s[:, :4], t[:, :4])
+        instance_norm.norm_bwd_dx(x.bfloat16(), x.bfloat16(), s[:, :4],
+                                  t[:, :4], torch.zeros(1, 2, 8).double())
     w = _rnd(gen, 8, 8, 3, 3, 3)
     with pytest.raises(ValueError):  # no kernel-layout weight
         conv3.conv3_bwd(x.bfloat16(), x.bfloat16(), w)

@@ -119,7 +119,7 @@ def test_pieces_match_their_jax_pieces(c, spatial):
                           (gm * xhat).sum(axis=(1, 2, 3))], axis=1)
         assert _max_err(sums, exact) <= 1e-5 * np.abs(exact).max()
         torch.testing.assert_close(
-            pin.norm_bwd_dx_plain(xt, gt, s, t, sums / n, relu), dx,
+            pin.norm_bwd_dx_plain(xt, gt, s, t, sums, relu), dx,
             rtol=0, atol=0)
 
 
@@ -131,10 +131,12 @@ def test_cpu_tensors_run_the_plain_versions_and_build_nothing():
     port_ops.reset_launch_counts()
     st = pin.norm_stats(xt)
     s, t = pin.affine_from_stats(st, 64)
-    torch.testing.assert_close(pin.norm_apply(xt, s, t),
-                               pin.norm_apply_plain(xt, s, t), rtol=0, atol=0)
+    y, s2, t2 = pin.norm_apply(xt, pin.norm_stats(xt, f64=True))
+    torch.testing.assert_close(y, pin.norm_apply_plain(xt, s, t), rtol=0,
+                               atol=0)
+    assert torch.equal(s2, s) and torch.equal(t2, t)
     sums = pin.norm_bwd_sums(xt, gt, s, t)
-    pin.norm_bwd_dx(xt, gt, s, t, sums / 64)
+    pin.norm_bwd_dx(xt, gt, s, t, sums)
     assert set(port_ops.launch_counts().values()) == {0}
     assert build.loaded() == []
 
@@ -308,3 +310,7 @@ def test_chip_smoke_names_the_reduction_kernels():
         == "norm_bwd_sums"
     assert cs._family(ns + "norm_elementwise_kernel<1>(NormArgs)") \
         == "norm_bwd_dx"
+    assert cs._family(ns + "norm_elementwise_kernel<1, true>(NormArgs)") \
+        == "norm_bwd_dx"
+    assert cs._family(ns + "norm_elementwise_kernel<0, false>(NormArgs)") \
+        == "norm_apply"

@@ -46,7 +46,8 @@ SIGNATURES = {
     },
     "instance_norm": {
         "vaeseg_norm_reduce": [_P] * 5 + [_L, _P, _I, _I, _L, _I, _P],
-        "vaeseg_norm_elementwise": [_P] * 6 + [_I, _I, _L, _I, _P],
+        "vaeseg_norm_elementwise": [_P] * 6 + [_I, _I, _L, _I, _L, _I,
+                                                _P],
         "vaeseg_error_string": [_I],
     },
     "bridge": {
@@ -63,7 +64,7 @@ SIGNATURES = {
         "vaeseg_error_string": [_I],
     },
     "losses": {
-        "vaeseg_softmax_vjp": [_P, _P, _P, _L, _I, _P],
+        "vaeseg_softmax_vjp": [_P, _P, _P, _L, _I, _L, _L, _P],
         "vaeseg_dice_parts": [_I, _L, _I],
         "vaeseg_dice_sums": [_P] * 5 + [_L, _P, _I, _L, _I, _I, _P],
         "vaeseg_error_string": [_I],

@@ -7,10 +7,12 @@
 //     out[b, 0, c] = sum_v x,  out[b, 1, c] = sum_v x^2;
 //   norm_reduce, mode 1 (norm_bwd_sums): _bwd's first pallas_call,
 //     out[b, 0, c] = sum_v g_m,  out[b, 1, c] = sum_v g_m * xhat;
-//   norm_elementwise, mode 0 (norm_apply): _apply_per_lane,
-//     y = [relu](xhat);
+//   norm_elementwise, mode 0 (norm_apply): _apply_per_lane with the fold
+//     around it (_fold_lane_stats), y = [relu](xhat) and (s, t) from the f64
+//     sums of mode 0 above;
 //   norm_elementwise, mode 1 (norm_bwd_dx): _bwd's second pallas_call,
-//     dx = s * ((g_m - m1) - xhat * m2);
+//     dx = s * ((g_m - m1) - xhat * m2), (m1, m2) the f64 sums of mode 1
+//     above over the voxel count;
 //   with xhat = x * s[b, c] + t[b, c] rounded as every kernel of the port
 //   rounds it (common.cuh), and g_m = g where xhat > 0 under the ReLU (every
 //   g without it), so the backward's mask is the forward's.
@@ -21,19 +23,19 @@
 // What bounds them on the H100: the bytes (one read of x, and of g in the
 // backward, and one write in the elementwise modes; a few operations per
 // element), and at the deep stages (32^3 and below, a few MB or less) the
-// launches. The elementwise kernel walks the flat [N * C] slice of one
-// batch entry with a stride that is a multiple of C, so every element a
-// thread visits belongs to one channel: its (s, t, m1, m2) sit in registers
-// and no element needs a division, while neighbouring threads read
-// neighbouring addresses.
-// The reduction (norm_reduce_kernel, norm_reduce_cluster_kernel) reads an
-// item at a time: where C % 8 == 0 (every norm of the nets: C 8-256) 8
-// channels of one voxel in one 16-byte load (of x, and of g), else one
-// element. A thread's items lie a stride apart that is a multiple of the
-// C / 8 channel groups (of C), so its channel group is fixed: its (s, t)
-// and its 8 lanes' f32 sums sit in registers. It loads kUnroll items at
-// once before it adds them, so enough loads are in flight to keep HBM busy
-// with a grid that fills the SMs. A block adds its threads' sums in a fixed
+// launches: a norm's forward is the reduction's one or two kernels and the
+// elementwise pass, which folds the statistics itself (no cast, no eager
+// fold), and its backward likewise.
+// Both kernels read an item at a time: where C % 8 == 0 (every norm of the
+// nets: C 8-256) and the volumes are 16-byte aligned, 8 channels of one
+// voxel in one 16-byte load (of x, and of g; the elementwise pass stores
+// its item in one 16-byte store), else one element. A thread's items lie a
+// stride apart that is a multiple of the C / 8 channel groups (of C), so
+// its channel group is fixed: its (s, t), its (m1, m2) and the reduction's
+// 8 lanes' f32 sums sit in registers, and no item needs a division. It
+// loads kUnroll items at once before it uses them, so enough loads are in
+// flight to keep HBM busy with a grid that fills the SMs. The reduction's
+// block adds its threads' sums in a fixed
 // order: the lanes of a channel group by warp shuffles (a butterfly, whose
 // lanes end with the same bits), the warps in order (or, for channel group
 // counts that are not a power of two up to 32, each channel's threads in
@@ -50,6 +52,10 @@
 // At 128^3 a channel sums 2.1M voxels, and sum g_m * xhat cancels far below
 // its terms: every partial past a thread's is added in f64 or in a fixed
 // f32 tree of at most 256 terms. No atomics: the same bits on every run.
+// The elementwise pass's grid comes from ops/instance_norm.py::
+// norm_apply_plan. It rounds the f64 sums to f32 and folds them with one
+// rounding per operation, as ops/instance_norm.py::affine_from_stats does
+// on the card, so kernel and plain version give the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,13 +74,16 @@ constexpr int kThreads = 256;
 struct NormArgs {
   const __nv_bfloat16* x;  // [B, N, C]
   const __nv_bfloat16* g;  // [B, N, C] cotangent (mode 1), or null
-  const float* s;          // [B, C] scale (rstd), or null in mode 0 of reduce
+  const float* s;          // [B, C] scale (rstd), mode 1; null in mode 0
   const float* t;          // [B, C] shift (-mean * rstd)
-  const float* m;          // [B, 2, C] (m1, m2), elementwise mode 1
+  const double* sums;      // elementwise: [B, 2, C] f64 sums of mode 0 / 1
+  float* s_out;            // elementwise mode 0: [B, C] the folded (s, t)
+  float* t_out;
   float* part;             // reduce, two passes: [B, parts, 2, C] partials
   double* out;             // reduce, one launch: [B, 2, C] sums
   __nv_bfloat16* y;        // elementwise: [B, N, C]
   int64_t n;               // N * C elements per batch entry
+  float inv_n;             // elementwise: 1 / N rounded to f32
   int C, relu;
 };
 
@@ -246,59 +255,132 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
   cluster.sync();   // no block leaves while rank 0 reads its shared memory
 }
 
-// grid (gx, B) with gx * kThreads a multiple of C.
+// ---- the elementwise pass
+
+constexpr float kEps = 1e-5f;   // ops/instance_norm.py::EPS
+
+// One item of the vector path: 8 channels of a voxel, 16 bytes.
+union Item {
+  uint4 q;
+  __nv_bfloat162 h[4];
+};
+
+// A sum of batch entry b's [2, C] f64 block as ops/instance_norm.py takes
+// it on the card: rounded to f32 (the cast), times the f32 reciprocal of
+// the voxel count (ATen divides by a CPU scalar so).
+__device__ __forceinline__ float mean_of(const NormArgs& a, int b, int i) {
+  return __fmul_rn(__double2float_rn(a.sums[(int64_t)b * 2 * a.C + i]),
+                   a.inv_n);
+}
+
+// InstanceNorm's (scale, shift) of channel c of batch entry b, one rounding
+// per torch operation of affine_from_stats: mean, E[x^2] - mean^2, clamp
+// at 0 (NaN kept), + eps, rsqrtf (ATen's rsqrt for f32), -mean * rstd.
+__device__ __forceinline__ void fold_affine(const NormArgs& a, int b, int c,
+                                            float& s, float& t) {
+  const float mean = mean_of(a, b, c);
+  float var = __fsub_rn(mean_of(a, b, a.C + c), __fmul_rn(mean, mean));
+  var = var < 0.f ? 0.f : var;
+  const float rstd = rsqrtf(__fadd_rn(var, kEps));
+  s = rstd;
+  t = __fmul_rn(-mean, rstd);
+}
+
+// One element: MODE 0 [relu](xhat); MODE 1 the plain version's order and
+// roundings, s * ((g_m - m1) - xhat * m2).
 template <int MODE>
+__device__ __forceinline__ float elementwise(float x, float g, float s,
+                                             float t, float m1, float m2,
+                                             int relu) {
+  const float xhat = pre_activation(x, s, t);
+  if (MODE == 0) return (relu && xhat < 0.f) ? 0.f : xhat;
+  const float gm = masked(g, xhat, relu);
+  return __fmul_rn(s, __fsub_rn(__fsub_rn(gm, m1), __fmul_rn(xhat, m2)));
+}
+
+// Grid (blocks, B) from norm_apply_plan, blocks * kThreads a multiple of
+// the item groups G = C / L. Thread i = blockIdx.x * kThreads + tid of
+// batch entry b = blockIdx.y visits items i + k stride (stride = blocks *
+// kThreads), an item being L = 8 channels of one voxel (VEC) or one
+// element, so its channel group i % G is fixed: its L (s, t) pairs (MODE 0:
+// folded here from the f64 sums; MODE 1: read, with (m1, m2) from the f64
+// sums) sit in registers. kUnroll items are loaded before the first is
+// stored. In MODE 0 the blocks with blockIdx.x == 0 also write (s, t) [B, C]
+// (the backward's residuals), from the same fold, once their items are
+// stored.
+template <int MODE, bool VEC>
 __global__ void __launch_bounds__(kThreads) norm_elementwise_kernel(const NormArgs a) {
+  constexpr int L = VEC ? 8 : 1;
   const int b = blockIdx.y;
   const int64_t first = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   const int64_t stride = (int64_t)gridDim.x * kThreads;
-  const int64_t base = (int64_t)b * a.n;
-  const int c = (int)(first % a.C);
-  const float s = a.s[b * a.C + c], t = a.t[b * a.C + c];
-  float m1 = 0.f, m2 = 0.f;
-  if (MODE == 1) {
-    m1 = a.m[(int64_t)b * 2 * a.C + c];
-    m2 = a.m[(int64_t)b * 2 * a.C + a.C + c];
-  }
-  for (int64_t e = first; e < a.n; e += stride) {
-    const float xhat = pre_activation(__bfloat162float(a.x[base + e]), s, t);
-    float v;
+  const int64_t items = VEC ? a.n >> 3 : a.n;
+  const int G = VEC ? a.C >> 3 : a.C;
+  const int c0 = (int)(first % G) * L;
+  float s[L], t[L], m1[L], m2[L];
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
     if (MODE == 0) {
-      v = a.relu ? fmaxf(xhat, 0.f) : xhat;
+      fold_affine(a, b, c0 + j, s[j], t[j]);
+      m1[j] = m2[j] = 0.f;
     } else {
-      // the plain version's order and roundings: s * ((g_m - m1) - xhat * m2)
-      const float gm = masked(__bfloat162float(a.g[base + e]), xhat, a.relu);
-      v = __fmul_rn(s, __fsub_rn(__fsub_rn(gm, m1), __fmul_rn(xhat, m2)));
+      s[j] = a.s[b * a.C + c0 + j];
+      t[j] = a.t[b * a.C + c0 + j];
+      m1[j] = mean_of(a, b, c0 + j);
+      m2[j] = mean_of(a, b, a.C + c0 + j);
     }
-    a.y[base + e] = __float2bfloat16(v);
   }
-}
-
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const __nv_bfloat16* xb = a.x + (int64_t)b * a.n;
+  const __nv_bfloat16* gb = MODE == 1 ? a.g + (int64_t)b * a.n : nullptr;
+  __nv_bfloat16* yb = a.y + (int64_t)b * a.n;
+  if (VEC) {
+    const uint4* xq = reinterpret_cast<const uint4*>(xb);
+    const uint4* gq = reinterpret_cast<const uint4*>(gb);
+    uint4* yq = reinterpret_cast<uint4*>(yb);
+    auto apply = [&](const Item& xv, const Item& gv) {
+      Item out;
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const float2 x2 = __bfloat1622float2(xv.h[h]);
+        const float2 g2 = MODE == 1 ? __bfloat1622float2(gv.h[h])
+                                    : make_float2(0.f, 0.f);
+        out.h[h] = __floats2bfloat162_rn(
+            elementwise<MODE>(x2.x, g2.x, s[2 * h], t[2 * h], m1[2 * h],
+                              m2[2 * h], a.relu),
+            elementwise<MODE>(x2.y, g2.y, s[2 * h + 1], t[2 * h + 1],
+                              m1[2 * h + 1], m2[2 * h + 1], a.relu));
+      }
+      return out.q;
+    };
+    Item xr[kUnroll], gr[kUnroll];
+    int64_t e = first;
+    for (; e + (kUnroll - 1) * stride < items; e += kUnroll * stride) {
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        xr[k].q = __ldcs(xq + e + k * stride);
+        gr[k].q = MODE == 1 ? __ldcs(gq + e + k * stride) : make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) yq[e + k * stride] = apply(xr[k], gr[k]);
+    }
+    for (; e < items; e += stride) {
+      xr[0].q = __ldcs(xq + e);
+      gr[0].q = MODE == 1 ? __ldcs(gq + e) : make_uint4(0, 0, 0, 0);
+      yq[e] = apply(xr[0], gr[0]);
+    }
+  } else {
+    for (int64_t e = first; e < items; e += stride) {
+      const float g = MODE == 1 ? __bfloat162float(gb[e]) : 0.f;
+      yb[e] = __float2bfloat16(elementwise<MODE>(
+          __bfloat162float(xb[e]), g, s[0], t[0], m1[0], m2[0], a.relu));
+    }
   }
-  return sms;
-}
-
-// The elementwise kernel's blocks per batch entry: enough for eight elements
-// a thread, at most ~16 blocks per SM over the batch, rounded up so that
-// the stride gx * kThreads is a multiple of C.
-long long grid_x(long long n, int C, int B) {
-  long long gx = (n + (long long)kThreads * 8 - 1) / ((long long)kThreads * 8);
-  const long long cap = (16LL * sm_count() + B - 1) / B;
-  if (gx > cap) gx = cap;
-  int g = C, r = kThreads;  // q = C / gcd(C, kThreads)
-  while (r != 0) {
-    const int tmp = g % r;
-    g = r;
-    r = tmp;
+  // last: stores to (s, t) before the loop would keep the compiler from
+  // issuing x's loads ahead of them (the pointers may alias)
+  if (MODE == 0 && blockIdx.x == 0) {
+    for (int c = threadIdx.x; c < a.C; c += kThreads)
+      fold_affine(a, b, c, a.s_out[b * a.C + c], a.t_out[b * a.C + c]);
   }
-  const long long q = C / g;
-  return (gx + q - 1) / q * q;
 }
 
 bool aligned16(const void* p) {
@@ -338,11 +420,13 @@ int vaeseg_norm_reduce(const void* x, const void* g, const void* s, const void* 
   a.g = static_cast<const __nv_bfloat16*>(g);
   a.s = static_cast<const float*>(s);
   a.t = static_cast<const float*>(t);
-  a.m = nullptr;
+  a.sums = nullptr;
+  a.s_out = a.t_out = nullptr;
   a.part = static_cast<float*>(part);
   a.out = static_cast<double*>(sums);
   a.y = nullptr;
   a.n = nvox * C;
+  a.inv_n = 0.f;
   a.C = C;
   a.relu = relu;
   const bool vec = (C & 7) == 0 && aligned16(x) && (!bwd || aligned16(g));
@@ -374,35 +458,54 @@ int vaeseg_norm_reduce(const void* x, const void* g, const void* s, const void* 
   return parts_reduce<double>(a.part, a.out, B, (int)parts, 2 * C, st);
 }
 
-// x: [B, nvox, C] bf16; s, t: [B, C] f32; with g ([B, nvox, C] bf16) and m
-// ([B, 2, C] f32) the backward's dx (mode 1), else the forward's apply
-// (mode 0); y: [B, nvox, C] bf16.
+// x: [B, nvox, C] bf16; sums: [B, 2, C] f64, the reduction's output (mode
+// 0's for the forward, mode 1's for the backward); y: [B, nvox, C] bf16.
+// Without g, the forward's apply (mode 0): s, t [B, C] f32 are written,
+// the fold of sums. With g ([B, nvox, C] bf16), the backward's dx (mode 1):
+// s, t are read. blocks (ops/instance_norm.py::norm_apply_plan): a batch
+// entry's, blocks * kThreads a multiple of the item groups (C / 8 with
+// vec: C % 8 == 0 and x, g, y 16-byte aligned; else C).
 // Returns cudaGetLastError() after the launch (0 on success).
-int vaeseg_norm_elementwise(const void* x, const void* g, const void* s,
-                            const void* t, const void* m, void* y, int relu,
-                            int B, long long nvox, int C, void* stream) {
-  if (bad_shape(B, nvox, C) || s == nullptr || t == nullptr)
+int vaeseg_norm_elementwise(const void* x, const void* g, void* s, void* t,
+                            const void* sums, void* y, int relu, int B,
+                            long long nvox, int C, long long blocks, int vec,
+                            void* stream) {
+  if (bad_shape(B, nvox, C) || s == nullptr || t == nullptr ||
+      sums == nullptr || y == nullptr)
     return cudaErrorInvalidValue;
   const bool bwd = g != nullptr;
-  if (bwd != (m != nullptr)) return cudaErrorInvalidValue;
+  if (vec && ((C & 7) != 0 || !aligned16(x) || !aligned16(y) ||
+              (bwd && !aligned16(g))))
+    return cudaErrorInvalidValue;
+  const int groups = vec ? C >> 3 : C;
+  if (blocks <= 0 || blocks > 0x7fffffff || blocks * kThreads % groups != 0)
+    return cudaErrorInvalidValue;
   NormArgs a;
   a.x = static_cast<const __nv_bfloat16*>(x);
   a.g = static_cast<const __nv_bfloat16*>(g);
-  a.s = static_cast<const float*>(s);
-  a.t = static_cast<const float*>(t);
-  a.m = static_cast<const float*>(m);
+  a.s = bwd ? static_cast<const float*>(s) : nullptr;
+  a.t = bwd ? static_cast<const float*>(t) : nullptr;
+  a.sums = static_cast<const double*>(sums);
+  a.s_out = bwd ? nullptr : static_cast<float*>(s);
+  a.t_out = bwd ? nullptr : static_cast<float*>(t);
   a.part = nullptr;
   a.out = nullptr;
   a.y = static_cast<__nv_bfloat16*>(y);
   a.n = nvox * C;
+  // as ATen divides an f32 tensor by the voxel count (a CPU scalar): the
+  // f32 reciprocal of the count as f32, rounded on the host
+  a.inv_n = 1.0f / static_cast<float>(nvox);
   a.C = C;
   a.relu = relu;
-  const dim3 grid((unsigned)grid_x(a.n, C, B), B, 1);
+  const dim3 grid((unsigned)blocks, B, 1);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bwd)
-    norm_elementwise_kernel<1><<<grid, kThreads, 0, st>>>(a);
-  else
-    norm_elementwise_kernel<0><<<grid, kThreads, 0, st>>>(a);
+  if (bwd) {
+    if (vec) norm_elementwise_kernel<1, true><<<grid, kThreads, 0, st>>>(a);
+    else norm_elementwise_kernel<1, false><<<grid, kThreads, 0, st>>>(a);
+  } else {
+    if (vec) norm_elementwise_kernel<0, true><<<grid, kThreads, 0, st>>>(a);
+    else norm_elementwise_kernel<0, false><<<grid, kThreads, 0, st>>>(a);
+  }
   return cudaGetLastError();
 }
 

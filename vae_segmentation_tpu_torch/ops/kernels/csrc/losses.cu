@@ -8,7 +8,9 @@
 //   f32 math, bf16 in and out. The TPU kernel summed each class group of the
 //   folded lane axis with a 0/1 matrix product; in the logical layout a
 //   voxel's classes are C consecutive values, one thread reads them, and no
-//   product is needed.
+//   product is needed. For C == 2 (every call of the nets) a thread reads
+//   4 voxels of g and of y a 16-byte load and stores them in one, several
+//   in flight, with the plain version's roundings (same bits).
 // dice_sums replaces ops/pallas/dicesums.py::_run: for K <= 3 targets,
 //   out[b, 0, c]      = sum_v p[b, v, c]
 //   out[b, 1 + 2k, c] = sum_v t_k[b, v, c]
@@ -35,14 +37,67 @@ constexpr int kThreads = 256;
 constexpr int kMaxTargets = 3;
 constexpr int kRows = 1 + 2 * kMaxTargets;
 
-__global__ void softmax_vjp_c2_kernel(const __nv_bfloat162* g, const __nv_bfloat162* y,
-                                      __nv_bfloat162* out, int64_t nvox) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; v < nvox; v += stride) {
-    const float2 gv = __bfloat1622float2(g[v]);
-    const float2 yv = __bfloat1622float2(y[v]);
-    const float dot = gv.x * yv.x + gv.y * yv.y;
-    out[v] = __floats2bfloat162_rn((gv.x - dot) * yv.x, (gv.y - dot) * yv.y);
+constexpr int kUnroll = 4;   // items a thread loads before it stores one
+
+// One voxel of two classes, the plain version's roundings: the dot as two
+// products and one sum, then (g - dot) * y, each rounded once (no
+// contraction into a fused multiply-add).
+__device__ __forceinline__ __nv_bfloat162 vjp2(__nv_bfloat162 gv, __nv_bfloat162 yv) {
+  const float2 g = __bfloat1622float2(gv), y = __bfloat1622float2(yv);
+  const float dot = __fadd_rn(__fmul_rn(g.x, y.x), __fmul_rn(g.y, y.y));
+  return __floats2bfloat162_rn(__fmul_rn(__fsub_rn(g.x, dot), y.x),
+                               __fmul_rn(__fsub_rn(g.y, dot), y.y));
+}
+
+// Four voxels of two classes, 16 bytes.
+union Item {
+  uint4 q;
+  __nv_bfloat162 h[4];
+};
+
+// C == 2, g, y, out [nvox, 2] bf16, grid from ops/losses.py::
+// softmax_vjp_plan. Thread i = blockIdx.x * kThreads + tid visits items
+// i + k stride (stride = gridDim.x * kThreads), an item being 4 voxels: one
+// 16-byte load of g and of y, one 16-byte store; kUnroll items are loaded
+// before the first is stored. The voxels from 4 * items on (the tail of
+// nvox % 4, or every voxel where a tensor is not 16-byte aligned and items
+// is 0) take the element path in the same launch: voxel 4 items + i + k
+// stride, one bf16 a load.
+__global__ void __launch_bounds__(kThreads) softmax_vjp_c2_kernel(
+    const __nv_bfloat16* g, const __nv_bfloat16* y, __nv_bfloat16* out,
+    int64_t nvox, int64_t items) {
+  const int64_t first = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  const uint4* gq = reinterpret_cast<const uint4*>(g);
+  const uint4* yq = reinterpret_cast<const uint4*>(y);
+  uint4* oq = reinterpret_cast<uint4*>(out);
+  auto apply = [](const Item& gv, const Item& yv) {
+    Item o;
+#pragma unroll
+    for (int h = 0; h < 4; ++h) o.h[h] = vjp2(gv.h[h], yv.h[h]);
+    return o.q;
+  };
+  Item gr[kUnroll], yr[kUnroll];
+  int64_t e = first;
+  for (; e + (kUnroll - 1) * stride < items; e += kUnroll * stride) {
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      gr[k].q = __ldcs(gq + e + k * stride);
+      yr[k].q = __ldcs(yq + e + k * stride);
+    }
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) oq[e + k * stride] = apply(gr[k], yr[k]);
+  }
+  for (; e < items; e += stride) {
+    gr[0].q = __ldcs(gq + e);
+    yr[0].q = __ldcs(yq + e);
+    oq[e] = apply(gr[0], yr[0]);
+  }
+  for (int64_t v = 4 * items + first; v < nvox; v += stride) {
+    const __nv_bfloat162 r = vjp2(__halves2bfloat162(g[2 * v], g[2 * v + 1]),
+                                  __halves2bfloat162(y[2 * v], y[2 * v + 1]));
+    out[2 * v] = __low2bfloat16(r);
+    out[2 * v + 1] = __high2bfloat16(r);
   }
 }
 
@@ -106,6 +161,10 @@ __global__ void __launch_bounds__(kThreads) dice_sums_kernel(const DiceArgs a) {
   }
 }
 
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 int sm_count() {
   static int sms = 0;
   if (sms == 0) {
@@ -134,23 +193,25 @@ const char* vaeseg_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// g, y, out: [nvox, C] bf16. Returns cudaGetLastError() after the launch.
+// g, y, out: [nvox, C] bf16; items and blocks from ops/losses.py::
+// softmax_vjp_plan: items the 4-voxel items of the vector path (C == 2 and
+// g, y, out 16-byte aligned; at most nvox / 4), else 0; blocks the grid.
+// Returns cudaGetLastError() after the launch.
 int vaeseg_softmax_vjp(const void* g, const void* y, void* out, long long nvox,
-                       int C, void* stream) {
-  if (nvox <= 0 || C <= 0) return cudaErrorInvalidValue;
+                       int C, long long items, long long blocks, void* stream) {
+  if (nvox <= 0 || C <= 0 || blocks <= 0 || blocks > 0x7fffffff || items < 0 ||
+      items > nvox / 4)
+    return cudaErrorInvalidValue;
+  if (items > 0 && (C != 2 || !aligned16(g) || !aligned16(y) || !aligned16(out)))
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  long long nblk = (nvox + kThreads - 1) / kThreads;
-  const long long cap = 32LL * sm_count();
-  if (nblk > cap) nblk = cap;
-  if (C == 2) {
-    softmax_vjp_c2_kernel<<<(unsigned)nblk, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat162*>(g), static_cast<const __nv_bfloat162*>(y),
-        static_cast<__nv_bfloat162*>(out), nvox);
-  } else {
-    softmax_vjp_kernel<<<(unsigned)nblk, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(g), static_cast<const __nv_bfloat16*>(y),
-        static_cast<__nv_bfloat16*>(out), nvox, C);
-  }
+  const auto* gb = static_cast<const __nv_bfloat16*>(g);
+  const auto* yb = static_cast<const __nv_bfloat16*>(y);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  if (C == 2)
+    softmax_vjp_c2_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(gb, yb, ob, nvox, items);
+  else
+    softmax_vjp_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(gb, yb, ob, nvox, C);
   return cudaGetLastError();
 }
 

@@ -11,7 +11,7 @@ Two hand-written kernels live here (``kernels/csrc/losses.cu``), each with
 its plain version, launched on CUDA tensors and counted in ``.launches``:
 ``softmax_vjp`` replaces the TPU's ``vae_segmentation_tpu/ops/pallas/
 softmaxvjp.py::softmax_group_vjp`` (the cotangent of K1's softmax
-epilogue) and ``dice_sums`` replaces ``ops/pallas/dicesums.py::_run`` (every
+epilogue; its grid and its 4-voxel items from ``softmax_vjp_plan``) and ``dice_sums`` replaces ``ops/pallas/dicesums.py::_run`` (every
 sum the adaptation loss's three soft Dices need, each volume read once).
 ``multi_soft_dice`` is the differentiable use of the latter.
 """
@@ -24,7 +24,8 @@ from typing import List, Sequence
 import torch
 import torch.nn.functional as F
 
-from vae_segmentation_tpu_torch.ops.conv3 import check_tensor, raise_if
+from vae_segmentation_tpu_torch.ops.conv3 import (
+    check_tensor, raise_if, sm_count)
 
 # eps used by utils/evaluation.py:72-79 (the target-domain trainer)
 EVAL_EPS = 1e-6
@@ -129,6 +130,33 @@ def _check_same(who: str, ref: torch.Tensor, others: Sequence[torch.Tensor]):
                      tuple(ref.shape))
 
 
+# the plan of losses.cu's softmax_vjp kernels
+SOFTMAX_THREADS = 256
+SOFTMAX_ITEMS_A_THREAD = 4      # items (or voxels) a thread, about
+SOFTMAX_BLOCKS_A_SM = 8         # blocks an SM, at most
+
+
+@functools.lru_cache(maxsize=None)
+def softmax_vjp_plan(nvox: int, c: int, vec: bool, sms: int) -> dict:
+    """The plan of one ``softmax_vjp`` call on [nvox, c]: ``items``, the
+    4-voxel items of the vector path (c == 2 and g, y, out 16-byte aligned,
+    `vec`; 16 bytes of each), else 0; the ``tail`` voxels from 4 * items on
+    take the element path in the same launch; ``blocks`` of ``threads``,
+    sized for about ``SOFTMAX_ITEMS_A_THREAD`` items (or voxels) a thread,
+    at most ``SOFTMAX_BLOCKS_A_SM`` blocks an SM. Thread i takes items and
+    tail voxels i + k ``stride``. The result is cached: do not modify
+    it."""
+    if nvox < 1 or c < 1:
+        raise ValueError(f"softmax_vjp: no call on [{nvox}, {c}]")
+    items = nvox // 4 if vec and c == 2 else 0
+    tail = nvox - 4 * items
+    threads = SOFTMAX_THREADS
+    blocks = min(-(-(items + tail) // (threads * SOFTMAX_ITEMS_A_THREAD)),
+                 SOFTMAX_BLOCKS_A_SM * sms)
+    return {"items": items, "tail": tail, "blocks": blocks,
+            "threads": threads, "stride": blocks * threads}
+
+
 def softmax_vjp(g: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Same contract as ``softmax_vjp_plain``; on CUDA, g and y must be
     contiguous bf16 of one shape."""
@@ -140,11 +168,16 @@ def softmax_vjp(g: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
     _check_same("softmax_vjp", y, (g,))
     out = torch.empty_like(y)
+    c = y.shape[-1]
+    nvox = y.numel() // c
+    plan = softmax_vjp_plan(
+        nvox, c, all(t.data_ptr() % 16 == 0 for t in (g, y, out)),
+        sm_count(y.device.index or 0))
     lib = build.library("losses")
     with torch.cuda.device(y.device):
         rc = lib.vaeseg_softmax_vjp(
-            g.data_ptr(), y.data_ptr(), out.data_ptr(),
-            y.numel() // y.shape[-1], y.shape[-1],
+            g.data_ptr(), y.data_ptr(), out.data_ptr(), nvox, c,
+            plan["items"], plan["blocks"],
             torch.cuda.current_stream(y.device).cuda_stream)
     raise_if(rc, lib, "softmax_vjp")
     softmax_vjp.launches += 1
