@@ -11,10 +11,11 @@ Phases, each printed as JSON records:
      conv3's, conv3_dk's, conv3_bwd's, the bridges' and the bridge
      backwards' must have them, and so must the functions of K2's and K3's
      dx kernels (``TENSOR_CORE_KERNELS``: bridge_bwd's HMMA could come from
-     its other kernels alone); the functions of the two 16-byte
-     elementwise kernels (``VECTOR_KERNELS``: norm_elementwise_kernel,
-     softmax_vjp_c2_kernel) must hold 128-bit global loads and stores
-     (LDG.*.128, STG.*.128); a toolkit without cuobjdump fails the check.
+     its other kernels alone); the functions of the 16-byte kernels
+     (``VECTOR_KERNELS``: norm_elementwise_kernel, softmax_vjp_c2_kernel,
+     dice_sums_vec_kernel, dice_vjp_vec_kernel) must hold 128-bit global
+     loads (LDG.*.128) and, but for the Dice sums' reduction, stores
+     (STG.*.128); a toolkit without cuobjdump fails the check.
      Then the device kernels of one norm, forward (instance_norm_act) and
      backward (norm_bwd), at each norm shape of the norm route's eval
      forward (``NORM_SHAPES``), by the profiler: 2-3 each way
@@ -56,7 +57,8 @@ Phases, each printed as JSON records:
      dropout 0.5, VAE frozen) runs on the plain path while every kernel
      wrapper's call is recorded, forward and backward (conv3 as forward
      and as dx conv with its ``post`` epilogue, conv3_dk, both bridges and
-     their backwards, softmax_vjp, dice_sums). Each call's kernel then runs
+     their backwards, softmax_vjp, dice_sums and its VJP dice_sums_vjp).
+     Each call's kernel then runs
      on the recorded inputs against the recorded plain outputs: bf16
      outputs within 1e-2 * max|want|, f32 sums (dk, db, ds/dt, Dice sums)
      within ``F32_TOL`` of their tensor's largest element; conv3_dk's dk
@@ -66,12 +68,15 @@ Phases, each printed as JSON records:
      call is timed beside its plain version and one library call
      (``aten.convolution_backward`` with the matching output mask for the
      backward rows, ``aten._softmax_backward_data`` for softmax_vjp; none
-     for dice_sums; softmax_vjp and its library call also as a replayed
-     CUDA graph). softmax_vjp must equal its plain version bit for bit
-     (it rounds as the plain version does). Two more launches of every
+     for dice_sums and its VJP; softmax_vjp and its library call, and
+     dice_sums and its plain version, also as a replayed CUDA graph;
+     dice_sums_vjp and its eager plain version only so). softmax_vjp and
+     dice_sums_vjp must equal their plain versions bit for bit (they round
+     as the plain versions do). Two more launches of every
      recorded call of K1 (y, the stats or the post epilogue's dx and (ds,
      dt)), conv3_dk, the bridge backwards (dx, dk, db and K2's (ds, dt)),
-     dice_sums, softmax_vjp and the norm kernels must give the same bits
+     dice_sums, its VJP, softmax_vjp and the norm kernels must give the
+     same bits
      (none of them adds with atomics); a bridge
      backward that computes dx and dk is also timed for each part alone,
      K2's dx alone also as a replayed CUDA graph beside the dx-only
@@ -105,12 +110,14 @@ Phases, each printed as JSON records:
      KL within 1e-6 relative), its eps against the plain Philox draw of the
      same seed, the latent at scale 0 equal to mean, its draw as a standard
      normal (2^20 draws of one call and 256 seeds of the step's shape),
-     deterministic per seed; timed beside the plain version.
+     deterministic per seed; timed beside the plain version and an empty
+     kernel (the launch floor), with the wrapper's host time a call.
   8. vae_train kernels: one source-recipe vae_train step (batch 4 of warped
      ground-truth masks, the seeded generator's 8th warp whatever the host's
      clock, 128^3, reparam scale 0.35, nothing frozen) runs on
      the plain path while every kernel call is recorded; each call's kernel
-     then runs on the recorded inputs under phase 5's rules and each
+     then runs on the recorded inputs under phase 5's rules (reparam_kl_vjp
+     bit for bit, timed by graph beside its eager plain version) and each
      distinct call is timed beside its plain version and library call.
   9. the vae_train step-1 gate, kernel path against plain path (same
      weights, batch and reparam seed), each loss term where it is well
@@ -163,7 +170,7 @@ Phases, each printed as JSON records:
      every gradient), its backward against the plain backward on one
      shared forward (phase 9's ``vae_backward_gate``), and phase 10's 3
      vae_train steps on the merged route (the same launches a step).
- 14. the ``kernels`` line (fourteen kernels; those of an opt-in route
+ 14. the ``kernels`` line (sixteen kernels; those of an opt-in route
      carry its switch in ``path`` and count their launches on its runs),
      then the last line ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero without the last line. Without a CUDA GPU
@@ -198,10 +205,14 @@ PER_NORM_FORWARD = {**PER_FORWARD, "norm_stats": 56, "norm_apply": 56}
 KERNEL_NAMES = ("conv3", "down_k2s2", "up_k2s2", "conv3_dk", "down_k2s2_bwd",
                 "up_k2s2_bwd", "softmax_vjp", "dice_sums", "reparam_kl",
                 "conv3_bwd", "norm_stats", "norm_apply", "norm_bwd_sums",
-                "norm_bwd_dx")
+                "norm_bwd_dx", "dice_sums_vjp", "reparam_kl_vjp")
 # the kernels that run only on an opt-in route: their launches are counted
 # on that route's runs (phases 12 and 13)
 NORM_KERNELS = ("norm_stats", "norm_apply", "norm_bwd_sums", "norm_bwd_dx")
+# the kernels timed as a replayed CUDA graph beside their plain versions
+# (check_step_calls): the norm kernels, whose deep calls are shorter than
+# their enqueue, and the two VJPs, whose plain versions are eager chains
+GRAPH_TIMED = NORM_KERNELS + ("dice_sums_vjp", "reparam_kl_vjp")
 # K1's stats epilogue, each part held to what it computes (_compare):
 # - its summation: the stats against the f64 sums of K1's own stored y (the
 #   sum's error over sum |y|, the sumsq's relative error) within
@@ -269,6 +280,16 @@ SOURCES = {
                    "vae_segmentation_tpu/ops/pallas/reparam.py:91 (_run, "
                    "the TPU's on-core draw); vae_segmentation_tpu/ops/pallas/"
                    "reparam.py:101 (_run, off the TPU)"),
+    "dice_sums_vjp": ("vae_segmentation_tpu_torch/ops/kernels/csrc/"
+                      "losses.cu",
+                      "vae_segmentation_tpu/ops/pallas/dicesums.py:130 "
+                      "(_bwd, the VJP attached to _run's pallas_call at "
+                      ":73)"),
+    "reparam_kl_vjp": ("vae_segmentation_tpu_torch/ops/kernels/csrc/"
+                       "reparam.cu",
+                       "vae_segmentation_tpu/ops/pallas/reparam.py:146 "
+                       "(_reparam_bwd, the VJP attached to _run's "
+                       "pallas_call at :91)"),
     "conv3_bwd": ("vae_segmentation_tpu_torch/ops/kernels/csrc/conv3_bwd.cu",
                   "vae_segmentation_tpu/ops/pallas/stencil3.py:920 "
                   "(_run_bwd_grouped)"),
@@ -333,6 +354,20 @@ def cuda_ms(torch, fn, budget_ms: float = 40.0, max_reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
+def host_ms(torch, fn, n: int = 1000) -> float:
+    """Host-clock time of one fn() call over n calls without a
+    synchronisation between them: what a wrapper costs the host (its
+    checks, allocations and enqueue)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    ms = 1e3 * (time.perf_counter() - t0) / n
+    torch.cuda.synchronize()
+    return ms
+
+
 def work_of(name: str, shape, cin: int, cout: int, pre: bool,
             stats: bool) -> tuple:
     """(bytes, flops) the call must move / do: each input read once, each
@@ -391,6 +426,10 @@ def kernel_ops() -> list:
             ("dice_sums", losses, "dice_sums", losses.dice_sums_plain),
             ("reparam_kl", reparam, "reparam_kl_op",
              reparam.reparam_kl_seeded_plain),
+            ("dice_sums_vjp", losses, "dice_sums_vjp",
+             losses.dice_sums_vjp_plain),
+            ("reparam_kl_vjp", reparam, "reparam_kl_vjp",
+             reparam.reparam_kl_vjp_plain),
             ("conv3_bwd", conv3, "conv3_bwd", conv3.conv3_bwd_plain),
             ("norm_stats", norm, "norm_stats", norm.norm_stats_plain),
             ("norm_apply", norm, "norm_apply", norm.fold_apply_plain),
@@ -767,7 +806,13 @@ FAMILIES = tuple((rf"\b{k}\b", f) for k, f in (
     ("up_kernel", "up_k2s2"),
     ("softmax_vjp_c2_kernel", "softmax_vjp"),
     ("softmax_vjp_kernel", "softmax_vjp"), ("dice_sums_kernel", "dice_sums"),
-    ("reparam_kl_kernel", "reparam_kl"))) + (
+    ("dice_sums_vec_kernel", "dice_sums"),
+    ("dice_vjp_kernel", "dice_sums_vjp"),
+    ("dice_vjp_vec_kernel", "dice_sums_vjp"),
+    ("reparam_kl_kernel", "reparam_kl"),
+    ("reparam_kl_vjp_kernel", "reparam_kl_vjp"),
+    # phase 7's empty kernel: what a launch costs
+    ("launch_floor_kernel", "launch_floor"))) + (
     # the split-K weight gradient and its reduction (wgrad.cuh) serve three
     # kernels of the table, by their mode: 0 K1, 1 K2, 2 K3
     (r"\bdk_kernel<0,", "conv3_dk"), (r"\bdk_reduce_kernel<0>", "conv3_dk"),
@@ -1000,13 +1045,18 @@ def describe(rec: dict) -> dict:
     """What distinguishes one recorded kernel call: kernel, role, input
     shape, output channels and options."""
     a, k = rec["args"], rec["kernel"]
-    if k == "reparam_kl":
+    if k in ("reparam_kl", "reparam_kl_vjp"):
         return {"kernel": k, "shape": list(a["mean"].shape)}
     if k == "softmax_vjp":
         return {"kernel": k, "shape": list(a["y"].shape)}
     if k == "dice_sums":
         return {"kernel": k, "shape": list(a["pred"].shape),
                 "targets": len(a["targets"])}
+    if k == "dice_sums_vjp":
+        kk = len(a["targets"])
+        return {"kernel": k, "shape": list(a["pred"].shape), "targets": kk,
+                "need": [bool(a["need_pred"])]
+                + [bool(f) for f in a["need_targets"][:kk]]}
     if k in NORM_KERNELS:
         d = {"kernel": k, "shape": list(a["x"].shape)}
         if "relu" in a:
@@ -1038,6 +1088,12 @@ def op_work(d: dict) -> tuple:
     k, shape = d["kernel"], d["shape"]
     if k == "reparam_kl":
         return reparam_work(shape[0] * shape[1])
+    if k == "reparam_kl_vjp":
+        # reads mean, std, eps and g_latent, writes d_mean and d_std (f32);
+        # 2 operations an element for d_mean, 7 for d_std (the reciprocal
+        # one)
+        n = shape[0] * shape[1]
+        return 24 * n + 4, 9 * n, F32_FLOPS_PER_S
     b, c = shape[0], shape[-1]
     n = 1
     for e in shape[:-1]:
@@ -1048,6 +1104,14 @@ def op_work(d: dict) -> tuple:
         t = d["targets"]
         return (2 * n * c * (1 + t) + 4 * b * (1 + 2 * t) * c,
                 n * c * (1 + 3 * t), F32_FLOPS_PER_S)
+    if k == "dice_sums_vjp":
+        # reads g, pred where a d t_k is needed and the targets where dp is;
+        # writes each needed gradient (bf16); a product and a sum an
+        # element for each target of dp and for each d t_k
+        t, (need_p, *need_t) = d["targets"], d["need"]
+        vols = t * need_p + any(need_t) + need_p + sum(need_t)
+        return (2 * n * c * vols + 4 * b * (1 + 2 * t) * c,
+                2 * n * c * (t * need_p + sum(need_t)), F32_FLOPS_PER_S)
     if k in NORM_KERNELS:
         # bf16 volumes read (x; g in the backward) and written (y, dx);
         # bytes a (b, c): the reductions write their f64 [B, 2, C] sums (16;
@@ -1136,8 +1200,10 @@ def compare_call(torch, d: dict, got, want, args: dict) -> dict:
 
 # the kernels that round as their plain versions do, each operation once:
 # every output equal to the plain version's on the same inputs (y, s and t
-# of norm_apply's fold; norm_bwd_dx with its means; softmax_vjp)
-BITWISE = ("softmax_vjp", "norm_apply", "norm_bwd_dx")
+# of norm_apply's fold; norm_bwd_dx with its means; softmax_vjp; the Dice
+# sums' and the reparam's VJPs)
+BITWISE = ("softmax_vjp", "norm_apply", "norm_bwd_dx", "dice_sums_vjp",
+           "reparam_kl_vjp")
 
 
 def on_kernel_sums(torch, kernel: str, a: dict) -> bool:
@@ -1250,14 +1316,15 @@ def _library_fn(torch, d: dict, a: dict):
     forwards, aten.convolution_backward with the matching output mask for
     the backwards, aten._softmax_backward_data for softmax_vjp. No single
     call computes the 1 + 2K fused sums of dice_sums, nor draws and reduces
-    as reparam_kl does."""
+    as reparam_kl does, nor their VJPs."""
     import torch.nn.functional as F
 
     k = d["kernel"]
     if k == "softmax_vjp":
         return lambda: torch.ops.aten._softmax_backward_data(
             a["g"], a["y"], -1, torch.bfloat16)
-    if k in ("dice_sums", "reparam_kl", "norm_bwd_sums"):
+    if k in ("dice_sums", "reparam_kl", "norm_bwd_sums", "dice_sums_vjp",
+             "reparam_kl_vjp"):
         return None
 
     def cl(t):                      # NDHWC data seen as channels_last_3d
@@ -1584,12 +1651,12 @@ def check_step_calls(torch, calls, log, failures,
         with torch.no_grad():
             if d["kernel"] in ("norm_stats", "norm_bwd_sums"):
                 rec.update(norm_plans(torch, d, a))
-            if d["kernel"] in NORM_KERNELS:
-                # a norm kernel at 4^3-64^3 runs for less time than its
-                # wrapper takes to enqueue it, so CUDA events around
-                # repeated calls time the host (kept beside): these calls,
-                # their plain versions and their library calls are timed as
-                # a replayed CUDA graph
+            if d["kernel"] in GRAPH_TIMED:
+                # a norm kernel at 4^3-64^3 or a VJP of [4, 128] runs for
+                # less time than its wrapper takes to enqueue it, so CUDA
+                # events around repeated calls time the host (kept beside):
+                # these calls, their plain versions and their library calls
+                # are timed as a replayed CUDA graph
                 rec["kernel_events_ms"] = cuda_ms(torch, lambda: wrapper(**a))
                 rec["kernel_ms"] = graph_ms(torch, lambda: wrapper(**a))
                 rec["plain_ms"] = graph_ms(torch, lambda: plain(**pargs))
@@ -1613,6 +1680,12 @@ def check_step_calls(torch, calls, log, failures,
                 # also as a replayed CUDA graph, beside its library call
                 rec.update(graph_ms=graph_ms(torch, lambda: wrapper(**a)),
                            library_graph_ms=graph_ms(torch, library))
+            if d["kernel"] == "dice_sums":
+                # also as a replayed CUDA graph (its two launches' device
+                # time) beside the plain version's
+                rec.update(graph_ms=graph_ms(torch, lambda: wrapper(**a)),
+                           plain_graph_ms=graph_ms(torch,
+                                                   lambda: plain(**pargs)))
             if d["kernel"] == "conv3_bwd":
                 # the pair it replaces and its library call, also as a
                 # replayed CUDA graph (a deep call is shorter than its
@@ -1666,12 +1739,13 @@ def check_step_calls(torch, calls, log, failures,
             err=0.0, bf16_rel_err=0.0, f32_rel_err=0.0, kernel_ms=0.0,
             plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
             ops_ms=0.0, calls=0))
-        for f in ("pair_ms", "dx_ms", "dk_ms", "pair_graph_ms") + DX_FIELDS \
-                + PLAN_FIELDS:
+        for f in ("pair_ms", "dx_ms", "dk_ms", "pair_graph_ms",
+                  "kernel_events_ms") + DX_FIELDS + PLAN_FIELDS:
             if f in rec:
                 t[f] = t.get(f, 0.0) + k["count"] * rec[f]
-        if d["kernel"] in ("conv3_bwd", "softmax_vjp"):
-            for f in ("graph_ms", "library_graph_ms"):
+        for f in ("graph_ms", "library_graph_ms", "plain_graph_ms"):
+            if d["kernel"] in ("conv3_bwd", "softmax_vjp", "dice_sums") \
+                    and f in rec:
                 t[f] = t.get(f, 0.0) + k["count"] * rec[f]
         n = k["count"]
         t["err"] = max(t["err"], rec["max_abs_err"])
@@ -1697,7 +1771,7 @@ def expected_step_launches(joint) -> dict:
     forward, a dx conv for every conv but the Seg's entry conv (the image
     needs no gradient), a weight gradient for the Seg's convs only (the VAE
     is frozen; its bridges' backwards skip dk and db), the softmax VJP of
-    both heads and one fused Dice-sums pass."""
+    both heads, one fused Dice-sums pass and its VJP."""
     from vae_segmentation_tpu_torch.models.blocks import (
         Conv3, DownConv, TConv2)
 
@@ -1712,7 +1786,7 @@ def expected_step_launches(joint) -> dict:
             "down_k2s2": down[0] + sum(down), "up_k2s2": up[0] + sum(up),
             "conv3_dk": conv[0], "down_k2s2_bwd": sum(down),
             "up_k2s2_bwd": sum(up), "softmax_vjp": 2, "dice_sums": 1,
-            "reparam_kl": 0}
+            "dice_sums_vjp": 1, "reparam_kl": 0}
 
 
 def expected_norm_step_launches(joint) -> dict:
@@ -1739,13 +1813,15 @@ def count_calls(calls) -> dict:
 
 def expected_backward_launches(joint) -> dict:
     """Kernel launches of the backward alone of one student forward: what
-    ``expected_step_launches`` counts less the forwards and the Dice sums."""
+    ``expected_step_launches`` counts less the forwards and the Dice sums
+    (their VJP stays)."""
     step, fwd = expected_step_launches(joint), PER_FORWARD
     seg_conv = step["conv3_dk"]
     return {**{k: 0 for k in KERNEL_NAMES},
             "conv3": step["conv3"] - seg_conv - fwd["conv3"],
             "conv3_dk": seg_conv, "down_k2s2_bwd": step["down_k2s2_bwd"],
-            "up_k2s2_bwd": step["up_k2s2_bwd"], "softmax_vjp": 2}
+            "up_k2s2_bwd": step["up_k2s2_bwd"], "softmax_vjp": 2,
+            "dice_sums_vjp": step["dice_sums_vjp"]}
 
 
 def stale_kernel_weights(torch, *models) -> list:
@@ -1978,9 +2054,14 @@ def check_reparam(torch, seed: int, log, failures) -> dict:
     deterministic per seed and different across seeds; timed beside its
     plain version (the draw included) by device time under the profiler:
     CUDA events around repeated calls time the wrapper's host work, which
-    takes longer than the one-block kernel (both kept). Returns its totals
-    per step."""
+    takes longer than the one-block kernel (both kept), and the wrapper's
+    host time a call by the host clock (``host_ms``). An empty kernel
+    (``reparam.cu::launch_floor_kernel``, one block of one thread) is
+    timed both ways beside it: the least a launch costs, the kernel's real
+    floor below its work bound. Returns its totals per step."""
     from vae_segmentation_tpu_torch.ops import reparam
+    from vae_segmentation_tpu_torch.ops.conv3 import raise_if
+    from vae_segmentation_tpu_torch.ops.kernels import build
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     shape = (VAE_BATCH, 128)
@@ -2021,10 +2102,18 @@ def check_reparam(torch, seed: int, log, failures) -> dict:
         return reparam.reparam_kl_seeded_plain(mean, std, VAE_SCALE,
                                                seed_cpu)
 
+    lib = build.library("reparam")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def floor():
+        raise_if(lib.vaeseg_launch_floor(stream), lib, "launch_floor")
+
     with torch.no_grad():
         kernel_ms = profile_run(torch, kernel, 50, "", failures)["device_ms"]
         plain_ms = profile_run(torch, plain, 10, "", failures)["device_ms"]
-        events_ms = [cuda_ms(torch, fn) for fn in (kernel, plain)]
+        floor_ms = profile_run(torch, floor, 50, "", failures)["device_ms"]
+        events_ms = [cuda_ms(torch, fn) for fn in (kernel, plain, floor)]
+        wrapper_host_ms = host_ms(torch, kernel)
     nbytes, ops, peak = reparam_work(shape[0] * shape[1])
     bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / peak
     rec = {"phase": "reparam", "shape": list(shape), "scale": VAE_SCALE,
@@ -2035,6 +2124,9 @@ def check_reparam(torch, seed: int, log, failures) -> dict:
            "law_one_call": law_one, "law_256_seeds": law_seeds,
            "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
            "kernel_events_ms": events_ms[0], "plain_events_ms": events_ms[1],
+           "launch_floor_ms": floor_ms,
+           "launch_floor_events_ms": events_ms[2],
+           "wrapper_host_ms": wrapper_host_ms,
            "bytes": nbytes, "operations": ops,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -2046,7 +2138,10 @@ def check_reparam(torch, seed: int, log, failures) -> dict:
     return {"err": err, "f32_rel_err": latent_rel, "bf16_rel_err": 0.0,
             "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
             "bound_ms": rec["bound_ms"], "bytes_ms": bytes_ms,
-            "ops_ms": ops_ms, "calls": 1}
+            "ops_ms": ops_ms, "calls": 1, "kernel_events_ms": events_ms[0],
+            "launch_floor_ms": floor_ms,
+            "launch_floor_events_ms": events_ms[2],
+            "wrapper_host_ms": wrapper_host_ms}
 
 
 def _count(net, cls) -> int:
@@ -2067,13 +2162,13 @@ def expected_source_step_launches(net, sampled: bool) -> dict:
     derived from the model: its forward, a dx conv for every conv but the
     entry conv (the one-hot mask or the image needs no gradient), a weight
     gradient for every conv and bridge (nothing is frozen), the head's
-    softmax VJP and, for the VAE, one reparam_kl. The Dice loss is plain
-    avg_dsc: no dice_sums."""
+    softmax VJP and, for the VAE, one reparam_kl and its VJP. The Dice loss
+    is plain avg_dsc: no dice_sums."""
     fwd = forward_launches(net)
     return {**fwd, "conv3": 2 * fwd["conv3"] - 1,
             "conv3_dk": fwd["conv3"], "down_k2s2_bwd": fwd["down_k2s2"],
             "up_k2s2_bwd": fwd["up_k2s2"], "softmax_vjp": 1,
-            "reparam_kl": int(sampled)}
+            "reparam_kl": int(sampled), "reparam_kl_vjp": int(sampled)}
 
 
 def expected_norm_source_step_launches(net, sampled: bool) -> dict:
@@ -2123,7 +2218,12 @@ TENSOR_CORE_KERNELS = (("bridge_bwd", "down_dx_kernel"),
 # kernels (library, __global__ name) whose own functions must hold 128-bit
 # global loads and stores: their items are 16 bytes
 VECTOR_KERNELS = (("instance_norm", "norm_elementwise_kernel"),
-                  ("losses", "softmax_vjp_c2_kernel"))
+                  ("losses", "softmax_vjp_c2_kernel"),
+                  ("losses", "dice_sums_vec_kernel"),
+                  ("losses", "dice_vjp_vec_kernel"))
+# the VECTOR_KERNELS that store no item (a reduction writes its block
+# partials): 128-bit loads only
+LOAD_ONLY_KERNELS = ("dice_sums_vec_kernel",)
 SASS_OPS = {"HMMA": r"\bHMMA\b", "HGMMA": r"\bHGMMA\b",
             "LDG.128": r"\bLDG(?:\.\w+)*\.128\b",
             "STG.128": r"\bSTG(?:\.\w+)*\.128\b"}
@@ -2234,7 +2334,9 @@ def main() -> int:
     for lib, kernel in VECTOR_KERNELS:
         k = None if sass is None else sass["kernels"].get(f"{lib}/{kernel}")
         if sass is not None and (not k or not k["functions"]
-                                 or not k["LDG.128"] or not k["STG.128"]):
+                                 or not k["LDG.128"]
+                                 or not (k["STG.128"]
+                                         or kernel in LOAD_ONLY_KERNELS)):
             failures.append(f"{lib}/{kernel}: no 128-bit global load or "
                             f"store in its functions' SASS ({k})")
     emit({"phase": "card", "nvidia_smi": card,
@@ -3028,6 +3130,8 @@ def main() -> int:
             t, per = merged_totals[name], \
                 "vae_train step on the merged route (VAESEG_MERGED_BWD=1), " \
                 f"batch {VAE_BATCH}"
+        elif name == "reparam_kl_vjp":
+            t, per = vae_totals[name], f"vae_train step, batch {VAE_BATCH}"
         else:
             t = totals.get(name) or step_totals.get(name) \
                 or (reparam_totals if name == "reparam_kl" else {})
@@ -3047,11 +3151,13 @@ def main() -> int:
             "bound_by": "bytes" if t.get("bytes_ms", 0) >= t.get("ops_ms", 0)
             else "operations",
             "library_ms": t.get("library_ms"), "per": per,
-            "timed_by": "cuda graph replay" if name in NORM_KERNELS
+            "timed_by": "cuda graph replay" if name in GRAPH_TIMED
             else "profiler device time" if name == "reparam_kl"
             else "cuda events"}
         rec.update({f: t[f] for f in (
-            "graph_ms", "library_graph_ms", "split_calls", "split_ms",
+            "graph_ms", "library_graph_ms", "plain_graph_ms",
+            "kernel_events_ms", "launch_floor_ms", "launch_floor_events_ms",
+            "wrapper_host_ms", "split_calls", "split_ms",
             "onepass_ms", "split_graph_ms", "onepass_graph_ms", "dx_ms")
             + DX_FIELDS + PLAN_FIELDS if f in t})
         if name in route_of:

@@ -9,6 +9,7 @@ This file imports torch only, so it also runs on a machine without JAX:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import contextlib
 from unittest import mock
 
 import pytest
@@ -887,3 +888,177 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(gen):
         conv3.conv3_bwd(x.bfloat16(), x.bfloat16(), w)
     with pytest.raises(ValueError):  # f32 cotangent
         conv3.conv3_bwd(x.bfloat16(), x, w, conv3.kernel_weight(w))
+
+
+# ---- dice_sums over 16-byte items, its VJP and the reparam VJP
+# (kernels/csrc/losses.cu, kernels/csrc/reparam.cu)
+
+# shapes [B, D, H, W, C]: C 2 (every call of the nets) with nvox % 4 of
+# 0-3 (items and an element tail), C 1, 4 and 8 (other items), C 3
+# (element path only), batches 2 and 3 with nvox % 4 != 0 (batch bases
+# off 16 bytes: element path)
+DICE_CASES = [(1, 7, 9, 11, 2), (1, 4, 4, 4, 2), (1, 3, 3, 3, 2),
+              (1, 1, 1, 5, 2), (1, 1, 1, 3, 2), (2, 7, 9, 11, 2),
+              (3, 5, 6, 7, 2), (2, 6, 5, 4, 1), (2, 3, 5, 8, 4),
+              (1, 5, 6, 7, 8), (2, 5, 6, 7, 3), (2, 32, 32, 32, 2)]
+
+
+def _dice_vols(gen, shape, k, offset=0):
+    """pred and k targets: softmax probabilities in bf16, the first
+    target `offset` elements past a 16-byte boundary."""
+    n = 1
+    for e in shape:
+        n *= e
+    vols = [torch.softmax(_rnd(gen, *shape), dim=-1).bfloat16()
+            for _ in range(1 + k)]
+    if offset:
+        t = torch.empty(n + offset, dtype=torch.bfloat16, device="cuda")
+        t[offset:] = vols[1].reshape(-1)
+        vols[1] = t[offset:].view(shape)
+    return vols[0], vols[1:]
+
+
+@pytest.mark.parametrize("shape", DICE_CASES)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_dice_sums_matches_plain_and_f64(gen, shape, offset):
+    """Each row within 1e-5 of the f64 sums (of the row's largest value:
+    sums of probabilities do not cancel) and of the plain version; one
+    launch a call; the same bits again."""
+    for k in (1, 2, 3):
+        pred, targets = _dice_vols(gen, shape, k, offset)
+        before = losses.dice_sums.launches
+        got = losses.dice_sums(pred, targets)
+        assert losses.dice_sums.launches == before + 1
+        dims = tuple(range(1, len(shape) - 1))
+        p64 = pred.double()
+        rows = [p64.sum(dim=dims)]
+        for t in targets:
+            t64 = t.double()
+            rows += [t64.sum(dim=dims), (p64 * t64).sum(dim=dims)]
+        want = torch.stack(rows, dim=1)
+        assert got.shape == want.shape
+        assert _rel(got.double(), want) <= 1e-5
+        assert _rel(got, losses.dice_sums_plain(pred, targets)) <= 1e-5
+        assert torch.equal(losses.dice_sums(pred, targets), got)
+
+
+NEEDS = [(True, (True, False, False)), (True, (False,) * 3),
+         (False, (True, True, True)), (True, (True, True, True)),
+         (False, (False, True, False))]
+
+
+@pytest.mark.parametrize("shape", DICE_CASES)
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_dice_vjp_gives_plain_bits(gen, shape, k):
+    """dice_sums_vjp equals dice_sums_vjp_plain bit for bit for every set
+    of needed gradients (a gradient that is not needed is None), with one
+    launch; a misaligned target takes the element path to the same
+    bits."""
+    for offset in (0, 1):
+        pred, targets = _dice_vols(gen, shape, k, offset)
+        g = _rnd(gen, shape[0], 1 + 2 * k, shape[-1])
+        for need_pred, need_t in NEEDS:
+            need_t = need_t[:k]
+            before = losses.dice_sums_vjp.launches
+            got = losses.dice_sums_vjp(g, pred, targets, need_pred, need_t)
+            launched = need_pred or any(need_t)
+            assert losses.dice_sums_vjp.launches == before + int(launched)
+            want = losses.dice_sums_vjp_plain(g, pred, targets, need_pred,
+                                              need_t)
+            assert len(got) == 1 + k
+            for o, w, need in zip(got, want, (need_pred, *need_t)):
+                assert (o is None) == (w is None) == (not need)
+                if need:
+                    assert torch.equal(o, w)
+
+
+def test_multi_soft_dice_honours_needs_input_grad(gen):
+    """The adaptation loss's three Dices: pred and the reconstruction need
+    a gradient, the pseudo-label and the one-hot label do not. One
+    dice_sums_vjp launch writes dp and d recon only, with the bits of the
+    plain backward."""
+    shape = (2, 9, 8, 7, 2)
+    pred, (recon, pseudo, onehot) = _dice_vols(gen, shape, 3)
+
+    def grads(run_plain):
+        p = pred.clone().requires_grad_(True)
+        r = recon.clone().requires_grad_(True)
+        patch = mock.patch.object(losses, "dice_sums_vjp",
+                                  losses.dice_sums_vjp_plain) \
+            if run_plain else contextlib.nullcontext()
+        with patch:
+            d = losses.multi_soft_dice(p, (r, pseudo, onehot))
+            loss = sum(x[:, 1].mean() * (i + 1) for i, x in enumerate(d))
+            return torch.autograd.grad(loss, (p, r))
+
+    calls = []
+    real = losses.dice_sums_vjp
+
+    def spy(g, pred_, targets, need_pred=True, need_targets=(True,) * 3):
+        calls.append((need_pred, tuple(need_targets)))
+        return real(g, pred_, targets, need_pred, need_targets)
+
+    # the wrapper counts its launch on the name it is called by
+    spy.launches = 0
+    with mock.patch.object(losses, "dice_sums_vjp", spy):
+        got = grads(False)
+    assert spy.launches == 1
+    assert calls == [(True, (True, False, False))]
+    want = grads(True)
+    for o, w in zip(got, want):
+        assert torch.equal(o, w)
+
+
+@pytest.mark.parametrize("b,d", [(4, 128), (3, 7), (5, 33), (7, 1000)])
+def test_reparam_vjp_gives_plain_bits(gen, b, d):
+    """reparam_kl_vjp equals reparam_kl_vjp_plain bit for bit (odd batches:
+    g_kl / B is ATen's product with the f32 reciprocal), with one launch;
+    through the Function, the backward of a vae_train-like loss equals the
+    plain backward's bits."""
+    mean = _rnd(gen, b, d, scale=0.7)
+    std = _rnd(gen, b, d).relu()            # exact zeros, as a ReLU gives
+    eps = _rnd(gen, b, d)
+    g_latent = _rnd(gen, b, d)
+    g_kl = _rnd(gen, 1).reshape(())
+    for scale in (0.35, 1.0, 0.0):
+        before = reparam.reparam_kl_vjp.launches
+        got = reparam.reparam_kl_vjp(mean, std, eps, g_latent, g_kl, scale)
+        assert reparam.reparam_kl_vjp.launches == before + 1
+        want = reparam.reparam_kl_vjp_plain(mean, std, eps, g_latent, g_kl,
+                                            scale)
+        for o, w in zip(got, want):
+            assert torch.equal(o, w)
+
+    def grads(plain):
+        m, s = mean.clone().requires_grad_(), std.clone().requires_grad_()
+        patch = mock.patch.object(reparam, "reparam_kl_vjp",
+                                  reparam.reparam_kl_vjp_plain) if plain \
+            else contextlib.nullcontext()
+        with patch:
+            latent, kl, _ = reparam.reparam_kl(m, s, 0.35, _seed(21))
+            loss = (latent * g_latent).sum() + 0.3 * kl
+            return torch.autograd.grad(loss, (m, s))
+
+    before = reparam.reparam_kl_vjp.launches
+    got = grads(False)
+    assert reparam.reparam_kl_vjp.launches == before + 1
+    for o, w in zip(got, grads(True)):
+        assert torch.equal(o, w)
+
+
+def test_dice_and_reparam_vjp_wrappers_reject_what_the_kernels_do_not_take(
+        gen):
+    pred, targets = _dice_vols(gen, (1, 4, 4, 4, 2), 2)
+    g = _rnd(gen, 1, 5, 2)
+    with pytest.raises(ValueError):  # rows of another K
+        losses.dice_sums_vjp(g[:, :3], pred, targets)
+    with pytest.raises(ValueError):  # f32 volumes
+        losses.dice_sums_vjp(g, pred.float(), targets)
+    with pytest.raises(ValueError):  # four targets
+        losses.dice_sums_vjp(_rnd(gen, 1, 9, 2), pred, [targets[0]] * 4)
+    m = _rnd(gen, 4, 8)
+    with pytest.raises(ValueError):  # a non-contiguous cotangent
+        reparam.reparam_kl_vjp(m, m, m, m.t().contiguous().t(), m[0, 0],
+                               0.35)
+    with pytest.raises(ValueError):  # f64 statistics
+        reparam.reparam_kl_vjp(m.double(), m, m, m, m[0, 0], 0.35)

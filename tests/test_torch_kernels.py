@@ -187,7 +187,8 @@ def test_cpu_tensors_use_plain_versions_and_build_nothing(rng):
     assert sorted(counts) == sorted([
         "conv3", "down_k2s2", "up_k2s2", "conv3_dk", "down_k2s2_bwd",
         "up_k2s2_bwd", "softmax_vjp", "dice_sums", "reparam_kl", "conv3_bwd",
-        "norm_stats", "norm_apply", "norm_bwd_sums", "norm_bwd_dx"])
+        "norm_stats", "norm_apply", "norm_bwd_sums", "norm_bwd_dx",
+        "dice_sums_vjp", "reparam_kl_vjp"])
     assert set(counts.values()) == {0}
     assert build.loaded() == []
     with pytest.raises(ValueError):

@@ -2,8 +2,9 @@
 and launch counters: K1 ``conv3.conv3`` with ``conv3.conv3_dk`` and the
 merged backward ``conv3.conv3_bwd``, K2 ``bridges.down_k2s2`` and K3
 ``bridges.up_k2s2`` with their backwards, ``losses.softmax_vjp`` /
-``losses.dice_sums``, ``reparam.reparam_kl`` and the InstanceNorm kernels
-of ``instance_norm``."""
+``losses.dice_sums`` / ``losses.dice_sums_vjp``, ``reparam.reparam_kl`` /
+``reparam.reparam_kl_vjp`` and the InstanceNorm kernels of
+``instance_norm``."""
 
 from typing import Dict
 
@@ -14,7 +15,8 @@ KERNELS = (conv3.conv3, bridges.down_k2s2, bridges.up_k2s2, conv3.conv3_dk,
            bridges.down_k2s2_bwd, bridges.up_k2s2_bwd, losses.softmax_vjp,
            losses.dice_sums, reparam.reparam_kl, conv3.conv3_bwd,
            instance_norm.norm_stats, instance_norm.norm_apply,
-           instance_norm.norm_bwd_sums, instance_norm.norm_bwd_dx)
+           instance_norm.norm_bwd_sums, instance_norm.norm_bwd_dx,
+           losses.dice_sums_vjp, reparam.reparam_kl_vjp)
 
 
 def reset_launch_counts() -> None:

@@ -33,6 +33,7 @@ kernel launches (never the plain versions).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import os
@@ -159,6 +160,14 @@ def check_affine(who: str, pre: Affine, device, b: int, c: int) -> Affine:
     check_tensor(who, "s", s, device, torch.float32, (b, c))
     check_tensor(who, "t", t, device, torch.float32, (b, c))
     return s, t
+
+
+def on_device(dev: torch.device):
+    """The context a launch on CUDA device `dev` runs in: none where `dev`
+    is the current device already, else a device guard."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
 
 
 def raise_if(rc: int, lib, who: str) -> None:

@@ -29,8 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-# exported C functions and their argument types, per source file (a
-# "_parts" function returns the blocks a reduction's workspace holds)
+# exported C functions and their argument types, per source file
 SIGNATURES = {
     "conv3": {
         "vaeseg_conv3": [_P] * 12 + [_I] * 7 + [_P, _P],
@@ -61,12 +60,15 @@ SIGNATURES = {
     "reparam": {
         "vaeseg_reparam_kl": [_P, _P, _P, ctypes.c_float, _P, _P, _P, _I, _I,
                               _P],
+        "vaeseg_reparam_kl_vjp": [_P] * 5 + [ctypes.c_float] * 2
+        + [_P, _P, _I, _I, _P],
+        "vaeseg_launch_floor": [_P],
         "vaeseg_error_string": [_I],
     },
     "losses": {
         "vaeseg_softmax_vjp": [_P, _P, _P, _L, _I, _L, _L, _P],
-        "vaeseg_dice_parts": [_I, _L, _I],
-        "vaeseg_dice_sums": [_P] * 5 + [_L, _P, _I, _L, _I, _I, _P],
+        "vaeseg_dice_sums": [_P] * 6 + [_I, _L, _I, _I, _L, _L, _P],
+        "vaeseg_dice_vjp": [_P] * 9 + [_I, _L, _I, _I, _L, _L, _P],
         "vaeseg_error_string": [_I],
     },
 }
@@ -112,7 +114,7 @@ def _load(name: str, path: Path) -> ctypes.CDLL:
         f = getattr(lib, fn)
         f.argtypes = argtypes
         f.restype = ctypes.c_char_p if fn.endswith("error_string") \
-            else ctypes.c_longlong if fn.endswith("_parts") else ctypes.c_int
+            else ctypes.c_int
     return lib
 
 

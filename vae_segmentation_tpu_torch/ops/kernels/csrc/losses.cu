@@ -16,14 +16,23 @@
 //   out[b, 1 + 2k, c] = sum_v t_k[b, v, c]
 //   out[b, 2 + 2k, c] = sum_v p[b, v, c] * t_k[b, v, c]
 //   in f32, every volume read once. The TPU kernel carried its [8, L] block
-//   across a sequential grid; here each thread keeps 1 + 2K sums of one
-//   class (its stride is a multiple of C), a block adds its threads of one
-//   class in a fixed order in shared memory and writes its [1 + 2K, C]
-//   partial once, and common.cuh::parts_reduce adds the blocks' partials in
-//   f64 in a fixed order: no atomics, the same bits on every run.
+//   across a sequential grid; here, for C dividing 8 (C == 2 in every call
+//   of the nets), a thread reads 16-byte items of the 1 + K volumes (4
+//   voxels of two classes), several in flight, and keeps the 1 + 2K sums of
+//   each class in registers (a lane's class is fixed by its place in the
+//   item); a block adds its threads' sums in a fixed order (a shuffle tree
+//   in each warp, then the warps in order) and writes its [1 + 2K, C]
+//   partial once, and common.cuh::parts_reduce adds the blocks' partials
+//   in f64 in a fixed order: no atomics, the same bits on every run.
+// dice_vjp is the VJP the JAX package attaches to dicesums.py::_run
+//   (dicesums.py::_bwd, left to XLA there as one elementwise pass): dp and
+//   the d t_k that are needed, from the cotangent rows g [B, 1 + 2K, C],
+//   in one pass over the same items, with the plain version's roundings
+//   (same bits).
 //
-// What bounds them on the H100: the bytes (3 and 1 + K volumes of traffic,
-// one or two operations per element).
+// What bounds them on the H100: the bytes (3 volumes of traffic for
+// softmax_vjp, 1 + K for dice_sums, up to 2 + 2K for dice_vjp; one or two
+// operations an element).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -115,39 +124,159 @@ __global__ void softmax_vjp_kernel(const __nv_bfloat16* g, const __nv_bfloat16* 
   }
 }
 
+// ---- dice_sums and its VJP. A batch entry's n = nvox * C elements are
+// `items` 16-byte items (8 bf16: 8 / C voxels of C classes, C dividing 8;
+// lane j of an item has class j % C) and then the elements from 8 items on
+// (the tail, or all n where items is 0), one bf16 at a time. Grid (blocks,
+// B) from ops/losses.py::dice_sums_plan: thread i = blockIdx.x * kThreads +
+// threadIdx.x of batch entry blockIdx.y takes items i + k stride and then
+// elements 8 items + i + k stride (stride = blocks * kThreads).
+
 struct DiceArgs {
   const __nv_bfloat16* p;
   const __nv_bfloat16* t[kMaxTargets];
   float* part;     // [B, gridDim.x, 1 + 2K, C] block partials
-  int64_t n;       // elements per batch entry: voxels * C
+  int64_t nvox;    // voxels a batch entry
+  int64_t items;   // 16-byte items a batch entry (vector path), else 0
   int C, K;
 };
 
-// grid (gx, B) with gx * kThreads a multiple of C: a thread's elements all
-// belong to one class.
+// The 1 + 2K sums of a thread's elements of the element path, all of one
+// class (the caller's stride and start keep it fixed).
+__device__ __forceinline__ void dice_elements(const DiceArgs& a, int64_t base,
+                                              int64_t from, int64_t stride,
+                                              float (&el)[kRows]) {
+  const int64_t n = a.nvox * a.C;
+  for (int64_t e = from; e < n; e += stride) {
+    const float pv = __bfloat162float(a.p[base + e]);
+    el[0] += pv;
+#pragma unroll
+    for (int k = 0; k < kMaxTargets; ++k) {
+      if (k < a.K) {
+        const float tv = __bfloat162float(a.t[k][base + e]);
+        el[1 + 2 * k] += tv;
+        el[2 + 2 * k] = fmaf(pv, tv, el[2 + 2 * k]);
+      }
+    }
+  }
+}
+
+// C dividing 8: 16-byte items, kUnroll items of each of the 1 + K volumes
+// in flight a thread, the sums of each class in f32 registers; the element
+// path's sums join the thread's class (tid % C: stride and 8 items are
+// multiples of C). A block adds its threads' sums by a shuffle tree in each
+// warp and then the warps in order, and writes its [1 + 2K, C] partial once.
+template <int C>
+__global__ void __launch_bounds__(kThreads) dice_sums_vec_kernel(const DiceArgs a) {
+  const int b = blockIdx.y, rows = 1 + 2 * a.K;
+  const int64_t first = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  const int64_t base = (int64_t)b * a.nvox * C;
+  float acc[kRows][C];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[r][c] = 0.f;
+  const uint4* pq = reinterpret_cast<const uint4*>(a.p + base);
+  const uint4* tq[kMaxTargets];
+#pragma unroll
+  for (int k = 0; k < kMaxTargets; ++k)
+    tq[k] = reinterpret_cast<const uint4*>(k < a.K ? a.t[k] + base : a.p + base);
+  auto add = [&](const Item& pv, const Item& tv, int k) {
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const float2 p2 = __bfloat1622float2(pv.h[h]), t2 = __bfloat1622float2(tv.h[h]);
+      const int c0 = (2 * h) % C, c1 = (2 * h + 1) % C;
+      acc[1 + 2 * k][c0] += t2.x;
+      acc[1 + 2 * k][c1] += t2.y;
+      acc[2 + 2 * k][c0] = fmaf(p2.x, t2.x, acc[2 + 2 * k][c0]);
+      acc[2 + 2 * k][c1] = fmaf(p2.y, t2.y, acc[2 + 2 * k][c1]);
+    }
+  };
+  auto add_pred = [&](const Item& pv) {
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const float2 p2 = __bfloat1622float2(pv.h[h]);
+      acc[0][(2 * h) % C] += p2.x;
+      acc[0][(2 * h + 1) % C] += p2.y;
+    }
+  };
+  Item pr[kUnroll], tr[kMaxTargets][kUnroll];
+  int64_t e = first;
+  for (; e + (kUnroll - 1) * stride < a.items; e += kUnroll * stride) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      pr[u].q = __ldcs(pq + e + u * stride);
+#pragma unroll
+      for (int k = 0; k < kMaxTargets; ++k)
+        if (k < a.K) tr[k][u].q = __ldcs(tq[k] + e + u * stride);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      add_pred(pr[u]);
+#pragma unroll
+      for (int k = 0; k < kMaxTargets; ++k)
+        if (k < a.K) add(pr[u], tr[k][u], k);
+    }
+  }
+  for (; e < a.items; e += stride) {
+    pr[0].q = __ldcs(pq + e);
+    add_pred(pr[0]);
+#pragma unroll
+    for (int k = 0; k < kMaxTargets; ++k) {
+      if (k < a.K) {
+        tr[k][0].q = __ldcs(tq[k] + e);
+        add(pr[0], tr[k][0], k);
+      }
+    }
+  }
+  float el[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) el[r] = 0.f;
+  dice_elements(a, base, 8 * a.items + first, stride, el);
+  const int cls = threadIdx.x % C;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      if (c == cls) acc[r][c] += el[r];
+
+  __shared__ float wsum[kRows * C][kThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (r < rows) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        float v = acc[r][c];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+        if (lane == 0) wsum[r * C + c][warp] = v;
+      }
+    }
+  }
+  __syncthreads();
+  if ((int)threadIdx.x < rows * C) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) s += wsum[threadIdx.x][w];
+    a.part[((int64_t)b * gridDim.x + blockIdx.x) * rows * C + threadIdx.x] = s;
+  }
+}
+
+// Any C, element path only: gridDim.x * kThreads a multiple of C, so a
+// thread's elements all have class first % C; a block adds its threads of
+// one class in a fixed order in shared memory.
 __global__ void __launch_bounds__(kThreads) dice_sums_kernel(const DiceArgs a) {
   __shared__ float sacc[kRows][kThreads];
   const int rows = 1 + 2 * a.K;
   const int tid = threadIdx.x;
   const int b = blockIdx.y;
   const int64_t first = (int64_t)blockIdx.x * kThreads + tid;
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  const int64_t base = (int64_t)b * a.n;
   float acc[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-  for (int64_t e = first; e < a.n; e += stride) {
-    const float pv = __bfloat162float(a.p[base + e]);
-    acc[0] += pv;
-#pragma unroll
-    for (int k = 0; k < kMaxTargets; ++k) {
-      if (k < a.K) {
-        const float tv = __bfloat162float(a.t[k][base + e]);
-        acc[1 + 2 * k] += tv;
-        acc[2 + 2 * k] = fmaf(pv, tv, acc[2 + 2 * k]);
-      }
-    }
-  }
+  dice_elements(a, (int64_t)b * a.nvox * a.C, first, (int64_t)gridDim.x * kThreads, acc);
 #pragma unroll
   for (int r = 0; r < kRows; ++r) sacc[r][tid] = acc[r];
   __syncthreads();
@@ -161,28 +290,171 @@ __global__ void __launch_bounds__(kThreads) dice_sums_kernel(const DiceArgs a) {
   }
 }
 
+// The VJP of dice_sums (dicesums.py::_bwd), for the outputs whose pointer
+// is set:
+//   dp     = ((g0 + g2 t0) + g4 t1) + g6 t2        (rows of the K targets)
+//   d t_k  = g(1 + 2k) + g(2 + 2k) p
+// g[b, row, c] broadcast over the voxels, f32 math with one rounding per
+// operation in the plain version's order, stored in bf16 (nearest even).
+struct DiceVjpArgs {
+  const __nv_bfloat16* p;
+  const __nv_bfloat16* t[kMaxTargets];
+  const float* g;                   // [B, 1 + 2K, C] f32
+  __nv_bfloat16* dp;                // [B, nvox, C] or null
+  __nv_bfloat16* dt[kMaxTargets];   // [B, nvox, C] or null, each
+  int64_t nvox, items;
+  int C, K;
+};
+
+__device__ __forceinline__ float dice_dp(float g0, const float* gi, const float* tv, int K) {
+  float d = g0;
+#pragma unroll
+  for (int k = 0; k < kMaxTargets; ++k)
+    if (k < K) d = __fadd_rn(d, __fmul_rn(gi[k], tv[k]));
+  return d;
+}
+
+// The element path: elements from..n of batch entry b in steps of stride,
+// the class of each from its index.
+__device__ __forceinline__ void dice_vjp_elements(const DiceVjpArgs& a, int b,
+                                                  int64_t from, int64_t stride) {
+  const int rows = 1 + 2 * a.K;
+  const int64_t n = a.nvox * a.C, base = (int64_t)b * n;
+  const float* g = a.g + (int64_t)b * rows * a.C;
+  for (int64_t e = from; e < n; e += stride) {
+    const int c = (int)(e % a.C);
+    const float pv = __bfloat162float(a.p[base + e]);
+    if (a.dp != nullptr) {
+      float tv[kMaxTargets], gi[kMaxTargets];
+#pragma unroll
+      for (int k = 0; k < kMaxTargets; ++k) {
+        tv[k] = k < a.K ? __bfloat162float(a.t[k][base + e]) : 0.f;
+        gi[k] = k < a.K ? g[(2 + 2 * k) * a.C + c] : 0.f;
+      }
+      a.dp[base + e] = __float2bfloat16_rn(dice_dp(g[c], gi, tv, a.K));
+    }
+#pragma unroll
+    for (int k = 0; k < kMaxTargets; ++k)
+      if (k < a.K && a.dt[k] != nullptr)
+        a.dt[k][base + e] = __float2bfloat16_rn(
+            __fadd_rn(g[(1 + 2 * k) * a.C + c], __fmul_rn(g[(2 + 2 * k) * a.C + c], pv)));
+  }
+}
+
+// C dividing 8: the forward's items and plan; a thread loads kUnroll items
+// of pred and of each target it needs before it stores one, one 16-byte
+// store an item and output; g in registers.
+template <int C>
+__global__ void __launch_bounds__(kThreads) dice_vjp_vec_kernel(const DiceVjpArgs a) {
+  const int b = blockIdx.y, rows = 1 + 2 * a.K;
+  const int64_t first = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  const int64_t base = (int64_t)b * a.nvox * C;
+  float gv[kRows][C];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int c = 0; c < C; ++c) gv[r][c] = r < rows ? a.g[((int64_t)b * rows + r) * C + c] : 0.f;
+  const bool need_dp = a.dp != nullptr;
+  bool need_dt[kMaxTargets];
+  bool any_dt = false;
+#pragma unroll
+  for (int k = 0; k < kMaxTargets; ++k) {
+    need_dt[k] = k < a.K && a.dt[k] != nullptr;
+    any_dt = any_dt || need_dt[k];
+  }
+  const uint4* pq = reinterpret_cast<const uint4*>(a.p + base);
+  const uint4* tq[kMaxTargets];
+  uint4* dtq[kMaxTargets];
+#pragma unroll
+  for (int k = 0; k < kMaxTargets; ++k) {
+    tq[k] = reinterpret_cast<const uint4*>(k < a.K ? a.t[k] + base : a.p + base);
+    dtq[k] = need_dt[k] ? reinterpret_cast<uint4*>(a.dt[k] + base) : nullptr;
+  }
+  uint4* dpq = need_dp ? reinterpret_cast<uint4*>(a.dp + base) : nullptr;
+
+  auto load = [&](int64_t i, Item& pv, Item (&tv)[kMaxTargets]) {
+    if (any_dt) pv.q = __ldcs(pq + i);
+#pragma unroll
+    for (int k = 0; k < kMaxTargets; ++k)
+      if (need_dp && k < a.K) tv[k].q = __ldcs(tq[k] + i);
+  };
+  auto store = [&](int64_t i, const Item& pv, const Item (&tv)[kMaxTargets]) {
+    if (need_dp) {
+      Item o;
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        float2 t2[kMaxTargets];
+#pragma unroll
+        for (int k = 0; k < kMaxTargets; ++k)
+          t2[k] = k < a.K ? __bfloat1622float2(tv[k].h[h]) : make_float2(0.f, 0.f);
+        const int c0 = (2 * h) % C, c1 = (2 * h + 1) % C;
+        float d0 = gv[0][c0], d1 = gv[0][c1];
+#pragma unroll
+        for (int k = 0; k < kMaxTargets; ++k) {
+          if (k < a.K) {
+            d0 = __fadd_rn(d0, __fmul_rn(gv[2 + 2 * k][c0], t2[k].x));
+            d1 = __fadd_rn(d1, __fmul_rn(gv[2 + 2 * k][c1], t2[k].y));
+          }
+        }
+        o.h[h] = __floats2bfloat162_rn(d0, d1);
+      }
+      dpq[i] = o.q;
+    }
+#pragma unroll
+    for (int k = 0; k < kMaxTargets; ++k) {
+      if (need_dt[k]) {
+        Item o;
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const float2 p2 = __bfloat1622float2(pv.h[h]);
+          const int c0 = (2 * h) % C, c1 = (2 * h + 1) % C;
+          o.h[h] = __floats2bfloat162_rn(
+              __fadd_rn(gv[1 + 2 * k][c0], __fmul_rn(gv[2 + 2 * k][c0], p2.x)),
+              __fadd_rn(gv[1 + 2 * k][c1], __fmul_rn(gv[2 + 2 * k][c1], p2.y)));
+        }
+        dtq[k][i] = o.q;
+      }
+    }
+  };
+  Item pr[kUnroll], tr[kUnroll][kMaxTargets];
+  int64_t e = first;
+  for (; e + (kUnroll - 1) * stride < a.items; e += kUnroll * stride) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) load(e + u * stride, pr[u], tr[u]);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) store(e + u * stride, pr[u], tr[u]);
+  }
+  for (; e < a.items; e += stride) {
+    load(e, pr[0], tr[0]);
+    store(e, pr[0], tr[0]);
+  }
+  dice_vjp_elements(a, b, 8 * a.items + first, stride);
+}
+
+// Any C, element path only.
+__global__ void __launch_bounds__(kThreads) dice_vjp_kernel(const DiceVjpArgs a) {
+  dice_vjp_elements(a, blockIdx.y, (int64_t)blockIdx.x * kThreads + threadIdx.x,
+                    (int64_t)gridDim.x * kThreads);
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return sms;
-}
-
-// Blocks a batch entry of vaeseg_dice_sums launches: a few per SM across
-// the batch, rounded up to a multiple of C so that gx * kThreads is one.
-long long dice_grid_x(int B, long long nvox, int C) {
-  const long long n = nvox * C;
-  long long gx = (n + (long long)kThreads * 8 - 1) / ((long long)kThreads * 8);
-  const long long cap = (16LL * sm_count() + B - 1) / B;
-  if (gx > cap) gx = cap;
-  return (gx + C - 1) / C * C;
+// The checks both dice launches share: the plan's items and grid, and the
+// vector path's alignment (every volume, and so every batch entry's base,
+// 16-byte aligned).
+bool dice_plan_ok(int B, long long nvox, int C, int K, long long items, long long blocks,
+                  const void* const* vols, int nvols) {
+  if (B <= 0 || B > 65535 || nvox <= 0 || C <= 0 || K < 1 || K > kMaxTargets ||
+      blocks <= 0 || blocks > 0x7fffffff || items < 0 || items > nvox * C / 8)
+    return false;
+  if (items == 0) return true;
+  if (8 % C != 0 || (B > 1 && (nvox * C) % 8 != 0)) return false;
+  for (int i = 0; i < nvols; ++i)
+    if (vols[i] != nullptr && !aligned16(vols[i])) return false;
+  return true;
 }
 
 }  // namespace
@@ -215,39 +487,82 @@ int vaeseg_softmax_vjp(const void* g, const void* y, void* out, long long nvox,
   return cudaGetLastError();
 }
 
-// The workspace vaeseg_dice_sums needs: [B, vaeseg_dice_parts, 1 + 2K, C]
-// f32.
-long long vaeseg_dice_parts(int B, long long nvox, int C) {
-  if (B <= 0 || nvox <= 0 || C <= 0) return 0;
-  return dice_grid_x(B, nvox, C);
-}
-
-// p and the K <= 3 targets: [B, nvox, C] bf16; part the workspace above,
-// of parts = vaeseg_dice_parts(B, nvox, C) blocks; out [B, 1 + 2K, C] f32,
-// written whole. Returns the first launch error.
+// p and the K <= 3 targets: [B, nvox, C] bf16; part: [B, blocks, 1 + 2K, C]
+// f32; out [B, 1 + 2K, C] f32, written whole; items and blocks from
+// ops/losses.py::dice_sums_plan (items > 0 only for C dividing 8 and every
+// volume 16-byte aligned, as every batch entry then is; for another C,
+// blocks * 256 a multiple of C). Returns the first launch error.
 int vaeseg_dice_sums(const void* p, const void* t0, const void* t1, const void* t2,
-                     void* part, long long parts, void* out, int B,
-                     long long nvox, int C, int K, void* stream) {
-  if (B <= 0 || B > 65535 || nvox <= 0 || C <= 0 || K < 1 || K > kMaxTargets)
+                     void* part, void* out, int B, long long nvox, int C, int K,
+                     long long items, long long blocks, void* stream) {
+  const void* vols[1 + kMaxTargets] = {p, t0, t1, t2};
+  if (!dice_plan_ok(B, nvox, C, K, items, blocks, vols, 1 + K))
     return cudaErrorInvalidValue;
-  const void* ts[kMaxTargets] = {t0, t1, t2};
   DiceArgs a;
   a.p = static_cast<const __nv_bfloat16*>(p);
   for (int k = 0; k < kMaxTargets; ++k) {
-    if (k < K && ts[k] == nullptr) return cudaErrorInvalidValue;
-    a.t[k] = static_cast<const __nv_bfloat16*>(ts[k]);
+    if (k < K && vols[1 + k] == nullptr) return cudaErrorInvalidValue;
+    a.t[k] = static_cast<const __nv_bfloat16*>(vols[1 + k]);
   }
   a.part = static_cast<float*>(part);
-  a.n = nvox * C;
-  a.C = C; a.K = K;
-  const long long gx = dice_grid_x(B, nvox, C);
-  if (gx != parts || gx > 0x7fffffff) return cudaErrorInvalidValue;
+  a.nvox = nvox;
+  a.items = items;
+  a.C = C;
+  a.K = K;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dice_sums_kernel<<<dim3((unsigned)gx, B, 1), kThreads, 0, st>>>(a);
+  const dim3 grid((unsigned)blocks, (unsigned)B, 1);
+  switch (C) {
+    case 1: dice_sums_vec_kernel<1><<<grid, kThreads, 0, st>>>(a); break;
+    case 2: dice_sums_vec_kernel<2><<<grid, kThreads, 0, st>>>(a); break;
+    case 4: dice_sums_vec_kernel<4><<<grid, kThreads, 0, st>>>(a); break;
+    case 8: dice_sums_vec_kernel<8><<<grid, kThreads, 0, st>>>(a); break;
+    default:
+      if ((blocks * kThreads) % C != 0) return cudaErrorInvalidValue;
+      dice_sums_kernel<<<grid, kThreads, 0, st>>>(a);
+  }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return parts_reduce<float>(a.part, static_cast<float*>(out), B, (int)gx,
+  return parts_reduce<float>(a.part, static_cast<float*>(out), B, (int)blocks,
                              (1 + 2 * K) * C, st);
+}
+
+// The VJP of dice_sums: p and the targets as above, g [B, 1 + 2K, C] f32;
+// dp and dt0..dt2 [B, nvox, C] bf16, each written whole where it is not
+// null (dp needs the K targets, a d t_k needs p); items and blocks from
+// dice_sums_plan with every volume, read or written, in its alignment.
+int vaeseg_dice_vjp(const void* p, const void* t0, const void* t1, const void* t2,
+                    const void* g, void* dp, void* dt0, void* dt1, void* dt2, int B,
+                    long long nvox, int C, int K, long long items, long long blocks,
+                    void* stream) {
+  const void* vols[2 + 2 * kMaxTargets] = {p, t0, t1, t2, dp, dt0, dt1, dt2};
+  if (!dice_plan_ok(B, nvox, C, K, items, blocks, vols, 2 + 2 * kMaxTargets) ||
+      g == nullptr || p == nullptr)
+    return cudaErrorInvalidValue;
+  void* dts[kMaxTargets] = {dt0, dt1, dt2};
+  DiceVjpArgs a;
+  a.p = static_cast<const __nv_bfloat16*>(p);
+  a.g = static_cast<const float*>(g);
+  a.dp = static_cast<__nv_bfloat16*>(dp);
+  for (int k = 0; k < kMaxTargets; ++k) {
+    if (k < K && dp != nullptr && vols[1 + k] == nullptr) return cudaErrorInvalidValue;
+    if (k >= K && dts[k] != nullptr) return cudaErrorInvalidValue;
+    a.t[k] = static_cast<const __nv_bfloat16*>(vols[1 + k]);
+    a.dt[k] = static_cast<__nv_bfloat16*>(dts[k]);
+  }
+  a.nvox = nvox;
+  a.items = items;
+  a.C = C;
+  a.K = K;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((unsigned)blocks, (unsigned)B, 1);
+  switch (C) {
+    case 1: dice_vjp_vec_kernel<1><<<grid, kThreads, 0, st>>>(a); break;
+    case 2: dice_vjp_vec_kernel<2><<<grid, kThreads, 0, st>>>(a); break;
+    case 4: dice_vjp_vec_kernel<4><<<grid, kThreads, 0, st>>>(a); break;
+    case 8: dice_vjp_vec_kernel<8><<<grid, kThreads, 0, st>>>(a); break;
+    default: dice_vjp_kernel<<<grid, kThreads, 0, st>>>(a);
+  }
+  return cudaGetLastError();
 }
 
 }  // extern "C"

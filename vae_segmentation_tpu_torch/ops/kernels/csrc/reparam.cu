@@ -23,9 +23,23 @@
 //
 // What bounds it on the H100: nothing of the card. The tensors are tiny
 // ([4, 128] in the VAE train step: 6 KB in, 6 KB out), so the launch itself
-// is the cost. One block walks the elements with a grid-stride loop and adds
-// the KL terms in shared memory: no atomics, so the KL is the same on every
-// run for the same inputs.
+// is the cost. One block walks the elements with a grid-stride loop; each
+// thread adds its KL terms in f64, a shuffle tree adds each warp's, and warp
+// 0 adds the warp sums in a fixed order and rounds the batch mean to f32
+// once: no atomics and no shared-memory tree of barriers, the same KL on
+// every run for the same inputs.
+//
+// reparam_kl_vjp_kernel is the VJP the JAX package attaches to the kernel
+// (reparam.py::_reparam_bwd, left to XLA there), one pass over [B, D]:
+//     d_mean = g_latent + gk mean
+//     d_std  = g_latent eps scale + gk (std - 1 / (std + 1e-5)),  gk = g_kl / B
+// with one rounding per operation in the order of the plain version
+// (ops/reparam.py::reparam_kl_vjp_plain), and ATen's own roundings there:
+// g_kl / B is g_kl times the f32 reciprocal of B taken on the host, and
+// 1 / x is the reciprocal of x. The seed and the scale get no gradient.
+//
+// launch_floor_kernel does nothing: timed as reparam_kl is, it is the
+// least a launch of one block costs on this card.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -34,6 +48,8 @@
 namespace {
 
 constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kVjpThreads = 256;
 constexpr float kKlEps = 1e-5f;
 
 struct Words4 { uint32_t x, y, z, w; };
@@ -70,9 +86,9 @@ __global__ void __launch_bounds__(kThreads) reparam_kl_kernel(
     const float* __restrict__ mean, const float* __restrict__ std_,
     const int* __restrict__ seed, float scale, float* __restrict__ latent,
     float* __restrict__ kl, float* __restrict__ eps_out, int n, int batch) {
-  __shared__ float red[kThreads];
+  __shared__ double warp_sums[kWarps];
   const uint32_t key = static_cast<uint32_t>(seed[0]);
-  float part = 0.f;
+  double part = 0.0;
   for (int i = threadIdx.x; i < n; i += kThreads) {
     const Words4 bits = philox4x32_10(Words4{static_cast<uint32_t>(i), 0u, 0u, 0u},
                                       key, 0u);
@@ -84,18 +100,39 @@ __global__ void __launch_bounds__(kThreads) reparam_kl_kernel(
     const float m = mean[i], s = std_[i];
     eps_out[i] = e;
     latent[i] = __fadd_rn(m, __fmul_rn(__fmul_rn(e, s), scale));
-    part += __fsub_rn(__fadd_rn(__fmul_rn(s, s), __fmul_rn(m, m)),
-                      __fmul_rn(2.0f, logf(__fadd_rn(s, kKlEps))));
+    part += static_cast<double>(
+        __fsub_rn(__fadd_rn(__fmul_rn(s, s), __fmul_rn(m, m)),
+                  __fmul_rn(2.0f, logf(__fadd_rn(s, kKlEps)))));
   }
-  red[threadIdx.x] = part;
-  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int w = kThreads / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
-    __syncthreads();
+  for (int off = 16; off > 0; off >>= 1) part += __shfl_down_sync(0xffffffffu, part, off);
+  if (lane == 0) warp_sums[warp] = part;
+  __syncthreads();
+  if (warp == 0) {
+    double total = lane < kWarps ? warp_sums[lane] : 0.0;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) total += __shfl_down_sync(0xffffffffu, total, off);
+    if (lane == 0) kl[0] = static_cast<float>(0.5 * total / batch);
   }
-  if (threadIdx.x == 0) kl[0] = 0.5f * red[0] / static_cast<float>(batch);
 }
+
+__global__ void __launch_bounds__(kVjpThreads) reparam_kl_vjp_kernel(
+    const float* __restrict__ mean, const float* __restrict__ std_,
+    const float* __restrict__ eps, const float* __restrict__ g_latent,
+    const float* __restrict__ g_kl, float inv_batch, float scale,
+    float* __restrict__ d_mean, float* __restrict__ d_std, int n) {
+  const float gk = __fmul_rn(g_kl[0], inv_batch);
+  for (int i = blockIdx.x * kVjpThreads + threadIdx.x; i < n; i += gridDim.x * kVjpThreads) {
+    const float m = mean[i], s = std_[i], gl = g_latent[i];
+    d_mean[i] = __fadd_rn(gl, __fmul_rn(gk, m));
+    const float recip = __frcp_rn(__fadd_rn(s, kKlEps));
+    d_std[i] = __fadd_rn(__fmul_rn(__fmul_rn(gl, eps[i]), scale),
+                         __fmul_rn(gk, __fsub_rn(s, recip)));
+  }
+}
+
+__global__ void launch_floor_kernel() {}
 
 }  // namespace
 
@@ -116,6 +153,32 @@ int vaeseg_reparam_kl(const void* mean, const void* std_, const void* seed,
       static_cast<const float*>(mean), static_cast<const float*>(std_),
       static_cast<const int*>(seed), scale, static_cast<float*>(latent),
       static_cast<float*>(kl), static_cast<float*>(eps), B * D, B);
+  return cudaGetLastError();
+}
+
+// mean, std, eps, g_latent, d_mean, d_std: [B, D] f32; g_kl: one f32;
+// inv_batch the f32 reciprocal of B. Returns cudaGetLastError() after the
+// launch.
+int vaeseg_reparam_kl_vjp(const void* mean, const void* std_, const void* eps,
+                          const void* g_latent, const void* g_kl, float inv_batch,
+                          float scale, void* d_mean, void* d_std, int B, int D,
+                          void* stream) {
+  if (B <= 0 || D <= 0 || static_cast<long long>(B) * D > (1LL << 30))
+    return cudaErrorInvalidValue;
+  const int n = B * D;
+  const int blocks = (n + kVjpThreads - 1) / kVjpThreads < 1024
+                         ? (n + kVjpThreads - 1) / kVjpThreads : 1024;
+  reparam_kl_vjp_kernel<<<blocks, kVjpThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(mean), static_cast<const float*>(std_),
+      static_cast<const float*>(eps), static_cast<const float*>(g_latent),
+      static_cast<const float*>(g_kl), inv_batch, scale, static_cast<float*>(d_mean),
+      static_cast<float*>(d_std), n);
+  return cudaGetLastError();
+}
+
+// One launch of the empty kernel (one block of one thread).
+int vaeseg_launch_floor(void* stream) {
+  launch_floor_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
   return cudaGetLastError();
 }
 

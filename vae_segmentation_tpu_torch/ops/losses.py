@@ -7,25 +7,29 @@ one_hot_label), which mirrors the reference's utils/evaluation.py:6-80 and
 main_source.py:150-182,390-392. The class axis is last; reductions run over
 every axis but batch and class.
 
-Two hand-written kernels live here (``kernels/csrc/losses.cu``), each with
-its plain version, launched on CUDA tensors and counted in ``.launches``:
-``softmax_vjp`` replaces the TPU's ``vae_segmentation_tpu/ops/pallas/
-softmaxvjp.py::softmax_group_vjp`` (the cotangent of K1's softmax
-epilogue; its grid and its 4-voxel items from ``softmax_vjp_plan``) and ``dice_sums`` replaces ``ops/pallas/dicesums.py::_run`` (every
-sum the adaptation loss's three soft Dices need, each volume read once).
-``multi_soft_dice`` is the differentiable use of the latter.
+Three hand-written kernels live here (``kernels/csrc/losses.cu``), each
+with its plain version, launched on CUDA tensors and counted in
+``.launches``: ``softmax_vjp`` replaces the TPU's ``vae_segmentation_tpu/
+ops/pallas/softmaxvjp.py::softmax_group_vjp`` (the cotangent of K1's
+softmax epilogue; its grid and its 4-voxel items from
+``softmax_vjp_plan``); ``dice_sums`` replaces ``ops/pallas/dicesums.py::
+_run`` (every sum the adaptation loss's three soft Dices need, each volume
+read once) and ``dice_sums_vjp`` the VJP attached to it there
+(dicesums.py::_bwd), both over the 16-byte items of ``dice_sums_plan``.
+``multi_soft_dice`` is their differentiable use.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import List, Sequence
 
 import torch
 import torch.nn.functional as F
 
 from vae_segmentation_tpu_torch.ops.conv3 import (
-    check_tensor, raise_if, sm_count)
+    check_tensor, on_device, raise_if, sm_count)
 
 # eps used by utils/evaluation.py:72-79 (the target-domain trainer)
 EVAL_EPS = 1e-6
@@ -184,7 +188,7 @@ def softmax_vjp(g: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return out
 
 
-# ---- fused Dice sums
+# ---- fused Dice sums and their VJP
 
 MAX_DICE_TARGETS = 3
 
@@ -203,51 +207,165 @@ def dice_sums_plain(pred: torch.Tensor, targets: Sequence[torch.Tensor]
     return torch.stack(rows, dim=1)
 
 
+# the plan of losses.cu's dice kernels
+DICE_THREADS = 256
+DICE_ITEMS_A_THREAD = 4         # items (or elements) a thread, about
+DICE_BLOCKS_A_SM = 8            # blocks an SM over the batch, at most
+
+
 @functools.lru_cache(maxsize=None)
-def _dice_parts(lib, b: int, nvox: int, c: int) -> int:
-    """The blocks a batch entry of ``vaeseg_dice_sums`` launches: the
-    partials its workspace holds (the kernel refuses another count)."""
-    return lib.vaeseg_dice_parts(b, nvox, c)
+def dice_sums_plan(b: int, nvox: int, c: int, k: int, vec: bool,
+                   sms: int) -> dict:
+    """The plan of one ``dice_sums`` or ``dice_sums_vjp`` call on K = `k`
+    targets of [b, nvox, c]: ``items``, a batch entry's 16-byte items of the
+    vector path (8 bf16: 8 // c voxels of c classes; c dividing 8 and every
+    volume 16-byte aligned, `vec`), else 0; the ``tail`` elements of a batch
+    entry from 8 * items on take the element path in the same launch;
+    ``blocks`` of ``threads`` a batch entry, sized for about
+    ``DICE_ITEMS_A_THREAD`` items (or elements) a thread, at most
+    ``DICE_BLOCKS_A_SM`` blocks an SM over the batch, and a multiple of c
+    over the threads (``blocks * threads`` a multiple of c: a thread's
+    elements keep one class); thread i takes items and tail elements i + j
+    ``stride``. ``rows`` = 1 + 2k sums; the forward's f32 ``workspace``
+    holds its [b, rows, c] result and the blocks' [b, blocks, rows, c]
+    partials. The result is cached: do not modify it."""
+    if b < 1 or nvox < 1 or c < 1 or not 1 <= k <= MAX_DICE_TARGETS:
+        raise ValueError(f"dice_sums: no call on [{b}, {nvox}, {c}] with "
+                         f"{k} targets")
+    n = nvox * c
+    items = n // 8 if vec and 8 % c == 0 else 0
+    tail = n - 8 * items
+    threads = DICE_THREADS
+    blocks = min(-(-(items + tail) // (threads * DICE_ITEMS_A_THREAD)),
+                 -(-DICE_BLOCKS_A_SM * sms // b))
+    step = c // math.gcd(c, threads)
+    blocks = -(-blocks // step) * step
+    rows = 1 + 2 * k
+    return {"items": items, "tail": tail, "blocks": blocks,
+            "threads": threads, "stride": blocks * threads, "rows": rows,
+            "workspace": b * rows * c * (1 + blocks)}
+
+
+def _dice_vec(vols: Sequence[torch.Tensor]) -> bool:
+    """Whether every volume (and so every batch entry's base, 8 elements a
+    16-byte item) is 16-byte aligned."""
+    b = vols[0].shape[0]
+    n = vols[0].numel() // b
+    return (b == 1 or n % 8 == 0) and all(t.data_ptr() % 16 == 0
+                                           for t in vols)
+
+
+def _dice_args(who: str, pred: torch.Tensor, targets: Sequence[torch.Tensor]):
+    """Raise on a call no dice kernel or plain version takes."""
+    if not 1 <= len(targets) <= MAX_DICE_TARGETS:
+        raise ValueError(f"{who}: 1 to {MAX_DICE_TARGETS} targets, got "
+                         f"{len(targets)}")
+    if pred.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"{who}: no kernel for device {pred.device}")
 
 
 def dice_sums(pred: torch.Tensor, targets: Sequence[torch.Tensor]
               ) -> torch.Tensor:
     """Same contract as ``dice_sums_plain`` for K <= 3 targets; on CUDA,
     all volumes must be contiguous bf16 of one shape."""
-    if not 1 <= len(targets) <= MAX_DICE_TARGETS:
-        raise ValueError(f"dice_sums: 1 to {MAX_DICE_TARGETS} targets, got "
-                         f"{len(targets)}")
+    _dice_args("dice_sums", pred, targets)
     if pred.device.type == "cpu":
         return dice_sums_plain(pred, targets)
-    if pred.device.type != "cuda":
-        raise RuntimeError(f"dice_sums: no kernel for device {pred.device}")
     from vae_segmentation_tpu_torch.ops.kernels import build
 
     _check_same("dice_sums", pred, targets)
     b, c = pred.shape[0], pred.shape[-1]
     k = len(targets)
     nvox = pred.numel() // (b * c)
-    out = torch.empty((b, 1 + 2 * k, c), dtype=torch.float32,
-                      device=pred.device)
+    dev = pred.device
+    plan = dice_sums_plan(b, nvox, c, k, _dice_vec((pred, *targets)),
+                          sm_count(dev.index or 0))
+    # the result and the blocks' partials (summed across the blocks in a
+    # fixed order) in one allocation
+    work = torch.empty(plan["workspace"], dtype=torch.float32, device=dev)
+    out = work[:b * plan["rows"] * c].view(b, plan["rows"], c)
     ptrs = [t.data_ptr() for t in targets] + [None] * (MAX_DICE_TARGETS - k)
     lib = build.library("losses")
-    with torch.cuda.device(pred.device):
-        # each block's partial, summed across the blocks in a fixed order
-        parts = _dice_parts(lib, b, nvox, c)
-        part = torch.empty((b, parts, 1 + 2 * k, c), dtype=torch.float32,
-                           device=pred.device)
+    with on_device(dev):
         rc = lib.vaeseg_dice_sums(
-            pred.data_ptr(), *ptrs, part.data_ptr(), parts, out.data_ptr(),
-            b, nvox, c, k, torch.cuda.current_stream(pred.device).cuda_stream)
+            pred.data_ptr(), *ptrs, work.data_ptr() + 4 * out.numel(),
+            out.data_ptr(), b, nvox, c, k, plan["items"], plan["blocks"],
+            torch.cuda.current_stream(dev).cuda_stream)
     raise_if(rc, lib, "dice_sums")
     dice_sums.launches += 1
     return out
 
 
+def dice_sums_vjp_plain(g: torch.Tensor, pred: torch.Tensor,
+                        targets: Sequence[torch.Tensor], need_pred: bool,
+                        need_targets: Sequence[bool]) -> tuple:
+    """The VJP of ``dice_sums`` for the cotangent g [B, 1 + 2K, C] of its
+    sums (dicesums.py:130-141): (dp, d t_0, ..., d t_{K-1}), None where the
+    `need_*` flag is False; dp = ((g0 + g2 t0) + g4 t1) + g6 t2 and
+    d t_k = g(1 + 2k) + g(2 + 2k) pred, g broadcast over the voxels, f32
+    math, stored in the volumes' dtypes."""
+    g = g.float()
+    lead = (slice(None),) + (None,) * (pred.dim() - 2)
+
+    def row(i):
+        return g[:, i][lead]
+
+    dp = row(0).expand(pred.shape) if need_pred else None
+    dts: List = []
+    for i, (t, need) in enumerate(zip(targets, need_targets)):
+        if dp is not None:
+            dp = dp + row(2 + 2 * i) * t.float()
+        dts.append((row(1 + 2 * i) + row(2 + 2 * i) * pred.float())
+                   .to(t.dtype) if need else None)
+    return (None if dp is None else dp.to(pred.dtype), *dts)
+
+
+def dice_sums_vjp(g: torch.Tensor, pred: torch.Tensor,
+                  targets: Sequence[torch.Tensor], need_pred: bool = True,
+                  need_targets: Sequence[bool] = (True,) * MAX_DICE_TARGETS
+                  ) -> tuple:
+    """Same contract as ``dice_sums_vjp_plain`` (`need_targets` one flag a
+    target, or more); on CUDA the volumes must be contiguous bf16 of one
+    shape and g [B, 1 + 2K, C] f32: one launch writes every gradient that
+    is needed, with the plain version's bits."""
+    _dice_args("dice_sums_vjp", pred, targets)
+    need_targets = tuple(bool(f) for f in need_targets[:len(targets)])
+    if pred.device.type == "cpu":
+        return dice_sums_vjp_plain(g, pred, targets, need_pred, need_targets)
+    from vae_segmentation_tpu_torch.ops.kernels import build
+
+    _check_same("dice_sums_vjp", pred, targets)
+    b, c = pred.shape[0], pred.shape[-1]
+    k = len(targets)
+    dev = pred.device
+    check_tensor("dice_sums_vjp", "g", g, dev, torch.float32,
+                 (b, 1 + 2 * k, c))
+    outs = [torch.empty_like(pred) if need else None
+            for need in (need_pred, *need_targets)]
+    if not any(o is not None for o in outs):
+        return tuple(outs)
+    nvox = pred.numel() // (b * c)
+    vols = [pred, *targets, *(o for o in outs if o is not None)]
+    plan = dice_sums_plan(b, nvox, c, k, _dice_vec(vols),
+                          sm_count(dev.index or 0))
+    ptrs = [t.data_ptr() for t in targets] + [None] * (MAX_DICE_TARGETS - k)
+    optrs = [None if o is None else o.data_ptr() for o in outs] \
+        + [None] * (MAX_DICE_TARGETS - k)
+    lib = build.library("losses")
+    with on_device(dev):
+        rc = lib.vaeseg_dice_vjp(
+            pred.data_ptr(), *ptrs, g.data_ptr(), *optrs, b, nvox, c, k,
+            plan["items"], plan["blocks"],
+            torch.cuda.current_stream(dev).cuda_stream)
+    raise_if(rc, lib, "dice_sums_vjp")
+    dice_sums_vjp.launches += 1
+    return tuple(outs)
+
+
 class _DiceSumsFn(torch.autograd.Function):
     """``dice_sums`` with the backward the JAX package leaves to XLA
-    (dicesums.py:130-141): d sum(p) / dp = 1, d sum(p * t) / dp = t, plain
-    broadcasts."""
+    (dicesums.py:130-141), ``dice_sums_vjp``: d sum(p) / dp = 1,
+    d sum(p * t) / dp = t, plain broadcasts, one launch on the card."""
 
     @staticmethod
     def forward(ctx, pred, *targets):
@@ -257,20 +375,10 @@ class _DiceSumsFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         pred, *targets = ctx.saved_tensors
-        g = g.float()
-        lead = (slice(None),) + (None,) * (pred.dim() - 2)
-
-        def row(i):
-            return g[:, i][lead]
-
-        dp = row(0).expand(pred.shape) if ctx.needs_input_grad[0] else None
-        dts: List = []
-        for i, t in enumerate(targets):
-            if dp is not None:
-                dp = dp + row(2 + 2 * i) * t.float()
-            dts.append((row(1 + 2 * i) + row(2 + 2 * i) * pred.float())
-                       .to(t.dtype) if ctx.needs_input_grad[1 + i] else None)
-        return (None if dp is None else dp.to(pred.dtype), *dts)
+        if pred.device.type == "cuda":
+            g = g.float().contiguous()
+        return dice_sums_vjp(g, pred, targets, ctx.needs_input_grad[0],
+                             ctx.needs_input_grad[1:])
 
 
 def multi_soft_dice(pred: torch.Tensor, targets: Sequence[torch.Tensor],
@@ -286,3 +394,4 @@ def multi_soft_dice(pred: torch.Tensor, targets: Sequence[torch.Tensor],
 
 softmax_vjp.launches = 0
 dice_sums.launches = 0
+dice_sums_vjp.launches = 0

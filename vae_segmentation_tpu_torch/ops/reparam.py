@@ -17,10 +17,12 @@ u1 clamped at 1e-7, the cosine branch): the kernel in CUDA, the plain
 JAX's; tests hand JAX's eps to ``reparam_kl_plain``.
 
 ``reparam_kl`` is the differentiable use: a ``torch.autograd.Function``
-whose backward is the analytic VJP of reparam.py:146-159 (plain torch, as
-the JAX package leaves it to XLA); the seed gets no gradient and eps is a
-residual. ``reparam_kl.launches`` counts kernel launches (never the plain
-version).
+whose backward is the analytic VJP of reparam.py:146-159, which the JAX
+package leaves to XLA: ``reparam_kl_vjp``, one launch of the hand-written
+``reparam.cu::reparam_kl_vjp_kernel`` on the card, ``reparam_kl_vjp_plain``
+on the CPU; the seed gets no gradient and eps is a residual.
+``reparam_kl.launches`` and ``reparam_kl_vjp.launches`` count kernel
+launches (never the plain versions).
 """
 
 from __future__ import annotations
@@ -28,9 +30,11 @@ from __future__ import annotations
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
-from vae_segmentation_tpu_torch.ops.conv3 import check_tensor, raise_if
+from vae_segmentation_tpu_torch.ops.conv3 import (
+    check_tensor, on_device, raise_if)
 
 KL_EPS = 1e-5
 SEED_MAX = 2 ** 31 - 1          # seeds are drawn from [0, SEED_MAX)
@@ -133,11 +137,12 @@ def reparam_kl_op(mean: torch.Tensor, std: torch.Tensor, scale: float,
     check_tensor("reparam_kl", "std", std, dev, torch.float32, (b, d))
     check_tensor("reparam_kl", "seed", seed.reshape(-1)[:1], dev, torch.int32,
                  (1,))
-    latent = torch.empty_like(mean)
-    eps = torch.empty_like(mean)
-    kl = torch.empty((), dtype=torch.float32, device=dev)
+    # latent, eps and kl in one allocation
+    n = b * d
+    out = torch.empty(2 * n + 1, dtype=torch.float32, device=dev)
+    latent, eps, kl = out[:n].view(b, d), out[n:2 * n].view(b, d), out[2 * n]
     lib = build.library("reparam")
-    with torch.cuda.device(dev):
+    with on_device(dev):
         rc = lib.vaeseg_reparam_kl(
             mean.data_ptr(), std.data_ptr(), seed.data_ptr(), float(scale),
             latent.data_ptr(), kl.data_ptr(), eps.data_ptr(), b, d,
@@ -147,10 +152,59 @@ def reparam_kl_op(mean: torch.Tensor, std: torch.Tensor, scale: float,
     return latent, kl, eps
 
 
+def reparam_kl_vjp_plain(mean: torch.Tensor, std: torch.Tensor,
+                         eps: torch.Tensor, g_latent: torch.Tensor,
+                         g_kl: torch.Tensor, scale: float
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(d_mean, d_std), the VJP of reparam.py:146-159 for the cotangents
+    g_latent [B, D] and g_kl (a scalar) in eager PyTorch: gk = g_kl / B,
+    d_mean = g_latent + gk mean, d_std = g_latent eps scale +
+    gk (std - 1 / (std + 1e-5))."""
+    gk = g_kl.float() / mean.shape[0]
+    mean32, std32 = mean.float(), std.float()
+    d_mean = g_latent + gk * mean32
+    d_std = g_latent * eps * scale + gk * (std32 - 1.0 / (std32 + KL_EPS))
+    return d_mean.to(mean.dtype), d_std.to(std.dtype)
+
+
+def reparam_kl_vjp(mean: torch.Tensor, std: torch.Tensor, eps: torch.Tensor,
+                   g_latent: torch.Tensor, g_kl: torch.Tensor, scale: float
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Same contract as ``reparam_kl_vjp_plain``; on CUDA, mean, std, eps and
+    g_latent are contiguous [B, D] f32 and g_kl one f32: one launch with the
+    plain version's bits (ATen's roundings: g_kl / B as g_kl times the f32
+    reciprocal of B, 1 / x as the reciprocal of x)."""
+    if mean.device.type == "cpu":
+        return reparam_kl_vjp_plain(mean, std, eps, g_latent, g_kl, scale)
+    if mean.device.type != "cuda":
+        raise RuntimeError(f"reparam_kl_vjp: no kernel for device "
+                           f"{mean.device}")
+    from vae_segmentation_tpu_torch.ops.kernels import build
+
+    b, d = mean.shape
+    dev = mean.device
+    for name, t in (("mean", mean), ("std", std), ("eps", eps),
+                    ("g_latent", g_latent)):
+        check_tensor("reparam_kl_vjp", name, t, dev, torch.float32, (b, d))
+    check_tensor("reparam_kl_vjp", "g_kl", g_kl.reshape(1), dev,
+                 torch.float32, (1,))
+    grads = torch.empty((2, b, d), dtype=torch.float32, device=dev)
+    lib = build.library("reparam")
+    with on_device(dev):
+        rc = lib.vaeseg_reparam_kl_vjp(
+            mean.data_ptr(), std.data_ptr(), eps.data_ptr(),
+            g_latent.data_ptr(), g_kl.data_ptr(),
+            float(np.float32(1.0) / np.float32(b)), float(scale),
+            grads[0].data_ptr(), grads[1].data_ptr(), b, d,
+            torch.cuda.current_stream(dev).cuda_stream)
+    raise_if(rc, lib, "reparam_kl_vjp")
+    reparam_kl_vjp.launches += 1
+    return grads[0], grads[1]
+
+
 class _ReparamKLFn(torch.autograd.Function):
-    """``reparam_kl_op`` with the analytic VJP of reparam.py:146-159:
-    d_mean = g_latent + (g_kl / B) mean, d_std = g_latent eps scale +
-    (g_kl / B) (std - 1 / (std + 1e-5))."""
+    """``reparam_kl_op`` with the analytic VJP of reparam.py:146-159,
+    ``reparam_kl_vjp`` (one launch on the card)."""
 
     @staticmethod
     def forward(ctx, mean, std, seed, scale):
@@ -163,12 +217,11 @@ class _ReparamKLFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_latent, g_kl, _g_eps):
         mean, std, eps = ctx.saved_tensors
-        gk = g_kl.float() / mean.shape[0]
-        mean32, std32 = mean.float(), std.float()
-        d_mean = g_latent + gk * mean32
-        d_std = g_latent * eps * ctx.scale \
-            + gk * (std32 - 1.0 / (std32 + KL_EPS))
-        return d_mean.to(mean.dtype), d_std.to(std.dtype), None, None
+        if mean.device.type == "cuda":
+            g_latent = g_latent.contiguous()
+        d_mean, d_std = reparam_kl_vjp(mean, std, eps, g_latent, g_kl,
+                                       ctx.scale)
+        return d_mean, d_std, None, None
 
 
 def reparam_kl(mean: torch.Tensor, std: torch.Tensor, scale: float,
@@ -187,3 +240,4 @@ def draw_seed(generator: torch.Generator, device) -> torch.Tensor:
 
 
 reparam_kl.launches = 0
+reparam_kl_vjp.launches = 0
