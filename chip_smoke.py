@@ -170,9 +170,35 @@ Phases, each printed as JSON records:
      every gradient), its backward against the plain backward on one
      shared forward (phase 9's ``vae_backward_gate``), and phase 10's 3
      vae_train steps on the merged route (the same launches a step).
- 14. the ``kernels`` line (sixteen kernels; those of an opt-in route
-     carry its switch in ``path`` and count their launches on its runs),
-     then the last line ``{"ok": true, "device": {...}}``.
+ 14. test time, on the default route (``test_time``): (a) the target CLI
+     ``--test_only --val_finetune 1`` on phase 3's cases and checkpoint
+     (ft1: one finetune step and two Joint forwards a case, derived from
+     the model; score_0 and score_noft_0 with a Dice in [0, 1] a case, and
+     score_noft_0 equal to phase 3's score_0 value for value: every call
+     repeats bit for bit, so a difference is the finetune copy leaking into
+     the student); (b) one ft1 step at batch 1 on case 0 through the CLI's
+     finetune (``target_main._make_finetune``): every kernel call held
+     against its plain version under phase 5's rules, untimed
+     (``check_untimed``), launches derived from the model, the loss terms
+     and the Seg update within ``DRIFT_MULTIPLE`` times the plain path's
+     own drift under reordered f32 sums (phase 6's rule), the finetune
+     copy's VAE and the student's weights and requires_grad flags bit for
+     bit as before, and the host-clock time ft1 adds to a case; (c) two
+     synthetic 160^3 cases (padded to 192^3: 8 windows of 128^3 at overlap
+     0.5, 2 chunks at batch 4) through the target CLI ``--eval_mode
+     sliding_window -b 4``: plain, with ``--postprocess
+     --postprocess_min_voxels 100`` and composed with ``--val_finetune 1``
+     (each Dice in [0, 1], launches = chunks x the SegUNet forward's plus
+     the finetune steps, score_noft_0 of the composed run equal to the
+     plain sweep's score_0); every kernel call of one batch-4 window chunk
+     held against its plain version (untimed); case 0's stitched
+     probabilities on the kernel path against the plain path (mean abs
+     difference within ``DRIFT_MULTIPLE`` times the plain path's reordered
+     drift, Dice within 0.01); the sweep's seconds, windows and ms a chunk.
+ 15. the ``kernels`` line (sixteen kernels; those of an opt-in route
+     carry its switch in ``path`` and count their launches on its runs;
+     the others count phase 14's CLI runs in ``launches_test_time_path``
+     too), then the last line ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero without the last line. Without a CUDA GPU
 it exits 2 and prints no result. All records also go to --out (JSON,
 default smoke_out/chip_smoke.json).
@@ -1762,6 +1788,28 @@ def check_step_calls(torch, calls, log, failures,
     return totals
 
 
+def check_untimed(torch, calls, log, failures, phase: str) -> dict:
+    """check_step_calls' rules without its timing: every recorded call
+    held against its plain version and repeated (check_calls), a record a
+    distinct call. Returns per-kernel totals (calls, largest error, ok)."""
+    totals = {}
+    for k in check_calls(torch, calls, failures, phase).values():
+        d = k["desc"]
+        rec = {"phase": phase, **d, "calls_per_pass": k["count"],
+               **k["worst"], "ok": k["ok"]}
+        if k["repeat"] is not None:
+            rec["repeat_bitwise"] = k["repeat"]
+        emit(rec, log)
+        if not rec["ok"]:
+            failures.append(f"{phase}: {d} disagrees with its plain version")
+        name = d["kernel"] + ("" if d.get("role", "fwd") == "fwd" else "/dx")
+        t = totals.setdefault(name, {"calls": 0, "err": 0.0, "ok": True})
+        t["calls"] += k["count"]
+        t["err"] = max(t["err"], rec["max_abs_err"])
+        t["ok"] = t["ok"] and rec["ok"]
+    return totals
+
+
 # ---- the train path
 
 
@@ -2191,11 +2239,12 @@ def added(*counts) -> dict:
     return {k: sum(c[k] for c in counts) for k in KERNEL_NAMES}
 
 
-def read_scores(work: str, prefix: str, epochs) -> list:
+def read_scores(work: str, prefix: str, epochs, name: str = "score"
+                ) -> list:
     out = []
     for epoch in epochs:
         path = os.path.join(work, "tensorboard", prefix,
-                            f"score_{epoch}.json")
+                            f"{name}_{epoch}.json")
         if os.path.exists(path):
             with open(path) as f:
                 out.append(json.load(f))
@@ -2273,6 +2322,277 @@ def kernel_sass(sass: str, kernel: str) -> dict:
             for op, n in sass_counts(body).items():
                 out[op] += n
     return out
+
+
+# ---- phase 14: test time (ft1 and the sliding-window sweep)
+
+# the kernels of a finetune step and of a window chunk: phase 14 fails if
+# its runs launch one of them no time
+TEST_TIME_KERNELS = ("conv3", "down_k2s2", "up_k2s2", "conv3_dk",
+                     "down_k2s2_bwd", "up_k2s2_bwd", "softmax_vjp",
+                     "dice_sums", "dice_sums_vjp")
+
+SW_PATCH, SW_BATCH, SW_OVERLAP, SW_SIZE, SW_CASES = (128, 128, 128), 4, 0.5, \
+    160, 2
+
+
+def test_time(torch, ops, run_cli, record_checked, model, image, label,
+              work, data, manifest, args, log, failures) -> dict:
+    """Phase 14: ft1 on the crop eval, one ft1 step's kernel calls and
+    gates, the sliding-window sweep alone, post-processed and composed with
+    ft1 (both route switches unset, as in phase 3). Returns the launches
+    of its CLI runs."""
+    import copy
+    import dataclasses
+
+    from vae_segmentation_tpu_torch.cli import target_main
+    from vae_segmentation_tpu_torch.cli.common import (
+        sweep_volume, volume_dice)
+    from vae_segmentation_tpu_torch.core.config import parse_target_args
+    from vae_segmentation_tpu_torch.data.pipeline import FullVolumeDataset
+    from vae_segmentation_tpu_torch.data.synthetic import (
+        write_synthetic_dataset)
+    from vae_segmentation_tpu_torch.data.transforms import parse_pan_index
+    from vae_segmentation_tpu_torch.eval.sliding_window import (
+        sliding_window_predict, window_starts)
+    t_phase = time.time()
+    # the ft1 recipes' loss (scripts/target/domain_*_ft1.bash): dh type 8,
+    # lambda 1, dropout 0
+    base = ["--method", "domain_adaptation", "--test_only",
+            "--load_prefix_joint", "smoke", "--save_root",
+            os.path.join(work, "3dmodel"), "--domain_loss_type", "8",
+            "--lambda_vae", "1.0", "--val_list", "NIH_val",
+            "--patch_size", *map(str, SW_PATCH), "--device", "cuda"]
+    dev = image.device
+    fwd = {**{k: 0 for k in KERNEL_NAMES}, **PER_FORWARD}
+    ft_step = expected_step_launches(model)
+    seg_fwd = forward_launches(model.Seg)
+    student0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    flags0 = {k: p_.requires_grad for k, p_ in model.named_parameters()}
+
+    def student_unchanged() -> bool:
+        return all(torch.equal(v, student0[k])
+                   for k, v in model.state_dict().items()) and flags0 == {
+            k: p_.requires_grad for k, p_ in model.named_parameters()}
+
+    # ---- (a) ft1 on the crop eval: one finetune step and two Joint
+    # forwards a case; score_noft_0 is phase 3's score_0, value for value
+    _, a_s, a_launches = run_cli(target_main.main, [
+        "smoke_ft1", *base, "--val_data_root", data, "--data_path",
+        manifest, "--val_batch", "1", "--val_finetune", "1"])
+    a_want = scaled(added(ft_step, scaled(fwd, 2)), args.cases)
+    scores = (read_scores(work, "smoke_ft1", (0,)) or [{}])[0]
+    noft = (read_scores(work, "smoke_ft1", (0,), "score_noft") or [{}])[0]
+    plain = (read_scores(work, "smoke", (0,)) or [{}])[0]
+    a_ok = (a_launches == a_want and noft == plain
+            and all(len(sc) == args.cases
+                    and all(0.0 <= v <= 1.0 for v in sc.values())
+                    for sc in (scores, noft)))
+    if not a_ok:
+        failures.append(f"test_time_ft1: launches {a_launches} (want "
+                        f"{a_want}), scores {scores}, score_noft {noft}, "
+                        f"phase 3's {plain}")
+    emit({"phase": "test_time_ft1", "cases": args.cases, "cli_s": a_s,
+          "scores": scores, "scores_noft": noft, "main_path_scores": plain,
+          "launches": a_launches, "launches_expected": a_want,
+          "ok": a_ok}, log)
+
+    # ---- (b) one ft1 step on case 0 at batch 1, through the CLI's
+    # finetune: every kernel call against its plain version, then the loss
+    # terms and the Seg update against the plain path's own drift
+    ft_cfg = parse_target_args(["smoke_ft1_step", *base,
+                                "--val_finetune", "1"])
+    sched = target_main._epoch_sched(ft_cfg, 0, ft_cfg.lambda_vae)
+    teacher = copy.deepcopy(model)
+    for p_ in teacher.parameters():
+        p_.requires_grad_(False)
+
+    def ft1_step(lr=ft_cfg.lr_finetune):
+        """(loss terms, Seg update, VAE unchanged, ft model) of one
+        finetune from the student: at lr 0 the weights a recorded call
+        holds stay the ones it ran with."""
+        finetune, ft_model = target_main._make_finetune(
+            dataclasses.replace(ft_cfg, lr_finetune=lr), 2, dev)
+        aux = finetune(model, teacher, image[..., 0], label, sched)
+        torch.cuda.synchronize()
+        now = ft_model.state_dict()
+        update = {k: (now[k] - student0[k]).float() for k in now
+                  if k.startswith("Seg.")}
+        vae_still = all(torch.equal(v, student0[k]) for k, v in now.items()
+                        if k.startswith("Vae."))
+        return {k: v.item() for k, v in aux.items()}, update, vae_still, \
+            ft_model
+
+    _, ft_totals, calls = record_checked(lambda: ft1_step(0.0)[:3],
+                                         ft_step, "ft1_step_kernel",
+                                         "ft1 step", timed=False)
+    del calls
+    with plain_ops(reordered=True):
+        aux_r, upd_r = ft1_step()[:2]
+    with plain_ops():
+        aux_p, upd_p = ft1_step()[:2]
+    ops.reset_launch_counts()
+    aux_k, upd_k, vae_still, ft_model = ft1_step()
+    b_launches = ops.launch_counts()
+    del ft_model
+    # what ft1 adds to a case: the copy, the freeze, the optimizer and one
+    # step (host clock, synchronised)
+    finetune = target_main._make_finetune(ft_cfg, 2, dev)[0]
+    step_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        finetune(model, teacher, image[..., 0], label, sched)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    del finetune
+    keys = ("recon_loss", "dice_loss_fake", "dice_loss", "final_loss")
+    loss_err = {k: abs(aux_k[k] - aux_p[k]) for k in keys}
+    loss_drift = {k: abs(aux_r[k] - aux_p[k]) for k in keys}
+    loss_gate = max(DRIFT_MULTIPLE * max(loss_drift.values()), 1e-3)
+    err, drift, worst = drift_ratios(upd_k, upd_p, upd_r)
+    moved = all(bool(v.any()) for k, v in upd_k.items()
+                if k.endswith(".weight"))
+    b_ok = (b_launches == ft_step and vae_still and moved
+            and all(v <= loss_gate for v in loss_err.values())
+            and all(v <= DRIFT_MULTIPLE for v in worst.values())
+            and all(v == v and abs(v) != float("inf")
+                    for v in aux_k.values())
+            and student_unchanged())
+    if not b_ok:
+        failures.append("test_time_ft1_step: the ft1 step with kernels "
+                        "disagrees with the plain path, or it touched the "
+                        "student or the VAE")
+    emit({"phase": "test_time_ft1_step", "batch": 1,
+          "lr": ft_cfg.lr_finetune, "launches": b_launches,
+          "launches_expected": ft_step, "losses_kernels": aux_k,
+          "losses_plain": aux_p, "losses_reordered": aux_r,
+          "loss_err": loss_err, "loss_drift": loss_drift,
+          "loss_gate": loss_gate, "update_tensors": len(err),
+          "update_rel_l2_kernel_vs_plain": err,
+          "update_rel_l2_plain_vs_reordered": drift,
+          "worst_ratio": max(worst.values()),
+          "median_ratio": sorted(worst.values())[len(worst) // 2],
+          "seg_moved": moved, "vae_unchanged": vae_still,
+          "student_unchanged": student_unchanged(),
+          "step_ms": sorted(step_ms)[1], "step_ms_all": step_ms,
+          "drift_multiple": DRIFT_MULTIPLE, "ok": b_ok}, log)
+    del teacher
+    torch.cuda.empty_cache()
+
+    # ---- (c) the sliding window: 160^3 cases padded to 192^3, 8 windows
+    # of 128^3 at overlap 0.5, 2 chunks at -b 4, cropped back to 160^3
+    sw_data = os.path.join(work, "data_sw")
+    sw_manifest = write_synthetic_dataset(sw_data, n_train=0,
+                                          n_val=SW_CASES, size=SW_SIZE,
+                                          seed=args.seed + 5)
+    with open(sw_manifest) as f:
+        sw_entries = json.load(f)["NIH_val"]
+    cases = FullVolumeDataset(sw_entries, sw_data, parse_pan_index("1"))
+    vols = [(sweep_volume(cases[i]["image"], SW_PATCH, dev),
+             cases[i]["image"].shape) for i in range(len(cases))]
+    windows = [len(window_starts(tuple(v.shape), SW_PATCH, SW_OVERLAP))
+               for v, _ in vols]
+    chunks = sum(-(-n_ // SW_BATCH) for n_ in windows)
+    sweep_want = scaled(seg_fwd, chunks)
+    runs = {}
+    for name, extra, want in (
+            ("smoke_sw", [], sweep_want),
+            ("smoke_sw_pp", ["--postprocess", "--postprocess_min_voxels",
+                             "100"], sweep_want),
+            ("smoke_sw_ft1", ["--val_finetune", "1"],
+             added(scaled(sweep_want, 2), scaled(ft_step, SW_CASES)))):
+        _, secs, launches = run_cli(target_main.main, [
+            name, *base, "--val_data_root", sw_data, "--data_path",
+            sw_manifest, "--eval_mode", "sliding_window", "-b",
+            str(SW_BATCH), "--sw_overlap", str(SW_OVERLAP), *extra])
+        runs[name] = {
+            "cli_s": secs, "launches": launches,
+            "launches_expected": want,
+            "scores": (read_scores(work, name, (0,)) or [{}])[0],
+            "scores_noft": (read_scores(work, name, (0,), "score_noft")
+                            or [{}])[0]}
+    cli_ok = all(
+        r["launches"] == r["launches_expected"]
+        and len(r["scores"]) == SW_CASES
+        and all(0.0 <= v <= 1.0 for v in r["scores"].values())
+        for r in runs.values()) and \
+        runs["smoke_sw_ft1"]["scores_noft"] == runs["smoke_sw"]["scores"]
+
+    # every kernel call of one batch-4 window chunk, against its plain
+    # version
+    vol, shape = vols[0]
+    starts = window_starts(tuple(vol.shape), SW_PATCH, SW_OVERLAP)
+    p0, p1, p2 = SW_PATCH
+    chunk = torch.stack([vol[z:z + p0, y:y + p1, x:x + p2]
+                         for z, y, x in starts[:SW_BATCH].tolist()]
+                        )[..., None].contiguous()
+
+    def seg_chunk():
+        with torch.no_grad():
+            return model.segment(chunk)
+
+    _, sw_totals, calls = record_checked(seg_chunk, seg_fwd,
+                                         "sw_chunk_kernel", "window chunk",
+                                         timed=False)
+    del calls
+    chunk_ms = cuda_ms(torch, seg_chunk)
+
+    # case 0's stitched probabilities, kernel path against plain path
+    def sweep():
+        probs = sliding_window_predict(model.segment, vol, SW_PATCH,
+                                       SW_OVERLAP, SW_BATCH, 2)
+        torch.cuda.synchronize()
+        return probs[:shape[0], :shape[1], :shape[2]]
+
+    ops.reset_launch_counts()
+    probs_k = sweep()
+    sweep_launches = ops.launch_counts()
+    sweep_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        probs_k2 = sweep()
+        sweep_ms.append(1e3 * (time.perf_counter() - t0))
+    with plain_ops():
+        probs_p = sweep()
+    with plain_ops(reordered=True):
+        probs_r = sweep()
+    drift = {"kernel_vs_plain": _mean_abs(probs_k, probs_p),
+             "plain_vs_reordered": _mean_abs(probs_p, probs_r),
+             "kernel_vs_kernel": _mean_abs(probs_k, probs_k2)}
+    dice = [volume_dice(torch.argmax(p_, dim=-1), cases[0]["label"], 2)
+            for p_ in (probs_k, probs_p)]
+    finite = bool(torch.isfinite(probs_k).all())
+    c0_chunks = -(-windows[0] // SW_BATCH)
+    sweep_ok = (sweep_launches == scaled(seg_fwd, c0_chunks) and finite
+                and tuple(probs_k.shape) == (*shape, 2)
+                and abs(dice[0] - dice[1]) <= 0.01
+                and drift["kernel_vs_plain"]
+                <= DRIFT_MULTIPLE * drift["plain_vs_reordered"])
+    del probs_k, probs_k2, probs_p, probs_r, chunk
+    c_ok = cli_ok and sweep_ok
+    if not c_ok:
+        failures.append(f"test_time_sliding_window: CLI runs {runs}, the "
+                        "sweep with kernels against the plain path "
+                        f"{drift} {dice}, launches {sweep_launches}")
+    cli_s = runs["smoke_sw"]["cli_s"]
+    emit({"phase": "test_time_sliding_window", "cases": SW_CASES,
+          "size": SW_SIZE, "padded": list(vol.shape), "patch": SW_PATCH,
+          "batch": SW_BATCH, "overlap": SW_OVERLAP,
+          "windows_per_case": windows, "chunks": chunks, "runs": runs,
+          "cli_s_per_case": cli_s / SW_CASES,
+          "sweep_ms": sorted(sweep_ms)[1], "sweep_ms_all": sweep_ms,
+          "sweep_ms_per_chunk": sorted(sweep_ms)[1] / c0_chunks,
+          "chunk_forward_ms": chunk_ms, "sweep_launches": sweep_launches,
+          "mean_abs_drift": drift, "drift_multiple": DRIFT_MULTIPLE,
+          "dice_kernels": dice[0], "dice_plain": dice[1], "finite": finite,
+          "cli_ok": cli_ok, "sweep_ok": sweep_ok,
+          "phase_14_s": time.time() - t_phase, "ok": c_ok}, log)
+    del vols
+    torch.cuda.empty_cache()
+    return {"launches": added(a_launches,
+                              *[r["launches"] for r in runs.values()]),
+            "ft1_totals": ft_totals, "sw_totals": sw_totals}
 
 
 def main() -> int:
@@ -2394,11 +2714,12 @@ def main() -> int:
             finally:
                 os.chdir(cwd)
 
-        def record_checked(run, expected, phase, what):
+        def record_checked(run, expected, phase, what, timed=True):
             """run() on the plain path with every kernel call recorded: the
             calls per kernel against `expected`, then every call held against
-            its plain version (check_step_calls). Returns run()'s result, the
-            per-kernel totals and the calls."""
+            its plain version (check_step_calls; with timed=False
+            check_untimed, the same rules without the timing). Returns
+            run()'s result, the per-kernel totals and the calls."""
             calls = []
             with plain_ops(record=calls):
                 out = run()
@@ -2406,8 +2727,8 @@ def main() -> int:
             got = count_calls(calls)
             if got != expected:
                 failures.append(f"kernel calls per {what} {got} != {expected}")
-            return out, check_step_calls(torch, calls, log, failures,
-                                         phase=phase), calls
+            check = check_step_calls if timed else check_untimed
+            return out, check(torch, calls, log, failures, phase=phase), calls
 
         def eval_path(prefix, per_fwd, phase, prof_phase, extra=None):
             """Phases 3-4 and 12: the eval CLI --test_only on the synthetic
@@ -3103,10 +3424,17 @@ def main() -> int:
                      merged_totals["conv3_bwd"]["kernel_ms"],
                  "pair_ms_per_step": merged_totals["conv3_bwd"]["pair_ms"]})
         merged_launches = added(*mlaunches)
+
+        # ---- 14. test time on the default route: ft1 on the crop eval,
+        # one ft1 step's calls and gates, the sliding window alone,
+        # post-processed and composed with ft1
+        tt = test_time(torch, ops, run_cli, record_checked, model, image,
+                       label, work, data, manifest, args, log, failures)
+        test_time_launches = tt["launches"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 14. summary lines: K1-K3 per eval forward (phase 2), the backward
+    # ---- 15. summary lines: K1-K3 per eval forward (phase 2), the backward
     # and loss kernels per adaptation step (phase 5), reparam_kl per
     # vae_train step (phase 7); the kernels of an opt-in route per pass of
     # that route, and their launches counted on its runs: norm_stats and
@@ -3169,19 +3497,26 @@ def main() -> int:
                 failures.append(f"{name} was never launched on its route "
                                 f"({switch})")
         else:
-            rec.update(launches=eval_launches[name] + train_launches[name],
+            rec.update(launches=eval_launches[name] + train_launches[name]
+                       + test_time_launches[name],
                        launches_eval_path=eval_launches[name],
-                       launches_train_path=train_launches[name])
+                       launches_train_path=train_launches[name],
+                       launches_test_time_path=test_time_launches[name])
             if train_launches[name] == 0 or \
                     (name in PER_FORWARD and eval_launches[name] == 0):
                 failures.append(f"{name} was never launched on its main "
                                 "path")
+            if test_time_launches[name] == 0 and name in TEST_TIME_KERNELS:
+                failures.append(f"{name} was never launched on the test-time "
+                                "path (phase 14)")
         kernels.append(rec)
     emit({"phase": "step_totals", "per_kernel": step_totals}, log)
     emit({"phase": "vae_step_totals", "per_kernel": vae_totals}, log)
     emit({"phase": "norm_totals", "per_forward": norm_fwd_totals,
           "per_step": norm_step_totals}, log)
     emit({"phase": "merged_totals", "per_vae_step": merged_totals}, log)
+    emit({"phase": "test_time_totals", "per_ft1_step": tt["ft1_totals"],
+          "per_window_chunk": tt["sw_totals"]}, log)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump({"records": log, "kernels": kernels, "failures": failures,

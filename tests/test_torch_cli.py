@@ -90,8 +90,8 @@ def test_cli_without_gpu_or_cpu_request_raises(workdir):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--val_finetune", "1"],
-    ["--eval_mode", "sliding_window"],
+    ["--spatial_shards", "2"],
+    ["--load_prefix_encoder", "enc"],
     ["--load_prefix", "seg"],
     ["--save_eval_result"],
 ])

@@ -1062,3 +1062,55 @@ def test_dice_and_reparam_vjp_wrappers_reject_what_the_kernels_do_not_take(
                                0.35)
     with pytest.raises(ValueError):  # f64 statistics
         reparam.reparam_kl_vjp(m.double(), m, m, m, m[0, 0], 0.35)
+
+
+# ---- the sliding-window sweep at batch 4 (chip_smoke.py phase 14)
+
+
+def test_sliding_window_sweep_matches_plain(gen):
+    """A full-width SegUNet swept over one 160^3 phantom padded to 192^3
+    (8 windows of 128^3 at overlap 0.5, 2 chunks of 4): the launches of 2
+    SegUNet forwards, finite probabilities of the volume's shape, and the
+    kernel path against the plain path under chip_smoke's rule (mean abs
+    difference within DRIFT_MULTIPLE times the plain path's own drift under
+    reordered f32 sums, Dice within 0.01)."""
+    import numpy as np
+
+    import chip_smoke
+    from vae_segmentation_tpu_torch import ops
+    from vae_segmentation_tpu_torch.cli.common import (
+        sweep_volume, volume_dice)
+    from vae_segmentation_tpu_torch.data.synthetic import make_phantom
+    from vae_segmentation_tpu_torch.eval.sliding_window import (
+        sliding_window_predict)
+    from vae_segmentation_tpu_torch.models import SegUNet
+
+    case = make_phantom(np.random.default_rng(5), 160)
+    vol, shape = sweep_volume(case["image"], (128,) * 3, "cuda"), (160,) * 3
+    assert tuple(vol.shape) == (192, 192, 192)
+    net = SegUNet(n_class=2, generator=torch.Generator().manual_seed(0)
+                  ).cuda()
+
+    def sweep():
+        probs = sliding_window_predict(net, vol, (128, 128, 128), 0.5, 4, 2)
+        return probs[:shape[0], :shape[1], :shape[2]]
+
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        got = sweep()
+        counts = ops.launch_counts()
+        with chip_smoke.plain_ops():
+            plain = sweep()
+        with chip_smoke.plain_ops(reordered=True):
+            reordered = sweep()
+    assert (counts["conv3"], counts["down_k2s2"], counts["up_k2s2"]) == \
+        (2 * 26, 2 * 4, 2 * 4)
+    assert tuple(got.shape) == (160, 160, 160, 2)
+    assert bool(torch.isfinite(got).all())
+    err = (got - plain).abs().mean().item()
+    drift = (plain - reordered).abs().mean().item()
+    assert err <= chip_smoke.DRIFT_MULTIPLE * drift, (err, drift)
+    dice = [volume_dice(torch.argmax(p, dim=-1),
+                        case["label"].astype(np.float32), 2)
+            for p in (got, plain)]
+    assert abs(dice[0] - dice[1]) <= 0.01, dice

@@ -177,7 +177,6 @@ def test_the_warp_changes_the_step(workdir):
     (["--method", "joint_train"], "item 11"),
     (["--method", "vae_train", "--softrelu", "1"], "item 11"),
     (["--method", "vae_train", "--resume"], "item 3"),
-    (["--method", "seg_train", "--eval_mode", "sliding_window"], "item 6"),
     (["--method", "seg_train", "--save_eval_result"], "item 11"),
     (["--method", "seg_train", "--save_more_reference"], "item 11"),
     (["--method", "seg_train", "--load_prefix_vae", "vae"], "item 11"),

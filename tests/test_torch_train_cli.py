@@ -294,8 +294,6 @@ def test_cli_trains_two_outer_epochs(workdir, capsys, monkeypatch):
 @pytest.mark.parametrize("extra,item", [
     (["--pseudo_list", "NIH_train"], "item 3"),
     (["--resume"], "item 3"),
-    (["--val_finetune", "1"], "item 4"),
-    (["--eval_mode", "sliding_window"], "item 6"),
     (["--aug_host"], "item 3"),
 ])
 def test_cli_training_flags_of_later_slices_raise(workdir, extra, item):

@@ -5,13 +5,14 @@ normalization; common.py:89-144 of the JAX package), the validation
 batches, and the epoch bookkeeping: the score JSON and the best and
 periodic checkpoints (main_source.py:806-850, main_target.py:1022-1062).
 A checkpoint is a torch ``{'epoch', 'model_state_dict'}`` file
-(``core/checkpoint.py``)."""
+(``core/checkpoint.py``). ``run_sliding_window_eval`` is the full-volume
+eval of both trainers (common.py:321-385 of the JAX package)."""
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Callable, Dict, Iterator, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,8 +23,14 @@ from vae_segmentation_tpu_torch.core.config import CommonConfig
 from vae_segmentation_tpu_torch.data import augment
 from vae_segmentation_tpu_torch.data.manifest import filedict_from_json
 from vae_segmentation_tpu_torch.data.pipeline import (
-    CaseDataset, TrainLoader, intensity_normalize, iterate_batches)
+    CaseDataset, FullVolumeDataset, TrainLoader, intensity_normalize,
+    iterate_batches)
 from vae_segmentation_tpu_torch.data.transforms import parse_pan_index
+from vae_segmentation_tpu_torch.eval.evaluate import mean_score
+from vae_segmentation_tpu_torch.eval.postprocess import largest_components
+from vae_segmentation_tpu_torch.eval.sliding_window import (
+    sliding_window_predict)
+from vae_segmentation_tpu_torch.ops import losses as L
 
 
 def todo(what: str, item: str) -> None:
@@ -76,6 +83,82 @@ def val_batches(ds: CaseDataset, batch_size: int, device: torch.device
         yield batch
 
 
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def sweep_volume(image: np.ndarray, patch, device: torch.device
+                 ) -> torch.Tensor:
+    """A case's image as the sliding-window eval sweeps it: padded with
+    -1024 up to a multiple of 64 an axis, at least the patch (the JAX
+    package pads so for its compile cache; the padding moves the window
+    grid, so the port keeps it), then normalised on `device`."""
+    img = image.astype(np.float32)
+    padded = [_round_up(max(s, p), 64) for s, p in zip(img.shape, patch)]
+    img = np.pad(img, [(0, t - s) for s, t in zip(img.shape, padded)],
+                 constant_values=-1024.0)
+    return intensity_normalize(torch.from_numpy(img).to(device))
+
+
+def volume_dice(pred: torch.Tensor, label: np.ndarray, n_class: int
+                ) -> float:
+    """avg_dsc over classes [1, n_class) of the one-hot class map `pred`
+    [D, H, W] against the one-hot label."""
+    classes = torch.arange(n_class, device=pred.device)
+    onehot_pred = (pred[..., None] == classes).float()[None]
+    onehot_gt = L.one_hot_label(torch.from_numpy(label).to(pred.device),
+                                n_class, dtype=torch.float32)[None]
+    return float(L.avg_dsc(onehot_pred, onehot_gt, botindex=1,
+                           topindex=n_class))
+
+
+def run_sliding_window_eval(
+        cfg: CommonConfig,
+        seg_fn: Callable[[torch.nn.Module, torch.Tensor], torch.Tensor],
+        model: torch.nn.Module, *, n_class: int, data_root: str,
+        list_key: str, pan_index: str,
+        model_for_case: Optional[Callable[[Dict], torch.nn.Module]] = None
+        ) -> Tuple[float, Dict[int, float]]:
+    """Full-volume sliding-window eval (common.py:321-385 of the JAX
+    package): (mean Dice, {case index: Dice}), keyed as the crop path keys
+    its scores.
+
+    Each uncropped case (``sweep_volume``) is swept by
+    ``sliding_window_predict`` on the model's device with
+    ``seg_fn(model, images)`` at batch min(-b, 4) and --sw_overlap, cropped
+    back and argmaxed; with --postprocess the host keeps the largest
+    components (``largest_components``, --postprocess_min_voxels); the
+    class map is scored by ``volume_dice``. ``model_for_case(case)`` gives
+    a case its own model: the ft1 hook (the JAX package's
+    ``params_for_case``)."""
+    ds = FullVolumeDataset(filedict_from_json(cfg.data_path, list_key, 1),
+                           data_root, parse_pan_index(pan_index))
+    device = next(model.parameters()).device
+    patch = tuple(cfg.patch_size)
+    scores: Dict[int, float] = {}
+    for idx in range(len(ds)):
+        case = ds[idx]
+        net = model if model_for_case is None else model_for_case(case)
+        d, h, w = case["image"].shape
+        probs = sliding_window_predict(
+            lambda x: seg_fn(net, x),
+            sweep_volume(case["image"], patch, device), patch=patch,
+            overlap=cfg.sw_overlap, batch=min(cfg.batch_size, 4),
+            n_class=n_class)
+        pred = torch.argmax(probs[:d, :h, :w], dim=-1)
+        if getattr(cfg, "postprocess", False):
+            # the reference's predict_vol rule (utils/utils.py:777-796):
+            # keep the <= 2 largest foreground components above the voxel
+            # floor, on the host
+            pred_np = pred.cpu().numpy()
+            keep = largest_components(pred_np > 0,
+                                      min_voxels=cfg.postprocess_min_voxels)
+            pred = torch.from_numpy(pred_np * keep).to(device)
+        scores[int(case["index"])] = volume_dice(pred, case["label"],
+                                                 n_class)
+    return mean_score(scores), scores
+
+
 def make_train_ingest(cfg: CommonConfig, device: torch.device) -> Callable:
     """(host batch, generator) -> (image_norm [B, *patch], label [B, *patch])
     on `device`: the random affine warp drawn from `generator` (on
@@ -123,9 +206,12 @@ class EpochRunner:
         os.makedirs(cfg.save_path, exist_ok=True)
         os.makedirs(cfg.display_path, exist_ok=True)
 
-    def dump_scores(self, epoch: int, scores: Dict[int, float]) -> None:
+    def dump_scores(self, epoch: int, scores: Dict[int, float],
+                    name: str = "score") -> None:
+        """tensorboard/<prefix>/<name>_<epoch>.json: {case index: Dice}
+        (``score_noft`` holds ft1's scores without the finetune)."""
         with open(os.path.join(self.cfg.display_path,
-                               f"score_{epoch}.json"), "w") as f:
+                               f"{name}_{epoch}.json"), "w") as f:
             json.dump({str(k): v for k, v in scores.items()}, f)
 
     def end_of_epoch(self, epoch: int, dsc: float,

@@ -17,6 +17,10 @@ case), write ``tensorboard/<prefix>/score_<epoch>.json`` and the best and
 periodic checkpoints under ``<save_root>/<prefix>/``. The target CLI takes
 them as ``--load_prefix_vae`` and ``--load_prefix``. ``--load_prefix_vae``
 (vae_train) and ``--load_prefix`` (seg_train) start from a checkpoint.
+With ``--eval_mode sliding_window`` seg_train scores the full volumes
+(``cli/common.py::run_sliding_window_eval``: ``--sw_overlap``,
+``--postprocess``, ``--postprocess_min_voxels``); vae_train keeps the crop
+eval, as in the JAX package.
 
 The other methods and the flags this slice does not port raise
 NotImplementedError naming their ROADMAP item. It runs on ``--device cuda``
@@ -55,8 +59,6 @@ def _check_supported(cfg: SourceConfig) -> None:
         todo("--softrelu 1 (the soft-ReLU VAE)", "item 11")
     if cfg.resume:
         todo("--resume", "item 3")
-    if cfg.eval_mode != "crop":
-        todo(f"--eval_mode {cfg.eval_mode}", "item 6")
     if cfg.spatial_shards != 1:
         todo("--spatial_shards", "item 9")
     if cfg.save_eval_result or cfg.save_more_reference \
@@ -148,9 +150,15 @@ def run(cfg: SourceConfig) -> float:
                     _print_line(cfg.method, epoch, cfg.eval_epoch, idx,
                                 metrics)
         print("Start evaluation")
-        dsc, scores = run_eval(
-            common.val_batches(val_ds, cfg.val_batch, device), eval_step,
-            uses_image=not vae)
+        if cfg.eval_mode == "sliding_window" and not vae:
+            dsc, scores = common.run_sliding_window_eval(
+                cfg, lambda net, x: net(x), model, n_class=n_class,
+                data_root=cfg.val_data_root, list_key=cfg.val_list,
+                pan_index=cfg.pan_index)
+        else:
+            dsc, scores = run_eval(
+                common.val_batches(val_ds, cfg.val_batch, device), eval_step,
+                uses_image=not vae)
         runner.dump_scores(epoch, scores)
         runner.end_of_epoch(epoch, dsc, model)
         if cfg.test_only:

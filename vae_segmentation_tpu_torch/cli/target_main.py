@@ -17,11 +17,20 @@ checkpoints under ``<save_root>/<prefix>/``. With ``--test_only
 best_model.ckpt`` (a port or reference torch checkpoint) and writes
 ``score_0.json``. It runs on ``--device cuda`` unless told otherwise.
 
+``--val_finetune N`` (ft1) finetunes a copy of the student on each
+validation batch (N steps of the adaptation step's finetune variant, SGD at
+momentum 0 and ``--lr_finetune``, the VAE frozen) before scoring it, and
+writes the student's own scores beside as ``score_noft_<epoch>.json``;
+training runs do so from outer epoch 1. ``--eval_mode sliding_window``
+scores the full volumes instead of the ROI crops (``--sw_overlap``,
+``--postprocess``, ``--postprocess_min_voxels``; ``-b`` windows a chunk, at
+most 4); with ft1 each case's finetune takes its ROI crop and the sweep
+uses the finetuned copy.
+
 ``--vae_forward_scale`` is accepted and changes nothing, as in the JAX
 package (its Joint always encodes with the mean latent). ``--pseudo_list``,
-``--resume``, ``--val_finetune``, ``--aug_order 3``, ``--aug_host`` and every
-other method raise NotImplementedError naming the ROADMAP item that will
-port them.
+``--resume``, ``--aug_order 3``, ``--aug_host`` and every other method raise
+NotImplementedError naming the ROADMAP item that will port them.
 """
 
 from __future__ import annotations
@@ -37,9 +46,10 @@ from vae_segmentation_tpu_torch.cli.common import todo
 from vae_segmentation_tpu_torch.core.config import (
     TargetConfig, parse_target_args)
 from vae_segmentation_tpu_torch.core.device import resolve_device
-from vae_segmentation_tpu_torch.data.pipeline import TrainLoader
+from vae_segmentation_tpu_torch.data.pipeline import (
+    TrainLoader, intensity_normalize)
 from vae_segmentation_tpu_torch.eval.evaluate import (
-    make_joint_eval_step, run_eval)
+    make_joint_eval_step, mean_score, record_scores)
 from vae_segmentation_tpu_torch.models import (
     Joint, load_component, load_state)
 from vae_segmentation_tpu_torch.train import (
@@ -50,10 +60,6 @@ from vae_segmentation_tpu_torch.train import (
 def _check_supported(cfg: TargetConfig) -> None:
     if cfg.method != "domain_adaptation":
         todo(f"--method {cfg.method}", "item 11 (the other methods)")
-    if cfg.val_finetune != 0:
-        todo("--val_finetune (ft1 test-time training)", "item 4")
-    if cfg.eval_mode != "crop":
-        todo(f"--eval_mode {cfg.eval_mode}", "item 6")
     if cfg.spatial_shards != 1:
         todo("--spatial_shards", "item 9")
     if cfg.analysis_figure_name is not None or cfg.save_eval_result \
@@ -123,6 +129,88 @@ def _build_models(cfg: TargetConfig, n_class: int, device: torch.device):
     return model.to(device), teacher.to(device)
 
 
+def _make_finetune(cfg: TargetConfig, n_class: int, device: torch.device):
+    """ft1 test-time training (main_target.py:807-900; cli/target_main.py:
+    271-275, 464-480 of the JAX package). Returns (finetune, ft_model):
+
+        finetune(student, teacher, image, label, sched) -> metrics
+
+    copies the student into ft_model, one finetune Joint (built once, on
+    `device`, with the student's widths and dropouts), freezes its VAE
+    whatever --fix_layer says, and takes --val_finetune steps of the
+    adaptation step's finetune variant with SGD at momentum 0 and
+    --lr_finetune (stateless: the reference re-creates its optimizer every
+    step), its MC dropout masks drawn from its own generator seeded from
+    --seed; metrics are the last step's (``make_adapt_step``'s aux). The
+    student, its optimizer and the teacher are not touched."""
+    ft_model = Joint(n_class=n_class, dim=128,
+                     bottleneck=common.bottleneck_for(cfg.patch_size),
+                     vae_decoder_dropout=cfg.vae_decoder_dropout,
+                     seg_dropout=cfg.seg_dropout,
+                     generator=torch.Generator().manual_seed(cfg.seed)
+                     ).to(device)
+    step = make_adapt_step(_adapt_cfg(cfg, n_class), variant="finetune")
+    generator = torch.Generator(device=device).manual_seed(cfg.seed)
+
+    def finetune(student, teacher, image, label, sched) -> Dict:
+        copy_params(ft_model, student)
+        opt = optim.sgd(optim.freeze_vae(ft_model), cfg.lr_finetune,
+                        momentum=0.0, weight_decay=cfg.weight_decay)
+        aux = {}
+        for _ in range(cfg.val_finetune):
+            aux = step(ft_model, teacher, opt, image, label, generator, sched)
+        return aux
+
+    return finetune, ft_model
+
+
+def _crop_eval(cfg: TargetConfig, val_ds, device, eval_step, finetune,
+               ft_eval_step, model, teacher, sched):
+    """The crop eval (cli/target_main.py:456-488 of the JAX package):
+    {case: Dice} and, with ft1, the finetuned model's scores beside the
+    student's ({} without ft1)."""
+    scores: Dict[int, float] = {}
+    scores_noft: Dict[int, float] = {}
+    for batch in common.val_batches(val_ds, cfg.val_batch, device):
+        image, label = batch["image_norm"], batch["label"]
+        step = eval_step
+        if finetune is not None:
+            finetune(model, teacher, image, label, sched)
+            record_scores(scores_noft, eval_step(image, label)["score"],
+                          batch["index"])
+            step = ft_eval_step
+        record_scores(scores, step(image, label)["score"], batch["index"])
+    return scores, scores_noft
+
+
+def _sliding_window_eval(cfg: TargetConfig, n_class: int, val_ds, device,
+                         finetune, ft_model, model, teacher, sched):
+    """The full-volume eval (cli/target_main.py:406-455 of the JAX
+    package) with ``Joint.segment``. With ft1 each case first finetunes
+    the ft copy on its ROI crop (the crop path's case, `val_ds`) and the
+    sweep uses it; a second sweep with the student fills score_noft."""
+    def sweep(model_for_case=None):
+        return common.run_sliding_window_eval(
+            cfg, lambda net, x: net.segment(x), model, n_class=n_class,
+            data_root=cfg.val_data_root, list_key=cfg.val_list,
+            pan_index=cfg.pan_index, model_for_case=model_for_case)[1]
+
+    if finetune is None:
+        return sweep(), {}
+
+    def model_for_case(case):
+        item = val_ds[case["index"]]
+        image = intensity_normalize(torch.from_numpy(
+            item["image"].astype(np.float32)).to(device))[None]
+        label = torch.from_numpy(
+            item["label"].astype(np.float32)).to(device)[None]
+        finetune(model, teacher, image, label, sched)
+        return ft_model
+
+    scores_noft = sweep()
+    return sweep(model_for_case), scores_noft
+
+
 def _print_line(epoch: int, eval_epoch: int, idx: int, metrics: Dict) -> None:
     vals = ", ".join("%.4f" % float(metrics[k]) for k in
                      ("recon_loss", "dice_loss_fake", "dice_loss"))
@@ -173,6 +261,10 @@ def run(cfg: TargetConfig) -> float:
     val_ds = common.build_val_dataset(cfg, data_root=cfg.val_data_root,
                                       list_key=cfg.val_list)
     eval_step = make_joint_eval_step(model, n_class)
+    finetune = ft_model = ft_eval_step = None
+    if cfg.val_finetune != 0:
+        finetune, ft_model = _make_finetune(cfg, n_class, device)
+        ft_eval_step = make_joint_eval_step(ft_model, n_class)
     runner = common.EpochRunner(cfg)
 
     loader = step = ingest = optimizer = generator = None
@@ -197,9 +289,22 @@ def run(cfg: TargetConfig) -> float:
                                       lambda_vae)
         print("Start evaluation")
         t0 = time.time()
-        dsc, scores = run_eval(
-            common.val_batches(val_ds, cfg.val_batch, device), eval_step)
+        # ft1 from the first outer epoch that trained (main_target.py:807)
+        ft = finetune if epoch != 0 or cfg.test_only else None
+        sched = _epoch_sched(cfg, epoch, lambda_vae)
+        if cfg.eval_mode == "sliding_window":
+            scores, scores_noft = _sliding_window_eval(
+                cfg, n_class, val_ds, device, ft, ft_model, model, teacher,
+                sched)
+        else:
+            scores, scores_noft = _crop_eval(
+                cfg, val_ds, device, eval_step, ft, ft_eval_step, model,
+                teacher, sched)
+        dsc = mean_score(scores)
         runner.dump_scores(epoch, scores)
+        if scores_noft:
+            runner.dump_scores(epoch, scores_noft, name="score_noft")
+            print("val_result_no_finetune: %f" % mean_score(scores_noft))
         print("Time: {}".format(time.time() - t0))
         if cfg.test_only:
             print("epoch 1 validation result: %f over %d cases."

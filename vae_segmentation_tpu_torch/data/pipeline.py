@@ -1,7 +1,8 @@
-"""Input pipeline: ROI-cropped cases, the eval and train batching, and the
-intensity normalization (counterparts of vae_segmentation_tpu/data/
-pipeline.py::CaseDataset, ::Loader and data/augment.py::
-intensity_normalize)."""
+"""Input pipeline: ROI-cropped cases, the uncropped cases of the
+sliding-window eval, the eval and train batching, and the intensity
+normalization (counterparts of vae_segmentation_tpu/data/pipeline.py::
+CaseDataset, ::Loader, cli/common.py::FullVolumeDataset and data/
+augment.py::intensity_normalize)."""
 
 from __future__ import annotations
 
@@ -45,6 +46,27 @@ class CaseDataset:
         out["id"] = case["id"]
         out["index"] = idx
         return out
+
+
+class FullVolumeDataset:
+    """Uncropped cases for the sliding-window eval: manifest entries ->
+    {'image', 'label' (remapped), 'id', 'index'} at the stored resolution,
+    no crop, no resize (cli/common.py:297-319 of the JAX package)."""
+
+    def __init__(self, entries: Sequence[str], root_dir: str,
+                 mask_index: Optional[MaskIndex] = None):
+        self.entries = list(entries)
+        self.root_dir = root_dir
+        self.mask_index = mask_index
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+    def __getitem__(self, idx: int) -> Dict:
+        case = load_merge_case(self.root_dir, self.entries[idx],
+                               self.mask_index)
+        return {"image": case["image"], "label": case["label"],
+                "id": case["id"], "index": idx}
 
 
 def _collate(items: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:

@@ -80,8 +80,18 @@ def run_eval(batches: Iterable[Dict], eval_step: Callable, *,
     for batch in batches:
         out = eval_step(batch["image_norm"], batch["label"]) if uses_image \
             else eval_step(batch["label"])
-        score = out["score"].float().cpu().numpy().reshape(-1)
-        for j, vi in enumerate(np.asarray(batch["index"])):
-            scores[int(vi)] = float(score[j])
-    mean = sum(scores.values()) / max(len(scores), 1)
-    return mean, scores
+        record_scores(scores, out["score"], batch["index"])
+    return mean_score(scores), scores
+
+
+def record_scores(scores: Dict[int, float], score: torch.Tensor,
+                  index) -> None:
+    """scores[case index] = the sample's Dice, for each sample of a batch
+    (score [B], index [B])."""
+    score = score.float().cpu().numpy().reshape(-1)
+    for j, vi in enumerate(np.asarray(index)):
+        scores[int(vi)] = float(score[j])
+
+
+def mean_score(scores: Dict[int, float]) -> float:
+    return sum(scores.values()) / max(len(scores), 1)
