@@ -195,10 +195,34 @@ Phases, each printed as JSON records:
      probabilities on the kernel path against the plain path (mean abs
      difference within ``DRIFT_MULTIPLE`` times the plain path's reordered
      drift, Dice within 0.01); the sweep's seconds, windows and ms a chunk.
- 15. the ``kernels`` line (sixteen kernels; those of an opt-in route
+ 15. the runs that outlive one process and the last training flags, on
+     the default route (``later_flags``): (a) ``--resume``: the vae_train
+     CLI (batch 4, the warp on) and the target CLI (batch 2, from phase
+     11's checkpoints) each train two outer epochs, then a third resumed
+     from the second's ``model_epoch2.ckpt``: the resume line, the loss
+     lines of outer epoch 3 only, the best result carried, the restored
+     weights equal to the file's bit for bit on the card, launches derived
+     from the models, each checkpoint's size and save / load seconds;
+     (b) the source replay: every kernel call of one replay step
+     (``make_seg_replay_step``, batch 2) against its plain version,
+     untimed and repeated bit for bit (``check_untimed``), its loss and
+     Seg update within ``DRIFT_MULTIPLE`` times the plain path's reordered
+     drift (phase 6's rule), the VAE unmoved; ``step_ms``, ``enqueue_ms``,
+     device ms and busy share of the replay step and of one adaptation
+     ('pseudo' variant) + replay iteration; the target CLI with
+     ``--pseudo_list`` (two outer epochs, one replay step after each
+     adaptation step, four loss terms a line); (c) the cubic warp
+     (``--aug_order 3``) of one draw at [4, 128^3] in f32 on the card
+     against the same sampling grid warped in f64 on the CPU (within
+     ``CUBIC_F32_TOL`` of the largest |value|, the mask and the label
+     equal), ``warp_ms`` at order 3 and order 1; (d) a seg_train CLI
+     with ``--aug_host`` (launches derived from the model) and the host
+     loader's ms a batch at order 1 and 3.
+ 16. the ``kernels`` line (sixteen kernels; those of an opt-in route
      carry its switch in ``path`` and count their launches on its runs;
      the others count phase 14's CLI runs in ``launches_test_time_path``
-     too), then the last line ``{"ok": true, "device": {...}}``.
+     and phase 15's in ``launches_later_flags_path`` too), then the last
+     line ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero without the last line. Without a CUDA GPU
 it exits 2 and prints no result. All records also go to --out (JSON,
 default smoke_out/chip_smoke.json).
@@ -2595,6 +2619,373 @@ def test_time(torch, ops, run_cli, record_checked, model, image, label,
             "ft1_totals": ft_totals, "sw_totals": sw_totals}
 
 
+# ---- phase 15: the runs that outlive one process and the last training
+# flags (--resume, --pseudo_list, --aug_order 3, --aug_host)
+
+# the kernels of phase 15's runs: those of the replay and adaptation steps
+# and of vae_train (reparam_kl and its VJP); phase 15 fails if its runs
+# launch one of them no time
+LATER_FLAGS_KERNELS = TEST_TIME_KERNELS + ("reparam_kl", "reparam_kl_vjp")
+# the cubic warp's f32 rule (tests/test_torch_augment_cubic.py::F32_TOL):
+# the card's f32 warp within this fraction of the volume's largest |value|
+# of the same draw warped on the CPU in f64
+CUBIC_F32_TOL = 4e-6
+
+
+def expected_replay_launches(seg) -> dict:
+    """Kernel launches of one source-replay step (make_seg_replay_step),
+    derived from the model: the SegUNet's forward and backward as a
+    seg_train step launches them, plus one dice_sums and its VJP."""
+    return {**expected_source_step_launches(seg, sampled=False),
+            "dice_sums": 1, "dice_sums_vjp": 1}
+
+
+def later_flags(torch, ops, run_cli, record_checked, model, batches, src,
+                paths, args, log, failures) -> dict:
+    """Phase 15 on the default route: (a) --resume of the vae_train and the
+    target CLI, (b) the source replay (--pseudo_list): one replay step's
+    kernel calls and gates, its timing alone and in an adaptation + replay
+    iteration, the CLI, (c) the cubic warp at [4, 128^3] against its CPU run
+    in f64 and its warp_ms beside order 1's, (d) a seg_train CLI with
+    --aug_host and the host loader's time a batch. `src` is (images,
+    labels) of the 4 source cases on the card (phase 8's), `paths` the work
+    directory's data and list files. Returns the launches of its runs."""
+    import contextlib
+    import io
+
+    from vae_segmentation_tpu_torch import train as T
+    from vae_segmentation_tpu_torch.cli import common, source_main, target_main
+    from vae_segmentation_tpu_torch.core.config import parse_source_args
+    from vae_segmentation_tpu_torch.data import augment
+    from vae_segmentation_tpu_torch.data.pipeline import intensity_normalize
+    from vae_segmentation_tpu_torch.models import Joint, ShapeVAE
+    t_phase = time.time()
+    work = paths["work"]
+    launches = {k: 0 for k in KERNEL_NAMES}
+    state0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    expected_step = expected_step_launches(model)
+    replay_want = expected_replay_launches(model.Seg)
+    evals = scaled({**{k: 0 for k in KERNEL_NAMES}, **PER_FORWARD},
+                   args.cases)
+    vae0 = ShapeVAE(n_class=2, dim=128, bottleneck=16384)
+    vexpected = expected_source_step_launches(vae0, sampled=True)
+    vfwd = forward_launches(vae0)
+    del vae0
+    common_argv = ["--save_root", os.path.join(work, "3dmodel"),
+                   "--val_list", "NIH_val", "--val_data_root", paths["data"],
+                   "--val_batch", "1", "--eval_epoch", "1", "--save_epoch",
+                   "1", "--num_workers", "2", "--device", "cuda"]
+    target_argv = ["--method", "domain_adaptation", "--load_prefix",
+                   "smoke_seg", "--load_prefix_vae", "smoke_vae", "-b",
+                   str(TRAIN_BATCH), "--domain_loss_type", "8",
+                   "--lambda_vae", str(TRAIN_LAMBDA), "--lr_seg",
+                   str(TRAIN_LR), "--vae_decoder_dropout", "0.5",
+                   "--pseudo_save_epoch", "1", "--train_list", "NIH_train",
+                   "--data_root", paths["train_data"], "--data_path",
+                   paths["replay_lists"], *common_argv]
+    vae_argv = ["--method", "vae_train", "-b", str(VAE_BATCH), "--lr_seg",
+                str(VAE_LR), "--train_list", "NIH_train", "--data_root",
+                paths["src_data"], "--data_path", paths["src_lists"],
+                *common_argv]
+
+    def cli(fn, argv, spy=None):
+        """run_cli with stdout captured (and printed on), the checkpoint
+        saves and loads timed, and `spy` = (module, name, wrapper) patched
+        in; returns (best, seconds, launches, stdout, saves, loads)."""
+        nonlocal launches
+        saves, loads = [], []
+        real_save, real_load = common.save_checkpoint, common.load_checkpoint
+
+        def save(path, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            real_save(path, **kw)
+            saves.append({"path": os.path.relpath(path, work),
+                          "s": time.perf_counter() - t0,
+                          "bytes": os.path.getsize(path)})
+
+        def load(path):
+            t0 = time.perf_counter()
+            ck = real_load(path)
+            loads.append({"path": os.path.relpath(path, work),
+                          "s": time.perf_counter() - t0,
+                          "bytes": os.path.getsize(path)})
+            return ck
+
+        out = io.StringIO()
+        with ExitStack() as stack:
+            stack.enter_context(mock.patch.object(common, "save_checkpoint",
+                                                  save))
+            stack.enter_context(mock.patch.object(common, "load_checkpoint",
+                                                  load))
+            if spy is not None:
+                stack.enter_context(mock.patch.object(*spy))
+            stack.enter_context(contextlib.redirect_stdout(out))
+            best, secs, got = run_cli(fn, argv)
+        sys.stdout.write(out.getvalue())
+        launches = added(launches, got)
+        return best, secs, got, out.getvalue(), saves, loads
+
+    def steps_of(text):
+        return sorted({int(m) for m in re.findall(r"^\[\s*(\d+),", text,
+                                                  re.M)})
+
+    # ---- (a) --resume: two outer epochs, then a third resumed from the
+    # second's periodic checkpoint (params, epoch, best; the optimizer
+    # fresh), the restored weights against the file bit for bit
+    resume = {}
+    for name, fn, argv, first_want, want, attr in (
+            ("vae_train", source_main.main, vae_argv,
+             added(scaled(vexpected, 2), scaled(vfwd, 2 * args.cases)),
+             added(vexpected, scaled(vfwd, args.cases)), "load_network"),
+            ("domain_adaptation", target_main.main, target_argv,
+             added(scaled(expected_step, 2), scaled(evals, 2)),
+             added(scaled(expected_step, 2), evals), "load_state")):
+        prefix = f"smoke_resume_{name}"
+        mod = source_main if fn is source_main.main else target_main
+        argv = [prefix, *argv, "--max_epoch", "2"]
+        best1, s1, got1, out1, saves1, _ = cli(fn, argv)
+        restored = {}
+        real = getattr(mod, attr)
+
+        def spy_load(net, ck, *a, real=real):
+            real(net, ck, *a)
+            torch.cuda.synchronize()
+            restored["match"] = all(
+                torch.equal(v, ck["model_state_dict"][k].to(v.device))
+                for k, v in net.state_dict().items()) and len(
+                    net.state_dict()) == len(ck["model_state_dict"])
+            restored["device"] = str(next(net.parameters()).device)
+
+        argv2 = argv[:-1] + ["3", "--resume"]
+        best2, s2, got2, out2, saves2, loads2 = cli(
+            fn, argv2, (mod, attr, spy_load))
+        latest = os.path.join(work, "3dmodel", prefix, "model_epoch2.ckpt")
+        line = f"Resumed from {latest} at epoch 2 (best {best1:.4f})"
+        ck3 = common.load_checkpoint(os.path.join(
+            work, "3dmodel", prefix, "model_epoch3.ckpt"))
+        ok = (line in out2 and steps_of(out2) == [3]
+              and steps_of(out1) == ([1, 2] if name == "vae_train" else [2])
+              and restored.get("match") is True
+              and restored.get("device") == "cuda:0"
+              and best2 >= best1
+              and ck3["extra"] == {"best_result": best2}
+              and got1 == first_want and got2 == want)
+        if not ok:
+            failures.append(f"resume_{name}: the resumed run did not "
+                            f"restart at epoch 2 from its checkpoint "
+                            f"({line!r} in its output: {line in out2}, "
+                            f"steps {steps_of(out2)}, restored {restored}, "
+                            f"launches {got2} want {want})")
+        resume[name] = {
+            "first_run_s": s1, "resumed_run_s": s2, "best_first": best1,
+            "best_resumed": best2, "resume_line": line in out2,
+            "steps_first": steps_of(out1), "steps_resumed": steps_of(out2),
+            "restored_bitwise_on_card": restored.get("match"),
+            "launches_first": got1, "launches_resumed": got2,
+            "launches_expected": want, "saves": saves1 + saves2,
+            "loads": loads2, "ok": ok}
+    emit({"phase": "resume", "runs": resume,
+          "ok": all(r["ok"] for r in resume.values())}, log)
+
+    # ---- (b) the source replay: one step's kernel calls against their
+    # plain versions (untimed, repeated bit for bit), its loss and Seg
+    # update against the plain path's drift, its timing alone and in one
+    # adaptation + replay iteration, then the CLI with --pseudo_list
+    s_img, s_lab = src
+    r_img = intensity_normalize(s_img[:TRAIN_BATCH]).contiguous()
+    r_lab = s_lab[:TRAIN_BATCH].contiguous()
+    replay_step = T.make_seg_replay_step(2)
+
+    def fresh(lr):
+        student = Joint(n_class=2, dim=128, bottleneck=16384,
+                        vae_decoder_dropout=0.5).cuda()
+        student.load_state_dict(state0)
+        return student, T.optim.sgd(T.optim.freeze_vae(student), lr)
+
+    def replay1(lr=TRAIN_LR):
+        student, opt = fresh(lr)
+        aux = replay_step(student, opt, r_img, r_lab)
+        torch.cuda.synchronize()
+        now = student.state_dict()
+        update = {k: (now[k] - state0[k]).float() for k in now
+                  if k.startswith("Seg.")}
+        vae_still = all(torch.equal(v, state0[k]) for k, v in now.items()
+                        if k.startswith("Vae."))
+        return aux["dice_loss"].item(), update, vae_still
+
+    _, replay_totals, calls = record_checked(
+        lambda: replay1(0.0), replay_want, "replay_step_kernel",
+        "replay step", timed=False)
+    del calls
+    with plain_ops(reordered=True):
+        loss_r, upd_r, _ = replay1()
+    with plain_ops():
+        loss_p, upd_p, _ = replay1()
+    ops.reset_launch_counts()
+    loss_k, upd_k, vae_still = replay1()
+    step_launches = ops.launch_counts()
+    err, drift, worst = drift_ratios(upd_k, upd_p, upd_r)
+    loss_gate = max(DRIFT_MULTIPLE * abs(loss_r - loss_p), 1e-3)
+    moved = all(bool(v.any()) for k, v in upd_k.items()
+                if k.endswith(".weight"))
+    gate_ok = (step_launches == replay_want and vae_still and moved
+               and abs(loss_k - loss_p) <= loss_gate
+               and all(v <= DRIFT_MULTIPLE for v in worst.values()))
+    del upd_k, upd_p, upd_r
+    # timing: the replay step alone, then one adaptation + replay
+    # iteration ('pseudo' variant, the teacher a copy of the student)
+    student, opt = fresh(TRAIN_LR)
+    run_r = timed_steps(torch, ops, lambda i: replay_step(student, opt,
+                                                          r_img, r_lab))
+    rec_r = {"phase": "replay_step_timing", "batch": TRAIN_BATCH,
+             "step_ms": run_r["step_ms"], "step_ms_all": run_r["step_ms_all"],
+             "enqueue_ms": run_r["enqueue_ms"],
+             "launches_per_step": run_r["launches"],
+             "peak_memory_bytes": run_r["peak_memory_bytes"]}
+    emit(rec_r, log)
+    profile_step(torch, lambda: replay_step(student, opt, r_img, r_lab),
+                 run_r["step_ms"], "profile_replay_step", log, failures)
+    teacher = Joint(n_class=2, dim=128, bottleneck=16384).cuda()
+    teacher.load_state_dict(state0)
+    for p_ in teacher.parameters():
+        p_.requires_grad_(False)
+    adapt = T.make_adapt_step(T.AdaptConfig(n_class=2, domain_loss_type=8),
+                              variant="pseudo")
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    sched = T.default_sched(TRAIN_LAMBDA)
+
+    def iteration(i):
+        aux = adapt(student, teacher, opt, *batches[i % 2], gen, sched)
+        return {**aux, "dice_loss_pseudo": replay_step(
+            student, opt, r_img, r_lab)["dice_loss"]}
+
+    run_i = timed_steps(torch, ops, iteration)
+    iter_want = added(expected_step, replay_want)
+    rec_i = {"phase": "adapt_replay_iteration_timing", "batch": TRAIN_BATCH,
+             "step_ms": run_i["step_ms"], "step_ms_all": run_i["step_ms_all"],
+             "enqueue_ms": run_i["enqueue_ms"],
+             "launches_per_iteration": run_i["launches"],
+             "peak_memory_bytes": run_i["peak_memory_bytes"],
+             "finite": run_i["finite"]}
+    emit(rec_i, log)
+    profile_step(torch, lambda: iteration(0), run_i["step_ms"],
+                 "profile_adapt_replay_iteration", log, failures)
+    timing_ok = (all(c == replay_want for c in run_r["launches"])
+                 and all(c == iter_want for c in run_i["launches"])
+                 and run_r["finite"] and run_i["finite"])
+    del student, teacher, opt
+    torch.cuda.empty_cache()
+    # the CLI: two outer epochs (the first takes no step), 2 adaptation
+    # steps and 2 replay steps in the second, with the device warp
+    best, secs, got, out, _, _ = cli(target_main.main, [
+        "smoke_replay", *target_argv, "--max_epoch", "2", "--pseudo_list",
+        "SRC", "--pseudo_data_root", paths["src_data"]])
+    cli_want = added(scaled(added(expected_step, replay_want), 2),
+                     scaled(evals, 2))
+    lines = re.findall(r"^\[\s*2,\s*\d+\] loss: (.*)$", out, re.M)
+    cli_ok = (got == cli_want and len(lines) == 2
+              and all(len(ln.split(", ")) == 4 for ln in lines)
+              and 0.0 <= best <= 1.0)
+    b_ok = gate_ok and timing_ok and cli_ok
+    if not b_ok:
+        failures.append(f"replay: gate {gate_ok} (launches {step_launches}, "
+                        f"loss {loss_k} vs {loss_p}, worst "
+                        f"{max(worst.values())}), timing {timing_ok}, CLI "
+                        f"{cli_ok} (launches {got} want {cli_want}, lines "
+                        f"{lines})")
+    emit({"phase": "replay", "batch": TRAIN_BATCH, "launches": step_launches,
+          "launches_expected": replay_want, "loss_kernels": loss_k,
+          "loss_plain": loss_p, "loss_reordered": loss_r,
+          "loss_gate": loss_gate, "update_tensors": len(err),
+          "update_rel_l2_kernel_vs_plain": err,
+          "update_rel_l2_plain_vs_reordered": drift,
+          "worst_ratio": max(worst.values()),
+          "median_ratio": sorted(worst.values())[len(worst) // 2],
+          "seg_moved": moved, "vae_unchanged": vae_still,
+          "replay_step_ms": rec_r["step_ms"],
+          "replay_enqueue_ms": rec_r["enqueue_ms"],
+          "iteration_step_ms": rec_i["step_ms"],
+          "iteration_enqueue_ms": rec_i["enqueue_ms"],
+          "cli_s": secs, "cli_launches": got, "cli_launches_expected":
+          cli_want, "cli_loss_lines": lines, "cli_best": best,
+          "drift_multiple": DRIFT_MULTIPLE, "ok": b_ok}, log)
+
+    # ---- (c) the cubic warp at [4, 128^3]: one draw on the card in f32
+    # against the same sampling grid on the CPU in f64; warp_ms at order 3
+    # and order 1
+    patch = (128, 128, 128)
+    wgen = torch.Generator(device="cuda").manual_seed(args.seed + 7)
+    draw = augment.sample_affine_params(wgen, s_img.shape[0], patch,
+                                        s_img.shape[1:])
+    coords = augment.affine_coords(*draw, patch)
+    img_k, lab_k = augment.warp_at(s_img, s_lab, coords, order=3)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    img_c, lab_c = augment.warp_at(s_img.double().cpu(),
+                                   s_lab.double().cpu(),
+                                   coords.double().cpu(), order=3)
+    cpu_s = time.time() - t0
+    scale = s_img.abs().max().item()
+    cubic_err = (img_k.double().cpu() - img_c).abs().max().item()
+    fill = augment.BORDER_CVAL_DATA
+    mask_ok = torch.equal(img_k.cpu() == fill, img_c == fill)
+    label_ok = torch.equal(lab_k.double().cpu(), lab_c)
+    del img_k, lab_k, img_c, lab_c
+    warp_ms = {}
+    for o in (1, 3):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        warp_ms[o] = cuda_ms(torch, lambda o=o: augment.spatial_augment(
+            s_img, s_lab, wgen, patch_size=patch, order=o),
+            budget_ms=float("inf"), max_reps=5)
+    peak3 = torch.cuda.max_memory_allocated()
+    c_ok = cubic_err <= CUBIC_F32_TOL * scale and mask_ok and label_ok
+    if not c_ok:
+        failures.append(f"cubic warp: card vs CPU f64 max abs {cubic_err} "
+                        f"(limit {CUBIC_F32_TOL * scale}), mask {mask_ok}, "
+                        f"label {label_ok}")
+    emit({"phase": "cubic_warp", "batch": int(s_img.shape[0]),
+          "patch": patch, "max_abs_err_vs_cpu_f64": cubic_err,
+          "limit": CUBIC_F32_TOL * scale, "rel_err": cubic_err / scale,
+          "mask_equal": mask_ok, "label_equal": label_ok,
+          "cpu_f64_s": cpu_s, "warp_ms_order3": warp_ms[3],
+          "warp_ms_order1": warp_ms[1], "peak_memory_bytes_order3": peak3,
+          "ok": c_ok}, log)
+
+    # ---- (d) --aug_host: a seg_train CLI with the warp in the loader's
+    # workers, and the host loader's time a batch at order 1 and 3
+    host_argv = ["smoke_host", "--method", "seg_train", "-b", str(VAE_BATCH),
+                 "--lr_seg", str(VAE_LR), "--train_list", "NIH_train",
+                 "--data_root", paths["src_data"], "--data_path",
+                 paths["src_lists"], *common_argv, "--max_epoch", "2",
+                 "--aug_host"]
+    seg_fwd = forward_launches(model.Seg)
+    best, secs, got, _, _, _ = cli(source_main.main, host_argv)
+    host_want = added(expected_source_step_launches(model.Seg,
+                                                    sampled=False),
+                      scaled(seg_fwd, 2 * args.cases))
+    loader_ms = {}
+    for order in (1, 3):
+        cfg = parse_source_args(host_argv + ["--aug_order", str(order)])
+        loader = common.build_train_loader(cfg, data_root=cfg.data_root,
+                                           list_key=cfg.train_list)
+        t0 = time.perf_counter()
+        n = sum(1 for _ in loader)
+        loader_ms[order] = 1e3 * (time.perf_counter() - t0) / max(n, 1)
+    d_ok = got == host_want and 0.0 <= best <= 1.0
+    if not d_ok:
+        failures.append(f"aug_host: seg_train launches {got} (want "
+                        f"{host_want}), best {best}")
+    emit({"phase": "aug_host", "cli_s": secs, "best_dice": best,
+          "launches": got, "launches_expected": host_want,
+          "loader_ms_per_batch_order1": loader_ms[1],
+          "loader_ms_per_batch_order3": loader_ms[3],
+          "batch": VAE_BATCH, "num_workers": 2,
+          "phase_15_s": time.time() - t_phase, "ok": d_ok}, log)
+    return {"launches": launches, "replay_totals": replay_totals}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3431,10 +3822,26 @@ def main() -> int:
         tt = test_time(torch, ops, run_cli, record_checked, model, image,
                        label, work, data, manifest, args, log, failures)
         test_time_launches = tt["launches"]
+
+        # ---- 15. the runs that outlive one process and the last training
+        # flags: --resume of both CLIs, the source replay (--pseudo_list),
+        # the cubic warp (--aug_order 3) and the host warp (--aug_host)
+        replay_lists = os.path.join(work, "lists_replay.json")
+        with open(replay_lists, "w") as f:
+            json.dump({"NIH_train": train_entries, "NIH_val": entries,
+                       "SRC": src_entries}, f)
+        lf = later_flags(torch, ops, run_cli, record_checked, model, batches,
+                         (src_img, src_lab),
+                         {"work": work, "data": data,
+                          "train_data": train_data, "src_data": src_data,
+                          "src_lists": src_lists,
+                          "replay_lists": replay_lists},
+                         args, log, failures)
+        later_launches = lf["launches"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 15. summary lines: K1-K3 per eval forward (phase 2), the backward
+    # ---- 16. summary lines: K1-K3 per eval forward (phase 2), the backward
     # and loss kernels per adaptation step (phase 5), reparam_kl per
     # vae_train step (phase 7); the kernels of an opt-in route per pass of
     # that route, and their launches counted on its runs: norm_stats and
@@ -3498,10 +3905,11 @@ def main() -> int:
                                 f"({switch})")
         else:
             rec.update(launches=eval_launches[name] + train_launches[name]
-                       + test_time_launches[name],
+                       + test_time_launches[name] + later_launches[name],
                        launches_eval_path=eval_launches[name],
                        launches_train_path=train_launches[name],
-                       launches_test_time_path=test_time_launches[name])
+                       launches_test_time_path=test_time_launches[name],
+                       launches_later_flags_path=later_launches[name])
             if train_launches[name] == 0 or \
                     (name in PER_FORWARD and eval_launches[name] == 0):
                 failures.append(f"{name} was never launched on its main "
@@ -3509,6 +3917,9 @@ def main() -> int:
             if test_time_launches[name] == 0 and name in TEST_TIME_KERNELS:
                 failures.append(f"{name} was never launched on the test-time "
                                 "path (phase 14)")
+            if later_launches[name] == 0 and name in LATER_FLAGS_KERNELS:
+                failures.append(f"{name} was never launched on the runs of "
+                                "phase 15")
         kernels.append(rec)
     emit({"phase": "step_totals", "per_kernel": step_totals}, log)
     emit({"phase": "vae_step_totals", "per_kernel": vae_totals}, log)
@@ -3517,6 +3928,8 @@ def main() -> int:
     emit({"phase": "merged_totals", "per_vae_step": merged_totals}, log)
     emit({"phase": "test_time_totals", "per_ft1_step": tt["ft1_totals"],
           "per_window_chunk": tt["sw_totals"]}, log)
+    emit({"phase": "later_flags_totals",
+          "per_replay_step": lf["replay_totals"]}, log)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump({"records": log, "kernels": kernels, "failures": failures,

@@ -92,12 +92,49 @@ def test_cli_without_gpu_or_cpu_request_raises(workdir):
 @pytest.mark.parametrize("extra", [
     ["--spatial_shards", "2"],
     ["--load_prefix_encoder", "enc"],
-    ["--load_prefix", "seg"],
+    ["--profile_dir", "prof"],
     ["--save_eval_result"],
 ])
 def test_cli_unported_flags_raise(workdir, extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         target_main.main(_argv(workdir, "--device", "cpu", *extra))
+
+
+def _eval_scores(model, root):
+    with open(root / "data" / "Multi_all.json") as f:
+        entries = json.load(f)["NIH_val"]
+    ds = pp.CaseDataset(entries, str(root / "data"), parse_pan_index("1"),
+                        (32, 32, 32))
+    batches = ({**b, "image_norm": pp.intensity_normalize(
+        torch.from_numpy(b["image"]))} for b in pp.iterate_batches(ds, 1))
+    return run_eval(batches, make_joint_eval_step(model.eval(), 2))[1]
+
+
+def test_cli_eval_from_separate_checkpoints_and_resume(workdir):
+    """--test_only takes --load_prefix (the Seg) with --load_prefix_vae (the
+    Vae), as the JAX target CLI does; with --resume the student is the
+    latest periodic checkpoint of the prefix instead."""
+    model = Joint(n_class=2, bottleneck=256,
+                  generator=torch.Generator().manual_seed(5))
+    save_checkpoint("3dmodel/sp/best_model.ckpt", epoch=0, model=model.Seg)
+    save_checkpoint("3dmodel/vp/best_model.ckpt", epoch=0, model=model)
+    argv = _argv(workdir, "--device", "cpu")
+    assert argv[4:6] == ["--load_prefix_joint", "jp"]
+    dsc = target_main.main(argv[:4] + ["--load_prefix", "sp",
+                                       "--load_prefix_vae", "vp"] + argv[6:])
+    with open("tensorboard/ev/score_0.json") as f:
+        scores = {int(k): v for k, v in json.load(f).items()}
+    assert scores == _eval_scores(model, workdir)
+    assert dsc == pytest.approx(np.mean(list(scores.values())))
+    other = Joint(n_class=2, bottleneck=256,
+                  generator=torch.Generator().manual_seed(6))
+    save_checkpoint("3dmodel/ev/model_epoch3.ckpt", epoch=3, model=other,
+                    extra={"best_result": 0.5})
+    target_main.main(_argv(workdir, "--device", "cpu", "--resume",
+                           "--eval_epoch", "1", "--max_epoch", "6"))
+    with open("tensorboard/ev/score_3.json") as f:
+        scores = {int(k): v for k, v in json.load(f).items()}
+    assert scores == _eval_scores(other, workdir)
 
 
 def test_cli_unported_methods_raise(workdir):
@@ -116,9 +153,15 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import sys\n"
         "import vae_segmentation_tpu_torch\n"
         "import vae_segmentation_tpu_torch.cli.target_main\n"
+        "import vae_segmentation_tpu_torch.cli.source_main\n"
         "import vae_segmentation_tpu_torch.models, vae_segmentation_tpu_torch.ops\n"
+        "import vae_segmentation_tpu_torch.core.checkpoint\n"
+        "import vae_segmentation_tpu_torch.core.msgpack\n"
+        "import vae_segmentation_tpu_torch.data.host_augment\n"
+        "import vae_segmentation_tpu_torch.data.augment\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
+        "                                    'msgpack',\n"
         "                                    'vae_segmentation_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")

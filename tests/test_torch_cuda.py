@@ -1114,3 +1114,87 @@ def test_sliding_window_sweep_matches_plain(gen):
                         case["label"].astype(np.float32), 2)
             for p in (got, plain)]
     assert abs(dice[0] - dice[1]) <= 0.01, dice
+
+
+# ---- the cubic warp (--aug_order 3) and the source-replay step
+# (chip_smoke.py phase 15)
+
+# the cubic warp's f32 rule (tests/test_torch_augment_cubic.py::F32_TOL):
+# within this fraction of the volume's largest |value| of the f64 warp
+CUBIC_F32_TOL = 4e-6
+
+
+def test_cubic_warp_matches_its_cpu_run_in_f64(gen):
+    """spatial_augment's draws at order 3 on two 96^3 phantoms into 64^3:
+    the card's f32 warp against the CPU's f64 warp at the same sampling
+    grid, within CUBIC_F32_TOL of the largest |value|; the mask and the
+    label equal."""
+    import numpy as np
+
+    from vae_segmentation_tpu_torch.data import augment
+    from vae_segmentation_tpu_torch.data.synthetic import make_phantom
+
+    rng = np.random.default_rng(0)
+    cases = [make_phantom(rng, 96) for _ in range(2)]
+    image = torch.from_numpy(np.stack([c["image"] for c in cases])
+                             .astype(np.float32)).cuda()
+    label = torch.from_numpy(np.stack([c["label"] for c in cases])
+                             .astype(np.float32)).cuda()
+    patch = (64, 64, 64)
+    draw = augment.sample_affine_params(gen, 2, patch, image.shape[1:])
+    coords = augment.affine_coords(*draw, patch)
+    got = augment.warp_at(image, label, coords, order=3)
+    want = augment.warp_at(image.double().cpu(), label.double().cpu(),
+                           coords.double().cpu(), order=3)
+    img, ref = got[0].double().cpu(), want[0]
+    assert (img - ref).abs().max().item() <= \
+        CUBIC_F32_TOL * image.abs().max().item()
+    fill = augment.BORDER_CVAL_DATA
+    assert torch.equal(img == fill, ref == fill)
+    assert torch.equal(got[1].double().cpu(), want[1])
+
+
+def test_replay_step_matches_the_plain_path(gen):
+    """One source-replay step of a narrow Joint at 64^3, batch 2: its
+    launches (the Seg forward, its backward, one dice_sums and its VJP),
+    the Dice loss and every Seg gradient against the plain path under
+    chip_smoke's rule (within DRIFT_MULTIPLE times the plain path's own
+    drift under reordered f32 sums; the loss within 1e-3), the VAE without
+    a gradient."""
+    import chip_smoke
+    from vae_segmentation_tpu_torch import ops, train as T
+    from vae_segmentation_tpu_torch.models import Joint
+
+    state = Joint(n_class=2, dim=16, fmaps=(4, 8, 8, 16, 16, 32),
+                  bottleneck=256,
+                  generator=torch.Generator().manual_seed(0)).state_dict()
+    image = _rnd(gen, 2, 64, 64, 64)
+    label = (torch.rand(2, 64, 64, 64, device="cuda", generator=gen)
+             > 0.6).float()
+    step = T.make_seg_replay_step(2)
+
+    def run():
+        net = Joint(n_class=2, dim=16, fmaps=(4, 8, 8, 16, 16, 32),
+                    bottleneck=256).cuda()
+        net.load_state_dict(state)
+        opt = T.optim.sgd(T.optim.freeze_vae(net), 0.0)
+        aux = step(net, opt, image, label)
+        return aux["dice_loss"].item(), {
+            k: p.grad.clone() for k, p in net.named_parameters()
+            if p.grad is not None}
+
+    ops.reset_launch_counts()
+    loss_k, grads_k = run()
+    counts = ops.launch_counts()
+    with chip_smoke.plain_ops():
+        loss_p, grads_p = run()
+    with chip_smoke.plain_ops(reordered=True):
+        loss_r, grads_r = run()
+    assert counts["dice_sums"] == 1 and counts["dice_sums_vjp"] == 1
+    assert counts["softmax_vjp"] == 1 and counts["conv3_dk"] == 26
+    assert sorted(grads_k) == sorted(grads_p)
+    assert all(k.startswith("Seg.") for k in grads_k)
+    assert abs(loss_k - loss_p) <= max(
+        chip_smoke.DRIFT_MULTIPLE * abs(loss_r - loss_p), 1e-3)
+    _, _, worst = chip_smoke.drift_ratios(grads_k, grads_p, grads_r)
+    assert max(worst.values()) <= chip_smoke.DRIFT_MULTIPLE, worst

@@ -176,12 +176,12 @@ def test_the_warp_changes_the_step(workdir):
 @pytest.mark.parametrize("extra,item", [
     (["--method", "joint_train"], "item 11"),
     (["--method", "vae_train", "--softrelu", "1"], "item 11"),
-    (["--method", "vae_train", "--resume"], "item 3"),
+    (["--method", "vae_train", "--load_prefix_joint", "j"], "item 11"),
     (["--method", "seg_train", "--save_eval_result"], "item 11"),
     (["--method", "seg_train", "--save_more_reference"], "item 11"),
     (["--method", "seg_train", "--load_prefix_vae", "vae"], "item 11"),
-    (["--method", "vae_train", "--aug_order", "3"], "item 3"),
-    (["--method", "vae_train", "--aug_host"], "item 3"),
+    (["--method", "vae_train", "--profile_dir", "prof"], "item 11"),
+    (["--method", "seg_train", "--spatial_shards", "2"], "item 9"),
     (["--method", "vae_train", "--spatial_shards", "2"], "item 9"),
 ])
 def test_unported_flags_and_methods_raise(workdir, extra, item):

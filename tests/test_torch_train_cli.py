@@ -1,11 +1,15 @@
 """The port's adaptation loss dispatch, the dropout graph of its models, its
 train loader and the training loop of its CLI (``--method domain_adaptation
---no_aug --device cpu``) against the JAX package on the CPU. The whole train
-step is held in tests/test_torch_train.py, whose seeded cases this file
-shares. Tolerances stand at each test."""
+--no_aug --device cpu``) against the JAX package on the CPU, and the CLI's
+--resume from a port-written run (with the cubic, then the host warp) and
+from a JAX-written one. The whole train step is held in
+tests/test_torch_train.py, whose seeded cases this file shares. Tolerances
+stand at each test."""
 
 import json
 import os
+import re
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -14,8 +18,11 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from test_torch_models import _draw_params
 from test_torch_train import NC, _case, _jax_joint, _port_pair
+from vae_segmentation_tpu.core import checkpoint as jckpt
 from vae_segmentation_tpu.data.pipeline import Loader as JLoader
+from vae_segmentation_tpu.models import Joint as JJoint
 from vae_segmentation_tpu.models import unet as junet
 from vae_segmentation_tpu.models import vae as jvae
 from vae_segmentation_tpu.ops import losses as JL
@@ -292,22 +299,71 @@ def test_cli_trains_two_outer_epochs(workdir, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--pseudo_list", "NIH_train"], "item 3"),
-    (["--resume"], "item 3"),
-    (["--aug_host"], "item 3"),
+    (["--spatial_shards", "2"], "item 9"),
+    (["--load_prefix_encoder", "enc"], "item 11"),
+    (["--save_more_reference"], "item 11"),
 ])
 def test_cli_training_flags_of_later_slices_raise(workdir, extra, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
         target_main.main(_train_argv(workdir, *extra))
 
 
-def test_cli_training_without_no_aug_raises(workdir):
-    """Training without --no_aug runs the order-1 device warp
-    (tests/test_torch_source_cli.py); its cubic and host variants are not
-    ported yet."""
+def _resumed(argv, capsys):
+    """Run the target CLI, capturing the student's weights right after
+    --resume restored them; returns (restored state_dict, stdout)."""
+    restored = {}
+    real = target_main.load_state
+
+    def spy(model, ck):
+        real(model, ck)
+        restored.update({k: v.clone() for k, v in model.state_dict().items()})
+
+    capsys.readouterr()
+    with mock.patch.object(target_main, "load_state", spy):
+        target_main.main(argv)
+    return restored, capsys.readouterr().out
+
+
+def test_cli_resumes_a_run_with_the_cubic_and_host_warps(workdir, capsys):
+    """Two outer epochs with the cubic device warp, then --resume with the
+    host warp: it starts at outer epoch 2 from model_epoch2's params and
+    best result (the EMA teacher restarts from the load flags' copy, as in
+    the JAX package)."""
     argv = [a for a in _train_argv(workdir) if a != "--no_aug"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 3"):
-        target_main.main(argv + ["--aug_order", "3"])
+    argv[0] = "rs"
+    best = target_main.main(argv + ["--aug_order", "3"])
+    saved = torch.load("3dmodel/rs/model_epoch2.ckpt", weights_only=True)
+    assert saved["extra"] == {"best_result": best}
+    assert saved["optimizer_state_dict"]["state"]
+    argv[argv.index("--max_epoch") + 1] = "3"
+    restored, out = _resumed(argv + ["--aug_host", "--resume"], capsys)
+    assert f"Resumed from 3dmodel/rs/model_epoch2.ckpt at epoch 2 " \
+           f"(best {best:.4f})" in out
+    assert re.findall(r"^\[\s*(\d+),", out, re.M) == ["3"]
+    assert all(torch.equal(restored[k], v)
+               for k, v in saved["model_state_dict"].items())
+
+
+def test_cli_resumes_from_a_jax_run(workdir, capsys):
+    """The JAX package's layout (its save_checkpoint, a full-width 32^3
+    Joint): the student restarts from model_epoch3's params and best."""
+    template = jax.eval_shape(
+        lambda v: JJoint(n_class=2, dim=128, bottleneck=256).init(
+            jax.random.PRNGKey(0), v),
+        jax.ShapeDtypeStruct((1, 32, 32, 32, 1), jnp.float32))["params"]
+    params = _draw_params(template, np.random.default_rng(4))
+    jckpt.save_checkpoint("3dmodel/jx/model_epoch3.ckpt", epoch=3,
+                          params=params, extra={"best_result": 0.9})
+    argv = _train_argv(workdir, "--resume")
+    argv[0] = "jx"
+    argv[argv.index("--max_epoch") + 1] = "3"
+    restored, out = _resumed(argv, capsys)
+    assert "Resumed from 3dmodel/jx/model_epoch3.ckpt at epoch 3 " \
+           "(best 0.9000)" in out
+    assert "] loss: " not in out            # max_epoch reached: no step
+    want = pm.from_jax_params(params)
+    assert sorted(restored) == sorted(want)
+    assert all(torch.equal(restored[k], v) for k, v in want.items())
 
 
 def test_epoch_sched_matches_jax():

@@ -1,12 +1,14 @@
 """What the port's two trainers share (counterpart of vae_segmentation_tpu/
-cli/common.py): the loaders with the reference's list replication, the
-train ingest (the device warp unless --no_aug, then the intensity
+cli/common.py): the loaders with the reference's list replication (the
+host warp of --aug_host in their workers), the train ingest (the device
+warp at --aug_order unless --no_aug or --aug_host, then the intensity
 normalization; common.py:89-144 of the JAX package), the validation
-batches, and the epoch bookkeeping: the score JSON and the best and
-periodic checkpoints (main_source.py:806-850, main_target.py:1022-1062).
-A checkpoint is a torch ``{'epoch', 'model_state_dict'}`` file
-(``core/checkpoint.py``). ``run_sliding_window_eval`` is the full-volume
-eval of both trainers (common.py:321-385 of the JAX package)."""
+batches, the epoch bookkeeping (the score JSON and the best and periodic
+checkpoints, main_source.py:806-850, main_target.py:1022-1062) and
+--resume (``resume``). A checkpoint holds the JAX package's payload
+(``core/checkpoint.py``), and either package's file loads.
+``run_sliding_window_eval`` is the full-volume eval of both trainers
+(common.py:321-385 of the JAX package)."""
 
 from __future__ import annotations
 
@@ -18,13 +20,13 @@ import numpy as np
 import torch
 
 from vae_segmentation_tpu_torch.core.checkpoint import (
-    checkpoint_path, load_checkpoint, save_checkpoint)
+    checkpoint_path, latest_checkpoint, load_checkpoint, save_checkpoint)
 from vae_segmentation_tpu_torch.core.config import CommonConfig
 from vae_segmentation_tpu_torch.data import augment
 from vae_segmentation_tpu_torch.data.manifest import filedict_from_json
 from vae_segmentation_tpu_torch.data.pipeline import (
-    CaseDataset, FullVolumeDataset, TrainLoader, intensity_normalize,
-    iterate_batches)
+    AugmentedDataset, CaseDataset, FullVolumeDataset, TrainLoader,
+    intensity_normalize, iterate_batches)
 from vae_segmentation_tpu_torch.data.transforms import parse_pan_index
 from vae_segmentation_tpu_torch.eval.evaluate import mean_score
 from vae_segmentation_tpu_torch.eval.postprocess import largest_components
@@ -53,15 +55,22 @@ def bottleneck_for(patch_size, top_fmaps: int = 256) -> int:
 
 
 def build_train_loader(cfg: CommonConfig, *, data_root: str,
-                       list_key: str) -> TrainLoader:
+                       list_key: str, pan_index: Optional[str] = None,
+                       seed_salt: int = 0) -> TrainLoader:
     """The train loader with the reference's list replication: the file
     list repeated eval_epoch times, so one pass is eval_epoch dataset epochs
-    (main_source.py:123-131, 186)."""
+    (main_source.py:123-131, 186). With --aug_host (and not --no_aug) its
+    workers warp each item (``AugmentedDataset`` at --aug_order). The
+    shuffle and the host warp draw from seed + seed_salt (the replay
+    loader's salt is 101, as in the JAX package)."""
     ds = CaseDataset(
         filedict_from_json(cfg.data_path, list_key, cfg.eval_epoch),
-        data_root, mask_index=parse_pan_index(cfg.pan_index),
+        data_root, mask_index=parse_pan_index(pan_index or cfg.pan_index),
         output_size=cfg.patch_size, shift=getattr(cfg, "shift", 0))
-    return TrainLoader(ds, cfg.batch_size, seed=cfg.seed,
+    if cfg.aug_host and not cfg.no_aug:
+        ds = AugmentedDataset(ds, cfg.patch_size, order=cfg.aug_order,
+                              seed=cfg.seed + seed_salt)
+    return TrainLoader(ds, cfg.batch_size, seed=cfg.seed + seed_salt,
                        num_workers=cfg.num_workers)
 
 
@@ -162,22 +171,22 @@ def run_sliding_window_eval(
 def make_train_ingest(cfg: CommonConfig, device: torch.device) -> Callable:
     """(host batch, generator) -> (image_norm [B, *patch], label [B, *patch])
     on `device`: the random affine warp drawn from `generator` (on
-    `device`) unless --no_aug, then Clip(-200, 400) and (x - 100) / 300
-    (main_source.py:197-213). The other warps' flags are refused, even
-    where --no_aug makes them moot."""
-    if cfg.aug_order != 1:
-        todo("--aug_order 3 (the cubic spline warp)", "item 3")
-    if cfg.aug_host:
-        todo("--aug_host (the warp in the loader's workers)", "item 3")
+    `device`; the image at --aug_order, 1 trilinear or 3 the cubic spline)
+    unless --no_aug, then Clip(-200, 400) and (x - 100) / 300
+    (main_source.py:197-213). With --aug_host the loader's workers have
+    warped the batch already, so it only normalises (common.py:128-142 of
+    the JAX package)."""
     patch = tuple(cfg.patch_size)
+    no_aug = cfg.no_aug or cfg.aug_host
 
     def ingest(batch: Dict[str, np.ndarray], generator: torch.Generator
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         image = torch.from_numpy(batch["image"]).to(device)
         label = torch.from_numpy(batch["label"]).to(device)
-        if not cfg.no_aug:
-            image, label = augment.spatial_augment(image, label, generator,
-                                                   patch_size=patch)
+        if not no_aug:
+            image, label = augment.spatial_augment(
+                image, label, generator, patch_size=patch,
+                order=cfg.aug_order)
         return intensity_normalize(image), label
 
     return ingest
@@ -194,6 +203,30 @@ def load(cfg: CommonConfig, prefix: str, name: str = "best_model.ckpt"
     path = checkpoint_path(cfg.save_root, prefix, name)
     print(f"Loading checkpoint {path}")
     return load_checkpoint(path)
+
+
+def resume(cfg: CommonConfig, runner: "EpochRunner",
+           load_params: Callable[[Dict], None]) -> int:
+    """--resume (cli/source_main.py:169-182, cli/target_main.py:226-239 of
+    the JAX package; the reference parses the flag and ignores it): from
+    the latest ``model_epoch<N>.ckpt`` under --save_root/<prefix>, of
+    either package, ``load_params(ck)`` restores the params and
+    ``runner.best_result`` the best mean Dice ('extra', default 0.0).
+    Returns the outer epoch to start from, ``ck['epoch'] // eval_epoch``;
+    0 without --resume or without a checkpoint (a fresh start). As in the
+    JAX package the optimizer starts afresh (its saved state is not
+    restored) and the random streams restart from --seed."""
+    if not cfg.resume:
+        return 0
+    latest = latest_checkpoint(cfg.save_root, cfg.prefix)
+    if latest is None:
+        return 0
+    ck = load_checkpoint(latest)
+    load_params(ck)
+    runner.best_result = float(ck.get("extra", {}).get("best_result", 0.0))
+    print(f"Resumed from {latest} at epoch {ck['epoch']} "
+          f"(best {runner.best_result:.4f})")
+    return ck["epoch"] // cfg.eval_epoch
 
 
 class EpochRunner:
@@ -214,10 +247,13 @@ class EpochRunner:
                                f"{name}_{epoch}.json"), "w") as f:
             json.dump({str(k): v for k, v in scores.items()}, f)
 
-    def end_of_epoch(self, epoch: int, dsc: float,
-                     model: torch.nn.Module) -> bool:
+    def end_of_epoch(self, epoch: int, dsc: float, model: torch.nn.Module,
+                     optimizer: Optional[torch.optim.Optimizer] = None
+                     ) -> bool:
         """Best checkpoint when the mean Dice improved, the periodic one
-        every save_epoch; returns whether it improved."""
+        every save_epoch, each with the optimizer's state and
+        extra={'best_result'} (common.py:212-236 of the JAX package);
+        returns whether it improved."""
         cfg = self.cfg
         print("epoch %d validation result: %f, best result %f."
               % (epoch + 1, dsc, self.best_result))
@@ -225,12 +261,14 @@ class EpochRunner:
         stamp = (epoch + 1) * cfg.eval_epoch
         if improved:
             self.best_result = dsc
+        kw = dict(epoch=stamp, model=model, optimizer=optimizer,
+                  extra={"best_result": self.best_result})
+        if improved:
             save_checkpoint(os.path.join(cfg.save_path, "best_model.ckpt"),
-                            epoch=stamp, model=model)
+                            **kw)
         if not cfg.test_only and \
                 (epoch + 1) % (cfg.save_epoch // cfg.eval_epoch) == 0:
             print("saving model")
             save_checkpoint(os.path.join(cfg.save_path,
-                                         f"model_epoch{stamp}.ckpt"),
-                            epoch=stamp, model=model)
+                                         f"model_epoch{stamp}.ckpt"), **kw)
         return improved

@@ -22,6 +22,12 @@ With ``--eval_mode sliding_window`` seg_train scores the full volumes
 ``--postprocess``, ``--postprocess_min_voxels``); vae_train keeps the crop
 eval, as in the JAX package.
 
+``--resume`` restarts from the latest ``model_epoch<N>.ckpt`` of the
+prefix (the port's or the JAX package's): params, outer epoch and best
+result, with a fresh optimizer (``cli/common.py::resume``).
+``--aug_order 3`` warps the image with the cubic spline, ``--aug_host``
+warps in the loader's workers (``data/host_augment.py``).
+
 The other methods and the flags this slice does not port raise
 NotImplementedError naming their ROADMAP item. It runs on ``--device cuda``
 unless told otherwise.
@@ -57,8 +63,6 @@ def _check_supported(cfg: SourceConfig) -> None:
         todo(f"--method {cfg.method}", "item 11 (the other source methods)")
     if cfg.softrelu == 1:
         todo("--softrelu 1 (the soft-ReLU VAE)", "item 11")
-    if cfg.resume:
-        todo("--resume", "item 3")
     if cfg.spatial_shards != 1:
         todo("--spatial_shards", "item 9")
     if cfg.save_eval_result or cfg.save_more_reference \
@@ -134,11 +138,14 @@ def run(cfg: SourceConfig) -> float:
     else:
         step = make_seg_train_step(n_class)
         eval_step = make_seg_eval_step(model, n_class)
+    start_epoch = common.resume(
+        cfg, runner, lambda ck: load_network(model, ck, "Vae" if vae
+                                             else "Seg"))
     # draws the warp and, for vae_train, the reparam seeds
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
 
     print("Start training")
-    for epoch in range(cfg.outer_epochs):
+    for epoch in range(start_epoch, cfg.outer_epochs):
         if not cfg.test_only:
             if epoch == 0 and not vae:
                 common.skip_epoch(loader)  # epoch-0 skip (:416)
@@ -160,7 +167,7 @@ def run(cfg: SourceConfig) -> float:
                 common.val_batches(val_ds, cfg.val_batch, device), eval_step,
                 uses_image=not vae)
         runner.dump_scores(epoch, scores)
-        runner.end_of_epoch(epoch, dsc, model)
+        runner.end_of_epoch(epoch, dsc, model, optimizer)
         if cfg.test_only:
             break
     return runner.best_result

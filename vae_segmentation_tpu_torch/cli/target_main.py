@@ -27,10 +27,25 @@ scores the full volumes instead of the ROI crops (``--sw_overlap``,
 most 4); with ft1 each case's finetune takes its ROI crop and the sweep
 uses the finetuned copy.
 
+``--pseudo_list <list>`` replays labelled source cases (``--pseudo_data_root``,
+``--pseudo_pan_index``) during adaptation: the adaptation loss takes its
+``pseudo`` variant, every adaptation step is followed by one replay step
+on a source batch (``train/steps.py::make_seg_replay_step``, its loss
+printed as ``dice_loss_pseudo``), and the teacher becomes a full copy of
+the student on every iteration of an outer epoch divisible by
+``--pseudo_save_epoch`` (with ``--tag``, lambda_vae / 10 each time) in
+place of the EMA update. ``--resume`` restarts from the latest
+``model_epoch<N>.ckpt`` of the prefix, the port's or the JAX package's
+(``cli/common.py::resume``: params, outer epoch and best result, a fresh
+optimizer). ``--test_only`` evaluates whatever the load flags assemble
+(``--load_prefix_joint``, or ``--load_prefix`` with ``--load_prefix_vae``;
+the teacher is the student's copy). ``--aug_order 3`` and ``--aug_host``
+pick the cubic and the host warp (``cli/common.py::make_train_ingest``).
+
 ``--vae_forward_scale`` is accepted and changes nothing, as in the JAX
-package (its Joint always encodes with the mean latent). ``--pseudo_list``,
-``--resume``, ``--aug_order 3``, ``--aug_host`` and every other method raise
-NotImplementedError naming the ROADMAP item that will port them.
+package (its Joint always encodes with the mean latent). Every other
+method, and the flags of later slices, raise NotImplementedError naming
+the ROADMAP item that will port them.
 """
 
 from __future__ import annotations
@@ -54,7 +69,7 @@ from vae_segmentation_tpu_torch.models import (
     Joint, load_component, load_state)
 from vae_segmentation_tpu_torch.train import (
     AdaptConfig, copy_params, default_sched, ema_update_seg, make_adapt_step,
-    optim)
+    make_seg_replay_step, optim)
 
 
 def _check_supported(cfg: TargetConfig) -> None:
@@ -68,17 +83,6 @@ def _check_supported(cfg: TargetConfig) -> None:
              "item 11")
     if cfg.load_prefix_encoder:
         todo("--load_prefix_encoder", "item 11")
-    if cfg.test_only:
-        if not cfg.load_prefix_joint or cfg.load_prefix \
-                or cfg.load_prefix_vae or cfg.pseudo_list is not None \
-                or cfg.resume:
-            todo("--test_only with anything but --load_prefix_joint",
-                 "item 3")
-        return
-    if cfg.pseudo_list is not None:
-        todo("--pseudo_list (source replay)", "item 3")
-    if cfg.resume:
-        todo("--resume", "item 3")
 
 
 def _adapt_cfg(cfg: TargetConfig, n_class: int) -> AdaptConfig:
@@ -211,17 +215,60 @@ def _sliding_window_eval(cfg: TargetConfig, n_class: int, val_ds, device,
     return sweep(model_for_case), scores_noft
 
 
+PRINT_KEYS = ("recon_loss", "dice_loss_fake", "dice_loss",
+              "dice_loss_pseudo")
+
+
 def _print_line(epoch: int, eval_epoch: int, idx: int, metrics: Dict) -> None:
-    vals = ", ".join("%.4f" % float(metrics[k]) for k in
-                     ("recon_loss", "dice_loss_fake", "dice_loss"))
+    vals = ", ".join("%.4f" % float(metrics[k]) for k in PRINT_KEYS
+                     if k in metrics)
     print("[%3d, %3d] loss: %s" % ((epoch + 1) * eval_epoch, idx + 1, vals))
+
+
+class SourceReplay:
+    """The --pseudo_list replay (cli/target_main.py:115-120, 279-284,
+    352-363 of the JAX package): a second train loader over the source
+    list (--pseudo_data_root, --pseudo_pan_index; shuffle and host warp
+    seeded --seed + 101), and ``replay(student)``: the next source batch,
+    cycling the loader when a pass ends, through the train ingest (its own
+    draw from `generator`) and one ``make_seg_replay_step`` with the
+    adaptation step's optimizer; returns the detached Dice loss.
+    ``new_pass()`` starts each outer epoch on a fresh pass, as the JAX
+    package does."""
+
+    def __init__(self, cfg: TargetConfig, n_class: int, ingest, optimizer,
+                 generator):
+        self.loader = common.build_train_loader(
+            cfg, data_root=cfg.pseudo_data_root, list_key=cfg.pseudo_list,
+            pan_index=cfg.pseudo_pan_index, seed_salt=101)
+        if len(self.loader) == 0:
+            raise ValueError(f"--pseudo_list {cfg.pseudo_list}: fewer cases "
+                             f"than a batch of {cfg.batch_size}")
+        self.step = make_seg_replay_step(n_class)
+        self.ingest, self.optimizer = ingest, optimizer
+        self.generator = generator
+        self.batches = None
+
+    def new_pass(self) -> None:
+        self.batches = iter(self.loader)
+
+    def __call__(self, student) -> torch.Tensor:
+        try:
+            batch = next(self.batches)
+        except StopIteration:
+            self.new_pass()
+            batch = next(self.batches)
+        image, label = self.ingest(batch, self.generator)
+        return self.step(student, self.optimizer, image, label)["dice_loss"]
 
 
 def _train_epoch(cfg: TargetConfig, epoch: int, loader: TrainLoader, step,
                  ingest, model, teacher, optimizer, generator,
-                 lambda_vae: float) -> float:
-    """One outer epoch of adaptation steps; returns lambda_vae after the
-    --tag decay. `generator` draws the warp and the MC dropout masks."""
+                 lambda_vae: float,
+                 replay: Optional[SourceReplay] = None) -> float:
+    """One outer epoch of adaptation steps (each followed by a replay step
+    with --pseudo_list); returns lambda_vae after the --tag decay.
+    `generator` draws the warps and the MC dropout masks."""
     if epoch == 0:
         common.skip_epoch(loader)  # epoch-0 skip (main_target.py:506)
         return lambda_vae
@@ -230,8 +277,20 @@ def _train_epoch(cfg: TargetConfig, epoch: int, loader: TrainLoader, step,
     # list is replicated eval_epoch x), or every iteration
     ema_interval = max(len(loader) // cfg.eval_epoch, 1) \
         if cfg.pseudo_save_epoch != 0 else None
+    if replay is not None:
+        replay.new_pass()
     for idx, batch in enumerate(loader):
-        if ema_interval is not None and \
+        if replay is not None:
+            # the replay runs' teacher: a full copy of the student on every
+            # iteration of a qualifying epoch, --tag dividing lambda by 10
+            # (main_target.py:633-635)
+            if cfg.pseudo_save_epoch != 0 and \
+                    epoch % cfg.pseudo_save_epoch == 0:
+                copy_params(teacher, model)
+                if cfg.tag:
+                    lambda_vae = lambda_vae / 10.0
+                    sched = _epoch_sched(cfg, epoch, lambda_vae)
+        elif ema_interval is not None and \
                 epoch % max(cfg.pseudo_save_epoch // cfg.eval_epoch, 1) == 0 \
                 and (cfg.update_every_iteration or idx % ema_interval == 0):
             if not cfg.update_every_iteration:
@@ -243,6 +302,8 @@ def _train_epoch(cfg: TargetConfig, epoch: int, loader: TrainLoader, step,
         image, label = ingest(batch, generator)
         metrics = step(model, teacher, optimizer, image, label, generator,
                        sched)
+        if replay is not None:
+            metrics = dict(metrics, dice_loss_pseudo=replay(model))
         _print_line(epoch, cfg.eval_epoch, idx, metrics)
     return lambda_vae
 
@@ -266,8 +327,11 @@ def run(cfg: TargetConfig) -> float:
         finetune, ft_model = _make_finetune(cfg, n_class, device)
         ft_eval_step = make_joint_eval_step(ft_model, n_class)
     runner = common.EpochRunner(cfg)
+    # params, epoch and best of the latest periodic checkpoint; the teacher
+    # stays the copy made from the load flags, as in the JAX package
+    start_epoch = common.resume(cfg, runner, lambda ck: load_state(model, ck))
 
-    loader = step = ingest = optimizer = generator = None
+    loader = step = ingest = optimizer = generator = replay = None
     if not cfg.test_only:
         print("Loading data.")
         loader = common.build_train_loader(cfg, data_root=cfg.data_root,
@@ -277,16 +341,22 @@ def run(cfg: TargetConfig) -> float:
             else optim.freeze_vae(model)
         optimizer = optim.build(trainable, cfg.adam, cfg.lr_seg,
                                 weight_decay=cfg.weight_decay)
-        step = make_adapt_step(_adapt_cfg(cfg, n_class))
+        # --pseudo_list runs take the restricted loss of
+        # main_target.py:642-653
+        step = make_adapt_step(
+            _adapt_cfg(cfg, n_class),
+            variant="pseudo" if cfg.pseudo_list is not None else "train")
         generator = torch.Generator(device=device).manual_seed(cfg.seed)
+        if cfg.pseudo_list is not None:
+            replay = SourceReplay(cfg, n_class, ingest, optimizer, generator)
         print("Start training")
 
     lambda_vae = cfg.lambda_vae  # host-mutable (--tag decay)
-    for epoch in range(cfg.outer_epochs):
+    for epoch in range(start_epoch, cfg.outer_epochs):
         if not cfg.test_only:
             lambda_vae = _train_epoch(cfg, epoch, loader, step, ingest,
                                       model, teacher, optimizer, generator,
-                                      lambda_vae)
+                                      lambda_vae, replay)
         print("Start evaluation")
         t0 = time.time()
         # ft1 from the first outer epoch that trained (main_target.py:807)
@@ -310,7 +380,7 @@ def run(cfg: TargetConfig) -> float:
             print("epoch 1 validation result: %f over %d cases."
                   % (dsc, len(scores)))
             return dsc
-        runner.end_of_epoch(epoch, dsc, model)
+        runner.end_of_epoch(epoch, dsc, model, optimizer)
     return runner.best_result
 
 

@@ -1,8 +1,9 @@
 """Input pipeline: ROI-cropped cases, the uncropped cases of the
-sliding-window eval, the eval and train batching, and the intensity
-normalization (counterparts of vae_segmentation_tpu/data/pipeline.py::
-CaseDataset, ::Loader, cli/common.py::FullVolumeDataset and data/
-augment.py::intensity_normalize)."""
+sliding-window eval, the host warp of ``--aug_host``, the eval and train
+batching, and the intensity normalization (counterparts of
+vae_segmentation_tpu/data/pipeline.py::CaseDataset, ::AugmentedDataset,
+::Loader, cli/common.py::FullVolumeDataset and data/augment.py::
+intensity_normalize)."""
 
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from typing import Dict, Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
+from vae_segmentation_tpu_torch.data.host_augment import augment_spatial_host
 from vae_segmentation_tpu_torch.data.transforms import (
     MaskIndex, crop_resize, load_merge_case)
 
@@ -67,6 +69,31 @@ class FullVolumeDataset:
                                self.mask_index)
         return {"image": case["image"], "label": case["label"],
                 "id": case["id"], "index": idx}
+
+
+class AugmentedDataset:
+    """A dataset whose items come warped by ``data/host_augment.py``
+    (``--aug_host``; data/pipeline.py:64-92 of the JAX package): item idx
+    draws from ``np.random.default_rng((seed, idx))``, so what an item
+    gets does not depend on the loader's workers or their schedule."""
+
+    def __init__(self, base, patch_size: Sequence[int], order: int,
+                 seed: int):
+        self.base = base
+        self.patch_size = tuple(patch_size)
+        self.order = order
+        self.seed = seed
+
+    def __len__(self) -> int:
+        return len(self.base)
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        out = self.base[idx]
+        rng = np.random.default_rng((self.seed, idx))
+        out["image"], out["label"] = augment_spatial_host(
+            out["image"], out["label"], rng, self.patch_size,
+            order=self.order)
+        return out
 
 
 def _collate(items: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:

@@ -86,6 +86,9 @@ def from_jax_params(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     top-level ``Seg``/``Vae`` is a Joint (keys ``Seg.*``, ``Vae.*``);
     otherwise a single SegUNet or ShapeVAE."""
     parts = {k: params_np[k] for k in ("Seg", "Vae") if k in params_np}
+    if parts and len(parts) != len(params_np):
+        raise KeyError("a composite JAX tree holds submodules other than "
+                       f"Seg and Vae: {sorted(params_np)}")
     if parts:
         flat = {f"{name}.{k}": v for name, sub in parts.items()
                 for k, v in _component(sub).items()}
@@ -96,18 +99,20 @@ def from_jax_params(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 def _state_dict(state: Any) -> Dict[str, torch.Tensor]:
     """A state_dict, a ``{'model_state_dict': ...}`` checkpoint dict or a
-    path to one -> plain {key: tensor} without DataParallel's ``module.``
-    prefix."""
+    path to one (either package's file) -> plain {key: tensor} without
+    DataParallel's ``module.`` prefix."""
     if isinstance(state, (str, bytes)) or hasattr(state, "__fspath__"):
-        state = torch.load(state, map_location="cpu", weights_only=True)
+        # imported here: core.checkpoint imports this module
+        from vae_segmentation_tpu_torch.core.checkpoint import load_checkpoint
+        state = load_checkpoint(state)
     sd = state.get("model_state_dict", state)
     return {k[len("module."):] if k.startswith("module.") else k:
             torch.as_tensor(v) for k, v in sd.items()}
 
 
 def load_state(model: torch.nn.Module, state: Any) -> torch.nn.Module:
-    """Load a state_dict, a checkpoint dict or a path to one (reference and
-    port checkpoints alike) into `model`, strictly."""
+    """Load a state_dict, a checkpoint dict or a path to one (reference,
+    port and JAX package checkpoints alike) into `model`, strictly."""
     model.load_state_dict(_state_dict(state), strict=True)
     return model
 

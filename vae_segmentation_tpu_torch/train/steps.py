@@ -1,8 +1,9 @@
 """The train steps (counterparts of vae_segmentation_tpu/train/steps.py):
 the two source-domain steps, ``make_vae_train_step`` (the shape-prior VAE
 on ground-truth masks, main_source.py:389-413) and ``make_seg_train_step``
-(the supervised SegUNet, main_source.py:415-446), and the adaptation step
-``make_adapt_step`` with what it calls (main_target.py:505-613).
+(the supervised SegUNet, main_source.py:415-446), the adaptation step
+``make_adapt_step`` with what it calls (main_target.py:505-613), and the
+source replay of --pseudo_list runs, ``make_seg_replay_step``.
 
 One adaptation step: the teacher's Seg forward without gradients (plus its
 VAE encode for the KL term), a binarized pseudo-label, the student Joint
@@ -92,6 +93,34 @@ def make_seg_train_step(n_class: int, *, eps: float = L.SOURCE_EPS
         pred = model(img)
         dsc_loss = 1.0 - L.avg_dsc(pred, onehot, botindex=1,
                                    topindex=n_class, eps=eps)
+        dsc_loss.backward()
+        optimizer.step()
+        return {"dice_loss": dsc_loss.detach()}
+
+    return step
+
+
+def make_seg_replay_step(n_class: int, *, eps: float = L.SOURCE_EPS
+                         ) -> Callable:
+    """The source-replay step of --pseudo_list runs (main_target.py:
+    668-691; steps.py:213-244 of the JAX package, on the logical model):
+
+        step(student, optimizer, image, label) -> {'dice_loss'}
+
+    loss = 1 - avg_dsc(student.segment(image), onehot) over classes
+    [1, n_class) on a labelled source batch, its sums taken by one
+    ``dice_sums`` pass (``multi_soft_dice``: avg_dsc's formula, its VJP on
+    the card too); the gradient goes into the student's Seg through the
+    adaptation step's optimizer (what it froze stays frozen; the VAE takes
+    no part in the loss)."""
+
+    def step(student, optimizer, image, label):
+        img = image if image.dim() == 5 else image[..., None]
+        onehot = L.one_hot_label(label, n_class)
+        optimizer.zero_grad(set_to_none=True)
+        pred = student.segment(img)
+        dsc = L.multi_soft_dice(pred, (onehot,), eps=eps)[0]
+        dsc_loss = 1.0 - dsc[:, 1:n_class].mean()
         dsc_loss.backward()
         optimizer.step()
         return {"dice_loss": dsc_loss.detach()}
