@@ -218,7 +218,20 @@ Phases, each printed as JSON records:
      equal), ``warp_ms`` at order 3 and order 1; (d) a seg_train CLI
      with ``--aug_host`` (launches derived from the model) and the host
      loader's ms a batch at order 1 and 3.
- 16. the ``kernels`` line (sixteen kernels; those of an opt-in route
+ 16. the host data layer (``host_data``, default route): the native
+     loader's build from ``data/csrc/fastloader.cpp`` into a scratch
+     directory, timed (a failed build raises), with the CPU model,
+     ``os.cpu_count()`` and ``VAESEG_LOADER_THREADS``; for each of phase
+     3's 128^3 phantoms and two 256^3 phantoms whose ROI crop is 180 and
+     210 a side, the numpy path against the native one, three times in
+     turns: ms of load + remap, bbox (fused into the native load) and crop
+     + resize to 128^3 (median), the native image, label and bbox equal to
+     numpy's, the native resize within rtol 2e-4 / atol 2e-3 of scipy's
+     (order 1) with under 1e-3 of the label's voxels differing (order 0);
+     then phase 3's eval CLI on the numpy path and the native path in turns
+     (numpy, native, native, numpy): ``cli_s`` a case beside phase 3's, the
+     native runs repeating phase 3's scores and launches.
+ 17. the ``kernels`` line (sixteen kernels; those of an opt-in route
      carry its switch in ``path`` and count their launches on its runs;
      the others count phase 14's CLI runs in ``launches_test_time_path``
      and phase 15's in ``launches_later_flags_path`` too), then the last
@@ -2986,6 +2999,220 @@ def later_flags(torch, ops, run_cli, record_checked, model, batches, src,
     return {"launches": launches, "replay_totals": replay_totals}
 
 
+# ---------------------------------------------------------------- phase 16:
+# the host data layer: the native loader and resize against the numpy path
+HOST_SIZE = 128
+# the larger cases: a 256^3 volume whose ROI crop is about 180-211 a side
+# (tests/test_native_loader.py:100's "typical crop -> patch" downscale)
+LARGE_VOLUME, LARGE_EXTENTS = 256, (150, 176)
+HOST_REPS = 3
+RESIZE_RTOL, RESIZE_ATOL, NEAREST_MISMATCH = 2e-4, 2e-3, 1e-3
+
+
+def large_phantoms(root: str, seed: int) -> list:
+    """Cases of LARGE_VOLUME^3 (int16 merge.npy, the synthetic phantoms'
+    intensities) with an ellipsoid label whose longest bbox extent is each
+    of LARGE_EXTENTS, so that crop_resize's cube is L + 2 int(0.1 L) a
+    side. Returns their manifest entries."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = LARGE_VOLUME
+    zz, yy, xx = np.ogrid[0:n, 0:n, 0:n]
+    entries = []
+    for i, ext in enumerate(LARGE_EXTENTS):
+        image = rng.normal(40.0, 30.0, (n, n, n)).astype(np.float32)
+        image[:2] = -1000.0
+        c = n // 2 + rng.integers(-8, 9, 3)
+        radii = (ext / 2, 0.4 * ext, 0.35 * ext)
+        inside = (((zz - c[0]) / radii[0]) ** 2 + ((yy - c[1]) / radii[1]) ** 2
+                  + ((xx - c[2]) / radii[2]) ** 2) <= 1.0
+        image[inside] += 60.0
+        case = os.path.join(root, f"caselarge{i:04d}")
+        os.makedirs(case, exist_ok=True)
+        np.save(os.path.join(case, "merge.npy"),
+                np.stack((image, inside), axis=-1).astype(np.int16))
+        entries.append(f"caselarge{i:04d}/merge.npy")
+    return entries
+
+
+def cpu_model() -> str:
+    """The host CPU's 'model name' and 'vendor_id' from /proc/cpuinfo (a
+    virtual machine may say 'unknown' for the first)."""
+    info = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            info.setdefault(key.strip(), value.strip())
+    return f"{info.get('model name', 'unknown')} " \
+        f"({info.get('vendor_id', 'unknown vendor')})"
+
+
+def host_case(root: str, entry: str, failures: list) -> dict:
+    """One case's host data, numpy path against native, HOST_REPS times in
+    turns: ms of load + remap, bbox, and crop + resize to HOST_SIZE^3
+    (median of the reps). The native image, label and bbox must equal the
+    numpy path's; the native crop + resize must keep the resize rules
+    (image within RESIZE_RTOL / RESIZE_ATOL, under NEAREST_MISMATCH of the
+    label's voxels differing) and the same ori_shape."""
+    import numpy as np
+
+    from vae_segmentation_tpu_torch.data import native_loader, transforms
+
+    path = os.path.join(root, entry)
+    mask_index = transforms.parse_pan_index("1")
+    size = (HOST_SIZE,) * 3
+    ms = {k: [] for k in ("numpy_load", "numpy_bbox", "numpy_resize",
+                          "native_load", "native_resize")}
+
+    def numpy_path():
+        t0 = time.perf_counter()
+        case = transforms.load_merge_numpy(path, mask_index)
+        t1 = time.perf_counter()
+        bb = transforms.label_bbox(case["label"])
+        box = np.concatenate(bb) if bb is not None else np.full(6, -1)
+        t2 = time.perf_counter()
+        with mock.patch.dict(os.environ, {"VAESEG_NATIVE_RESIZE": "0"}):
+            out = transforms.crop_resize(case["image"], case["label"], size,
+                                         bbox=box)
+        t3 = time.perf_counter()
+        ms["numpy_load"].append(1e3 * (t1 - t0))
+        ms["numpy_bbox"].append(1e3 * (t2 - t1))
+        ms["numpy_resize"].append(1e3 * (t3 - t2))
+        return case, box, out
+
+    def native_path():
+        t0 = time.perf_counter()
+        case = native_loader.load_case(path, mask_index)
+        t1 = time.perf_counter()
+        with mock.patch.dict(os.environ, {"VAESEG_NATIVE_RESIZE": "1"}):
+            out = transforms.crop_resize(case["image"], case["label"], size,
+                                         bbox=case["bbox"])
+        t2 = time.perf_counter()
+        ms["native_load"].append(1e3 * (t1 - t0))
+        ms["native_resize"].append(1e3 * (t2 - t1))
+        return case, case["bbox"], out
+
+    for rep in range(HOST_REPS):
+        turns = (numpy_path, native_path)[::1 if rep % 2 == 0 else -1]
+        got = {fn: fn() for fn in turns}
+    np_case, np_box, np_out = got[numpy_path]
+    nat_case, nat_box, nat_out = got[native_path]
+    same = {"image": bool(np.array_equal(nat_case["image"],
+                                         np_case["image"])),
+            "label": bool(np.array_equal(nat_case["label"],
+                                         np_case["label"])),
+            "bbox": bool(np.array_equal(nat_box, np_box))}
+    img_err = np.abs(nat_out["image"] - np_out["image"])
+    img_ok = bool(np.all(img_err <= RESIZE_ATOL
+                         + RESIZE_RTOL * np.abs(np_out["image"])))
+    mismatch = float(np.mean(nat_out["label"] != np_out["label"]))
+    ok = (all(same.values()) and img_ok and mismatch < NEAREST_MISMATCH
+          and np.array_equal(nat_out["ori_shape"], np_out["ori_shape"]))
+    if not ok:
+        failures.append(f"host data: {entry}: native against numpy "
+                        f"{same}, resized image within the rule {img_ok}, "
+                        f"label mismatch {mismatch}")
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    return {"case": entry, "shape": list(np_case["image"].shape),
+            "crop": [int(s) for s in np_out["ori_shape"][3:]],
+            **{f"{k}_ms": v for k, v in med.items()},
+            "numpy_total_ms": med["numpy_load"] + med["numpy_bbox"]
+            + med["numpy_resize"],
+            "native_total_ms": med["native_load"] + med["native_resize"],
+            "equal": same, "resize_image_max_abs_err": float(img_err.max()),
+            "resize_image_within_rule": img_ok,
+            "resize_label_mismatch": mismatch, "ok": ok}
+
+
+def host_data(run_cli, target_main, work, data, manifest, args, log,
+              failures) -> None:
+    """Phase 16: the host data layer. The loader's build (a fresh build into
+    a scratch directory, timed, and how this process got its library), the
+    host (CPU model, cores, VAESEG_LOADER_THREADS), every case of phase 3
+    and two larger ones (host_case), then the eval CLI of phase 3 in turns
+    on the numpy path and the native path (numpy, native, native, numpy):
+    cli_s a case beside phase 3's; every run makes phase 3's launches, the
+    native runs repeat phase 3's scores and the numpy runs each other's,
+    and each case's Dice on the two paths is within 0.01 (phase 3's
+    rule: the resized images differ within the resize rule)."""
+    import numpy as np
+    from pathlib import Path
+
+    from vae_segmentation_tpu_torch.data import native_loader
+
+    t_phase = time.time()
+    scratch = os.path.join(work, "host_build")
+    _, fresh = native_loader.build(Path(scratch))
+    first_use = native_loader.build_record()
+    emit({"phase": "host_build", "build_s": fresh["seconds"],
+          "compiled": fresh["built"], "flags": list(native_loader.CXX_FLAGS),
+          "cxx": os.environ.get("CXX") or "g++",
+          "first_use": {k: first_use.get(k)
+                        for k in ("path", "built", "seconds", "threads")},
+          "cpu_model": cpu_model(), "cpu_count": os.cpu_count(),
+          "loader_threads": native_loader.loader_threads()}, log)
+    if not fresh["built"]:
+        failures.append("host data: the scratch build did not compile")
+
+    with open(manifest) as f:
+        entries = json.load(f)["NIH_val"]
+    large_root = os.path.join(work, "data_large")
+    large = large_phantoms(large_root, args.seed + 16)
+    sets = {"phase3_128": [host_case(data, e, failures) for e in entries],
+            "large_256": [host_case(large_root, e, failures)
+                          for e in large]}
+    summary = {name: {k: float(np.mean([c[k] for c in cases]))
+                      for k in cases[0] if k.endswith("_ms")}
+               for name, cases in sets.items()}
+
+    main_rec = next(r for r in log if r.get("phase") == "main_path")
+    runs = []
+    for i, route in enumerate(("numpy", "native", "native", "numpy")):
+        prefix = f"smoke_host_{route}{i}"
+        with ExitStack() as stack:
+            if route == "numpy":
+                stack.enter_context(mock.patch.dict(
+                    os.environ, {"VAESEG_NATIVE_RESIZE": "0"}))
+                stack.enter_context(mock.patch.object(
+                    native_loader, "in_subset", return_value=False))
+            _, secs, launches = run_cli(target_main.main, [
+                prefix, "--method", "domain_adaptation", "--test_only",
+                "--load_prefix_joint", "smoke", "--save_root",
+                os.path.join(work, "3dmodel"), "--val_list", "NIH_val",
+                "--val_data_root", data, "--data_path", manifest,
+                "--val_batch", "1", "--device", "cuda"])
+        scores = (read_scores(work, prefix, (0,)) or [{}])[0]
+        repeat = main_rec["scores"] if route == "native" else \
+            next((r["scores"] for r in runs if r["route"] == "numpy"),
+                 scores)
+        ok = (launches == main_rec["launches"]
+              and len(scores) == args.cases and scores == repeat
+              and all(abs(v - main_rec["scores"].get(k, -1.0)) <= 0.01
+                      for k, v in scores.items()))
+        if not ok:
+            failures.append(f"host data: the eval CLI on the {route} path: "
+                            f"launches {launches}, scores {scores} (phase "
+                            f"3: {main_rec['launches']}, "
+                            f"{main_rec['scores']})")
+        runs.append({"route": route, "cli_s": secs,
+                     "cli_s_per_case": secs / args.cases, "scores": scores,
+                     "ok": ok})
+    cli = {route: [r["cli_s_per_case"] for r in runs if r["route"] == route]
+           for route in ("numpy", "native")}
+    ok = all(c["ok"] for cases in sets.values() for c in cases) and \
+        all(r["ok"] for r in runs)
+    emit({"phase": "host_data", "output_size": HOST_SIZE, "reps": HOST_REPS,
+          "cases": sets, "mean_ms": summary,
+          "phase3_cli_s_per_case": main_rec["cli_s"] / args.cases,
+          "eval_cli_runs": runs,
+          "cli_s_per_case_numpy": cli["numpy"],
+          "cli_s_per_case_native": cli["native"],
+          "rules": {"rtol": RESIZE_RTOL, "atol": RESIZE_ATOL,
+                    "nearest_mismatch": NEAREST_MISMATCH},
+          "phase_16_s": time.time() - t_phase, "ok": ok}, log)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3838,10 +4065,15 @@ def main() -> int:
                           "replay_lists": replay_lists},
                          args, log, failures)
         later_launches = lf["launches"]
+
+        # ---- 16. the host data layer: the native loader and resize against
+        # the numpy path, case by case, and the eval CLI on each path
+        host_data(run_cli, target_main, work, data, manifest, args, log,
+                  failures)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 16. summary lines: K1-K3 per eval forward (phase 2), the backward
+    # ---- 17. summary lines: K1-K3 per eval forward (phase 2), the backward
     # and loss kernels per adaptation step (phase 5), reparam_kl per
     # vae_train step (phase 7); the kernels of an opt-in route per pass of
     # that route, and their launches counted on its runs: norm_stats and

@@ -1,2 +1,4 @@
-"""Manifest, host transforms, resize, synthetic phantoms and the eval
-batch pipeline (numpy/scipy copies of the JAX package's host modules)."""
+"""Manifest, case loading (the native loader of ``csrc/fastloader.cpp``
+and its numpy path), resize, the host transform library, offline
+preprocessing, synthetic phantoms and the eval / train batch pipeline
+(copies of the JAX package's host modules)."""

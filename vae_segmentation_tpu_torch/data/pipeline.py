@@ -44,7 +44,7 @@ class CaseDataset:
         case = load_merge_case(self.root_dir, self.entries[idx],
                                self.mask_index)
         out = crop_resize(case["image"], case["label"], self.output_size,
-                          shift=self.shift)
+                          shift=self.shift, bbox=case.get("bbox"))
         out["id"] = case["id"]
         out["index"] = idx
         return out

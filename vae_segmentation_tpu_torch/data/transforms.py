@@ -7,8 +7,10 @@ reference builds in main_source.py:189-228 up to the device boundary:
   CropResize              (utils/utils.py:220-293)  -> crop_resize
   pan_index mini-DSL      (main_source.py:92-95)    -> parse_pan_index
 
-Copy of the JAX package's data/transforms.py (numpy only). Everything
-downstream (clip, center, one-hot) runs on the device.
+Copy of the JAX package's data/transforms.py: a case loads through the
+native loader (``data/native_loader.py``) where the JAX package takes its
+native path, numpy otherwise. Everything downstream (clip, center, one-hot)
+runs on the device.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from vae_segmentation_tpu_torch.data import native_loader
 from vae_segmentation_tpu_torch.data.manifest import case_id
 from vae_segmentation_tpu_torch.data.resize import resize_volume
 
@@ -52,15 +55,28 @@ def load_merge_case(root_dir: str, entry: str,
                     mask_index: Optional[MaskIndex] = None
                     ) -> Dict[str, np.ndarray]:
     """Load <root>/<case>/merge.npy: channel 0 image, channel 1 raw label
-    (utils/utils.py:347-383). Returns {'id', 'image', 'label'}."""
+    (utils/utils.py:347-383). Returns {'id', 'image', 'label'} and, from
+    the native loader, 'bbox' (the label's, for ``crop_resize``).
+
+    The native loader (mmap, channel split, remap and bbox in one pass off
+    the GIL) takes every case with a mask_index whose npy header is in its
+    subset (``native_loader.in_subset``); ``load_merge_numpy`` the rest, as
+    in the JAX package."""
     path = os.path.join(root_dir, entry)
-    merge = np.load(path)
-    out = {
-        "id": case_id(entry),
-        "image": merge[..., 0].astype(np.float32),
-        "label": remap_labels(merge[..., 1], mask_index),
-    }
+    if mask_index is not None and native_loader.in_subset(path):
+        out = native_loader.load_case(path, mask_index)
+    else:
+        out = load_merge_numpy(path, mask_index)
+    out["id"] = case_id(entry)
     return out
+
+
+def load_merge_numpy(path: str, mask_index: Optional[MaskIndex] = None
+                     ) -> Dict[str, np.ndarray]:
+    """The numpy path of ``load_merge_case``: {'image', 'label'}."""
+    merge = np.load(path)
+    return {"image": merge[..., 0].astype(np.float32),
+            "label": remap_labels(merge[..., 1], mask_index)}
 
 
 def _crop_bounds(center: np.ndarray, half: int, pad: int, shift: int,
@@ -84,19 +100,26 @@ def label_bbox(label: np.ndarray):
 
 def crop_resize(image: np.ndarray, label: np.ndarray,
                 output_size: Sequence[int] = (128, 128, 128), *,
-                shift: int = 0) -> Dict[str, np.ndarray]:
+                shift: int = 0,
+                bbox: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
     """ROI cube crop + resize to output_size (utils/utils.py:232-293).
 
     bbox of label>0; center cube of side L = max bbox extent, padded by
     int(0.1 * L); pad-to-cube with zeros; linear+AA resize for the image,
     nearest for the label. Empty-mask fallback center (64,64,64), L=32
     (utils/utils.py:264-267). `shift` offsets the crop (the --shift flag,
-    main_target.py:81,204).
+    main_target.py:81,204). `bbox` may carry a precomputed
+    [dmin,hmin,wmin,dmax,hmax,wmax] (all -1 == empty) from the native
+    loader; otherwise the projection-based sweep runs here.
 
     Returns {'image', 'label', 'ori_shape'} where ori_shape is the 6-vector
     [orig D,H,W, cropped D,H,W] the reference records (utils/utils.py:270-279).
     """
-    bb = label_bbox(label)
+    if bbox is not None:
+        bb = (None if int(bbox[3]) < 0
+              else (np.asarray(bbox[:3]), np.asarray(bbox[3:])))
+    else:
+        bb = label_bbox(label)
     if bb is not None:
         bbox_min, bbox_max = bb
         center = (bbox_max + bbox_min) // 2

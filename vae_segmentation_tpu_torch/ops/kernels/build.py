@@ -8,18 +8,24 @@ library), then opened with ``ctypes``.
 Building happens at first use, never at import: a process that only runs
 CPU tensors never looks for ``nvcc``. ``build_all()`` starts one ``nvcc``
 per source at once and waits for all of them.
+
+``build_host_library()`` does the same for a host C++ source (the data
+loader's ``data/csrc/fastloader.cpp``) with ``$CXX``, under a file lock,
+so that concurrent processes build it once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
+import shlex
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -162,3 +168,42 @@ def library(name: str) -> ctypes.CDLL:
 def loaded() -> List[str]:
     """Names of the kernel libraries this process has loaded."""
     return sorted(_libs)
+
+
+def build_host_library(source: Path, flags: Sequence[str],
+                       build_dir: Path) -> Tuple[Path, Optional[str]]:
+    """Compile ``source`` with ``$CXX`` (default ``g++``) and ``flags`` into
+    ``build_dir/lib<stem>-<hash>.so`` unless it is there; the hash covers
+    the source and the whole command, so that an edited source, other flags
+    or another compiler never load a stale library. Holds
+    ``<library>.lock`` (``flock``, released if the process dies) while it
+    checks and builds, and moves the library into place with one rename,
+    so that a process or thread that finds the file finds it whole and a
+    second caller waits and reuses it. Returns (path, the compiler's
+    output, None when the library was already built). A compiler that is
+    missing or fails raises RuntimeError with its output."""
+    cmd = [*shlex.split(os.environ.get("CXX") or "g++"), *flags]
+    h = hashlib.sha1(source.read_bytes())
+    h.update("\0".join(cmd).encode())
+    out = build_dir / f"lib{source.stem}-{h.hexdigest()[:12]}.so"
+    if out.exists():
+        return out, None
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with open(out.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():
+            return out, None
+        tmp = _tmp(out)
+        try:
+            res = subprocess.run([*cmd, "-o", str(tmp), str(source)],
+                                 capture_output=True, text=True)
+        except OSError as e:
+            raise RuntimeError(f"{cmd[0]} could not run to build "
+                               f"{source}: {e}") from e
+        log = res.stdout + res.stderr
+        if res.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"{' '.join(cmd)} failed for {source}:\n{log}")
+        out.with_suffix(".log").write_text(log)
+        os.replace(tmp, out)
+    return out, log
