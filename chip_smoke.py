@@ -231,11 +231,49 @@ Phases, each printed as JSON records:
      then phase 3's eval CLI on the numpy path and the native path in turns
      (numpy, native, native, numpy): ``cli_s`` a case beside phase 3's, the
      native runs repeating phase 3's scores and launches.
- 17. the ``kernels`` line (sixteen kernels; those of an opt-in route
+ 17. the mesh (``parallel/``, ROADMAP item 9), on ranks that share the
+     one card over gloo (NCCL takes one rank a card), so no number here
+     measures scaling: (a) right after phase 5's check, while its recording
+     is alive, K1 (prologue + stats, and the dx conv with ``post``),
+     ``conv3_dk`` under the prologue and ``conv3_bwd`` with a valid-plane
+     range (``dlim``), on the SP2 slabs [B, D/2 + 2, H, W, C] of the
+     step's first call of each at D 128-4, the first slab's range, the
+     last's and an interior one's (``dlim_calls``): each against its plain
+     version under phase 5's rules (K1's stats and the weight gradients'
+     references masked by the range too), timed and bounded; then
+     (``stitch_check``) the two edge slabs put together as two ranks would
+     against the kernel's whole call: y's owned planes bit for bit where
+     the split counts agree, the stats less the halo planes' sums against
+     the f64 sums of the owned planes within K1_SUM_TOL, dx with the halo
+     gradients added back (bf16 rule; the planes no halo touches bit for
+     bit likewise, and always for the merged backward), (ds, dt), dk, db
+     within F32_TOL; (b) phase 6's step
+     1 (full width, 128^3, batch 2, dropout 0.5, the same weights, batch
+     and generator) on worlds of 2 (DP2, SP2) and 4 ranks (DP2 x SP2)
+     (``adapt_world``, ``world_gate``): the loss terms within phase 6's
+     loss gate of the one-process kernel step's, each gradient tensor of
+     the full loss and of the pseudo-label loss alone within
+     DRIFT_MULTIPLE times the plain path's reordered drift, every rank's
+     gradients and updated parameters the same bits, the VAE unmoved, K1
+     and conv3_dk launched with a range on every rank of a 'spatial' mesh,
+     one step on each opt-in route (VAESEG_MERGED_BWD=1: conv3_bwd with a
+     range; VAESEG_PALLAS=1: each norm's sums over the data row) finite,
+     with its kernels launched and the same gradient bits on every rank,
+     and per rank step_ms, peak memory, the backend and those launches; (c) ``source_main --method
+     vae_train`` (DP2, no flag) and ``target_main --spatial_shards 2`` (a
+     1 x 2 mesh) under ``torchrun --standalone --nproc_per_node 2`` on
+     phase 5's training cases and phase 3's phantoms, one training epoch
+     each, scores within phase 3's Dice gate (0.01) of the same run in one
+     process, then ``--test_only`` on the target run's checkpoint under
+     torchrun (its scores the run's last). Each world has a deadline
+     (``WORLD_TIMEOUT``): a rank that dies or hangs fails the phase.
+ 18. the ``kernels`` line (sixteen kernels; those of an opt-in route
      carry its switch in ``path`` and count their launches on its runs;
      the others count phase 14's CLI runs in ``launches_test_time_path``
-     and phase 15's in ``launches_later_flags_path`` too), then the last
-     line ``{"ok": true, "device": {...}}``.
+     and phase 15's in ``launches_later_flags_path`` too; then the three
+     K1 kernels with a range, their slab calls' totals and their launches
+     on phase 17(b)'s steps), then the last line ``{"ok": true, "device":
+     {...}}``.
 Any failed check exits non-zero without the last line. Without a CUDA GPU
 it exits 2 and prints no result. All records also go to --out (JSON,
 default smoke_out/chip_smoke.json).
@@ -626,16 +664,17 @@ def _fns(torch, name, m, x, pre, stats, softmax):
             lambda: F.conv_transpose3d(xl, wl, bl, stride=2))
 
 
-def k1_reference(torch, x, weight, bias, pre) -> tuple:
+def k1_reference(torch, x, weight, bias, pre, dlim=None) -> tuple:
     """(ref, mag) of a K1 call on its recorded inputs: ref the f64 conv of
-    xn (the prologue rounded in f32 as the kernel rounds it) with the bf16
-    weight, plus bias, [B, D, H, W, C] f64; mag the sum of its terms'
-    magnitudes (|xn| with |w|, plus |bias|), f32."""
+    xn (the prologue rounded in f32 as the kernel rounds it, 0 on planes
+    outside dlim) with the bf16 weight, plus bias, [B, D, H, W, C] f64; mag
+    the sum of its terms' magnitudes (|xn| with |w|, plus |bias|), f32."""
     import torch.nn.functional as F
 
     from vae_segmentation_tpu_torch.ops import conv3
 
-    xn = x.float() if pre is None else conv3._affine_relu(x, pre)
+    xn = x.float() if pre is None else conv3._masked(
+        conv3._affine_relu(x, pre), conv3._plane_mask(x, dlim))
     w = weight.to(torch.bfloat16)
     ref = F.conv3d(xn.double().permute(0, 4, 1, 2, 3), w.double(),
                    None if bias is None else bias.double(), padding=1)
@@ -691,7 +730,8 @@ def _compare(torch, name, softmax, got, want, inputs=None):
     """Errors of one kernel call against the plain output, and whether
     they are inside the stated tolerances: y (bf16) within 1e-2 of the
     largest |y| (softmax probabilities 1e-2 abs). With the stats epilogue,
-    `inputs` = (x, weight, bias, pre) of the call, and K1's two parts are
+    `inputs` = (x, weight, bias, pre[, dlim]) of the call, and K1's two
+    parts are
     each held to what they compute:
     - its summation: the stats against the f64 sums of its own stored y,
       each measure (the sum's error over sum |y|, sumsq relative) within
@@ -1127,6 +1167,8 @@ def describe(rec: dict) -> dict:
         return d
     d = {"kernel": k, "shape": list(a["x"].shape),
          "pre": a.get("pre") is not None}
+    if a.get("dlim") is not None:
+        d["dlim"] = list(a["dlim"])
     if k in ("conv3_dk", "conv3_bwd"):
         d["cout"] = a["gy"].shape[-1]
         return d
@@ -1236,7 +1278,7 @@ def compare_call(torch, d: dict, got, want, args: dict) -> dict:
     if d["kernel"] == "conv3" and d.get("stats"):
         return _compare(torch, "conv3", False, got, want,
                         (args["x"], args["weight"], args["bias"],
-                         args["pre"]))
+                         args["pre"], args.get("dlim")))
     rec = {"max_abs_err": 0.0, "bf16_rel_err": 0.0, "f32_rel_err": 0.0,
            "rel_err_by_output": [], "ok": True}
     for g, w in zip(_outputs(got), _outputs(want)):
@@ -1294,7 +1336,9 @@ def conv3_dk_exact(torch, a: dict) -> tuple:
     from vae_segmentation_tpu_torch.ops import conv3
 
     x, gy, pre = a["x"], a["gy"], a.get("pre")
-    xin = (x.float() if pre is None else conv3._affine_relu(x, pre)).double()
+    xin = (x.float() if pre is None else conv3._masked(
+        conv3._affine_relu(x, pre),
+        conv3._plane_mask(x, a.get("dlim")))).double()
     cin, cout = x.shape[-1], gy.shape[-1]
     g = gy.double().permute(0, 4, 1, 2, 3)
     dw = torch.nn.grad.conv3d_weight(xin.permute(0, 4, 1, 2, 3),
@@ -1482,7 +1526,7 @@ def merged_calls(calls) -> list:
                     "args": {"x": ak["x"], "gy": ak["gy"],
                              "weight": ad["weight"].transpose(0, 1)
                              .flip(2, 3, 4), "kweight": kw,
-                             "pre": ak["pre"]},
+                             "pre": ak["pre"], "dlim": ak.get("dlim")},
                     "out": (dx, *dk_call["out"], dst)})
     return out
 
@@ -3213,6 +3257,447 @@ def host_data(run_cli, target_main, work, data, manifest, args, log,
           "phase_16_s": time.time() - t_phase, "ok": ok}, log)
 
 
+# ------------------------------------------------------------ phase 17: the
+# mesh (ROADMAP item 9): the valid-plane range of rows 1-5 on the card, the
+# adaptation step on worlds of ranks sharing the one card, both CLIs under
+# torchrun
+
+# the SP2 slabs of a stage of D planes: the first (its low halo is the
+# volume's zero padding), the last (its high halo) and an interior one
+SLAB_KINDS = ("first", "last", "interior")
+DLIM_STAGES = (128, 64, 32, 16, 8, 4)
+# the dlim calls' kernels line entries (name, the wrappers' totals key)
+DLIM_KERNELS = (("conv3_dlim", ("conv3", "conv3/dx"), "conv3"),
+                ("conv3_dk_dlim", ("conv3_dk",), "conv3_dk"),
+                ("conv3_bwd_dlim", ("conv3_bwd",), "conv3_bwd"))
+MESH_LAYOUTS = ((2, 1), (1, 2), (2, 2))   # DP2, SP2, DP2 x SP2
+WORLD_TIMEOUT = 300.0
+
+
+def slab(torch, v, kind: str, zero_halo: bool = False) -> tuple:
+    """(slab, dlim) of v [B, D, ...]: the [B, D/2 + 2, ...] slab of a
+    'spatial' rank (SP2's first or last, or an interior one centred on the
+    volume) with its valid-plane range; zero_halo zeroes its two halo
+    planes (a cotangent: the backward of the owned planes)."""
+    d = v.shape[1]
+    h = d // 2
+    z = torch.zeros_like(v[:, :1])
+    if kind == "first":
+        s, dlim = torch.cat([z, v[:, :h + 1]], dim=1), (1, h + 1)
+    elif kind == "last":
+        s, dlim = torch.cat([v[:, h - 1:], z], dim=1), (0, h)
+    else:
+        q = d // 4
+        s, dlim = v[:, q - 1:q + h + 1], (0, h + 1)
+    s = s.clone(memory_format=torch.contiguous_format)
+    if zero_halo:
+        s[:, 0] = 0
+        s[:, -1] = 0
+    return s, dlim
+
+
+def dlim_calls(torch, calls) -> list:
+    """Phase 17(a)'s calls, from a recorded adaptation step's: for each
+    stage D of DLIM_STAGES, the first K1 forward with the prologue and the
+    stats epilogue, the first dx conv with the post epilogue, the first
+    conv3_dk under the prologue and the merged backward of that dx / dk
+    pair (``merged_calls``), each on the SP2 slabs of every kind with its
+    range, the plain output computed now. Returns [{kernel, args, out,
+    base, kind}]: `base` the recorded call on the whole volume."""
+    from vae_segmentation_tpu_torch.ops import conv3
+
+    def role(c):
+        a = c["args"]
+        if c["kernel"] == "conv3" and a["pre"] is not None and a["stats"]:
+            return "fwd"
+        if c["kernel"] == "conv3" and a["post"] is not None:
+            return "dx"
+        if c["kernel"] == "conv3_dk" and a["pre"] is not None:
+            return "dk"
+        if c["kernel"] == "conv3_bwd" and a["pre"] is not None:
+            return "bwd"
+        return None
+
+    first = {}
+    for c in calls + merged_calls(calls):
+        r = role(c)
+        if r is not None and c["args"]["x"].shape[1] in DLIM_STAGES:
+            first.setdefault((r, c["args"]["x"].shape[1]), c)
+    out = []
+    plain = {"conv3": conv3.conv3_plain, "conv3_dk": conv3.conv3_dk_plain,
+             "conv3_bwd": conv3.conv3_bwd_plain}
+    with torch.no_grad():
+        for (r, d), c in sorted(first.items()):
+            a = c["args"]
+            for kind in SLAB_KINDS:
+                args = dict(a)
+                if r == "fwd":
+                    args["x"], dlim = slab(torch, a["x"], kind)
+                elif r == "dx":
+                    args["x"], dlim = slab(torch, a["x"], kind, True)
+                    args["post"] = (slab(torch, a["post"][0], kind)[0],
+                                    *a["post"][1:])
+                else:
+                    args["x"], dlim = slab(torch, a["x"], kind)
+                    args["gy"] = slab(torch, a["gy"], kind, True)[0]
+                args["dlim"] = dlim
+                fn = plain[c["kernel"]]
+                out.append({"kernel": c["kernel"], "args": args,
+                            "out": fn(**_plain_args(fn, args)), "base": c,
+                            "kind": kind, "role": r})
+    return out
+
+
+def _conv3_plan_of(conv3, a, epi: str) -> dict:
+    x = a["x"]
+    return conv3.conv3_plan(x.shape[0], tuple(x.shape[1:4]), x.shape[-1],
+                            a["kweight"].shape[-1], a.get("pre") is not None,
+                            epi, conv3.sm_count(x.device.index or 0))
+
+
+def stitch_check(torch, slabs, log, failures) -> list:
+    """Phase 17(a)'s second rule: each recorded call run by its kernel on
+    the whole volume and on SP2's two slabs, the slabs put together as two
+    ranks would: y's owned planes (bit for bit where the two plans add a
+    voxel's K steps in the same order, else within the bf16 rule) and the
+    stats less the halo planes' sums, summed (each measure against the f64
+    sums of those owned planes within K1_SUM_TOL, phase 2's rule; the
+    whole call's stats reported beside); dx with the halo planes' gradients added to
+    their owners' planes (bf16 rule; the planes no halo touches bit for bit
+    under the same plans' condition, and always for the merged backward,
+    whose voxel sums do not depend on its bricks), (ds, dt), dk and db
+    summed (F32_TOL of the largest element). A split count is what orders
+    a K1 voxel's K steps: the same count, the same order. The call's time
+    on the whole volume and on the first slab by CUDA events beside."""
+    from vae_segmentation_tpu_torch.ops import conv3
+
+    real = {name: getattr(mod, attr) for name, mod, attr, _ in kernel_ops()}
+    recs = []
+    by_base = {}
+    for c in slabs:
+        if c["kind"] != "interior":
+            by_base.setdefault(id(c["base"]), []).append(c)
+    with torch.no_grad():
+        for pair in by_base.values():
+            c0, c1 = sorted(pair, key=lambda c: c["kind"])   # first, last
+            base, r = c0["base"], c0["role"]
+            fn = real[base["kernel"]]
+            whole = fn(**base["args"])
+            g0, g1 = fn(**c0["args"]), fn(**c1["args"])
+            d = base["args"]["x"].shape[1]
+            h = d // 2
+            rec = {"phase": "dlim_stitch", "kernel": base["kernel"],
+                   "role": r, "shape": list(base["args"]["x"].shape)}
+            ok = True
+            rec.update(whole_ms=cuda_ms(torch, lambda: fn(**base["args"])),
+                       slab_ms=cuda_ms(torch, lambda: fn(**c0["args"])))
+            if r == "fwd":
+                p_w = _conv3_plan_of(conv3, base["args"], "stats")
+                p_s = _conv3_plan_of(conv3, c0["args"], "stats")
+                same = p_w["splits"] == p_s["splits"]
+                y = torch.cat([g0[0][:, 1:-1], g1[0][:, 1:-1]], dim=1)
+                st = 0
+                for yk, sk in (g0, g1):
+                    halo = torch.stack([yk[:, 0], yk[:, -1]], dim=1).float()
+                    st = st + sk - torch.stack(
+                        [halo.sum(dim=(1, 2, 3)),
+                         (halo * halo).sum(dim=(1, 2, 3))], dim=1)
+                err = (y.float() - whole[0].float()).abs().max().item()
+                scale = whole[0].float().abs().max().item()
+                bitwise = torch.equal(y, whole[0])
+                abs_sum = y.double().abs().sum(dim=(1, 2, 3))
+                # the summation against the f64 sums of the owned planes
+                # it stored (phase 2's rule); the whole call's stats beside
+                st_err = stats_errors(st, stats_of(torch, y), abs_sum)
+                ok = (bitwise or not same) and err <= 1e-2 * scale \
+                    and all(e <= K1_SUM_TOL for e in st_err)
+                rec.update(splits_whole=p_w["splits"],
+                           splits_slab=p_s["splits"], same_order=same,
+                           y_bitwise=bitwise, y_max_abs_err=err,
+                           stats_own_sum_err=st_err[0],
+                           stats_own_sumsq_rel=st_err[1],
+                           stats_vs_whole=stats_errors(st, whole[1],
+                                                       abs_sum))
+            else:
+                dx_i = {"dx": 0, "bwd": 0}.get(r)
+                sums = []
+                if dx_i is not None:
+                    dx = torch.cat([g0[dx_i][:, 1:-1], g1[dx_i][:, 1:-1]],
+                                   dim=1).float()
+                    dx[:, h - 1] += g1[dx_i][:, 0].float()
+                    dx[:, h] += g0[dx_i][:, -1].float()
+                    want = whole[dx_i].float()
+                    err = (dx - want).abs().max().item()
+                    inner = torch.cat([g0[dx_i][:, 1:h], g1[dx_i][:, 2:-1]],
+                                      dim=1)
+                    inner_want = torch.cat([whole[dx_i][:, :h - 1],
+                                            whole[dx_i][:, h + 1:]], dim=1)
+                    same = r == "bwd" or (
+                        _conv3_plan_of(conv3, base["args"], "post")["splits"]
+                        == _conv3_plan_of(conv3, c0["args"],
+                                          "post")["splits"])
+                    bitwise = torch.equal(inner, inner_want)
+                    ok = err <= 1e-2 * want.abs().max().item() \
+                        and (bitwise or not same)
+                    rec.update(dx_max_abs_err=err, dx_inner_bitwise=bitwise,
+                               dx_same_order=same)
+                if r == "dx":
+                    sums = [(g0[1] + g1[1], whole[1], "ds_dt")]
+                elif r == "dk":
+                    sums = [(g0[0] + g1[0], whole[0], "dk"),
+                            (g0[1] + g1[1], whole[1], "db")]
+                else:
+                    sums = [(g0[1] + g1[1], whole[1], "dk"),
+                            (g0[2] + g1[2], whole[2], "db"),
+                            (g0[3] + g1[3], whole[3], "ds_dt")]
+                for got, want, name in sums:
+                    e = (got - want).abs().max().item() / max(
+                        want.abs().max().item(), 1e-30)
+                    rec[f"{name}_rel_err"] = e
+                    ok = ok and e <= F32_TOL
+            rec["ok"] = ok
+            emit(rec, log)
+            recs.append(rec)
+            if not ok:
+                failures.append(f"dlim_stitch: {rec['kernel']} {r} at "
+                                f"{rec['shape']}: the slabs put together "
+                                "differ from the whole call")
+    torch.cuda.synchronize()
+    return recs
+
+
+def _digest(t) -> str:
+    """sha1 of a tensor's bytes."""
+    import hashlib
+
+    import torch
+
+    b = t.detach().contiguous().cpu().reshape(-1).view(torch.uint8)
+    return hashlib.sha1(b.numpy().tobytes()).hexdigest()
+
+
+def adapt_world(rank: int, world: int, n_data: int, n_sp: int,
+                path: str) -> dict:
+    """Phase 17(b), a rank's side (``parallel.launch.spawn`` runs it in
+    each process of a gloo world sharing the one card): phase 6's
+    adaptation step 1 (the seed weights, batch, dropout generator, model
+    widths and device saved at `path`) on this rank's slice of an n_data x
+    n_sp mesh, its loss terms and (rank 0) gradients, the pseudo-label
+    loss's step-1 gradient, digests of every gradient and updated
+    parameter, whether the VAE moved, the K1 kernels' launches with a
+    range, then 3 more steps timed (step_ms, peak memory), one step on the
+    merged route (VAESEG_MERGED_BWD=1: conv3_bwd's launches with a range)
+    and one on the norm route (VAESEG_PALLAS=1: each norm's sums added
+    over the data row)."""
+    import torch
+
+    from vae_segmentation_tpu_torch import ops
+    from vae_segmentation_tpu_torch import train as T
+    from vae_segmentation_tpu_torch.models import Joint
+    from vae_segmentation_tpu_torch.parallel import sharding as S
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    blob = torch.load(path)
+    dev = torch.device(blob["device"])
+    cuda = dev.type == "cuda"
+    if cuda and dev.index is None:
+        dev = torch.device("cuda", 0)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    if cuda:
+        torch.cuda.set_device(dev)
+    mesh = S.make_mesh(n_data, n_sp)
+    image = S.batch_shard(mesh, blob["image"].to(dev))
+    label = S.batch_shard(mesh, blob["label"].to(dev))
+    sched = T.default_sched(blob["lambda"])
+
+    def fresh(lr):
+        student = Joint(vae_decoder_dropout=0.5, **blob["model"]).to(dev)
+        teacher = Joint(**blob["model"]).to(dev)
+        for net in (student, teacher):
+            net.load_state_dict(blob["state"])
+        for p in teacher.parameters():
+            p.requires_grad_(False)
+        opt = T.optim.sgd(T.optim.freeze_vae(student), lr)
+        gen = torch.Generator(device=dev).manual_seed(blob["seed"])
+        return student, teacher, opt, gen
+
+    def run(cfg, lr, grads_out):
+        student, teacher, opt, gen = fresh(lr)
+        step = T.make_adapt_step(cfg)
+        with S.active(mesh):
+            aux = step(student, teacher, opt, image, label, gen, sched)
+        sync()
+        grads = {k: p.grad.detach() for k, p in student.named_parameters()
+                 if p.grad is not None}
+        if rank == 0:
+            grads_out.update({k: g.cpu() for k, g in grads.items()})
+        return student, {k: v.item() for k, v in aux.items()}, grads
+
+    full = T.AdaptConfig(n_class=2, domain_loss_type=8, vae_mont_number=1)
+    ops.reset_launch_counts()
+    grads0 = {}
+    student, aux, grads = run(full, blob["lr"], grads0)
+    now = student.state_dict()
+    res = {"rank": rank, "mesh": [n_data, n_sp], "backend": mesh.backend,
+           "aux": aux, "launches": ops.launch_counts(),
+           "dlim_launches": ops.dlim_launch_counts(),
+           "grad_digest": {k: _digest(g) for k, g in grads.items()},
+           "param_digest": {k: _digest(v) for k, v in now.items()},
+           "vae_unmoved": all(torch.equal(v, blob["state"][k].to(dev))
+                              for k, v in now.items()
+                              if k.startswith("Vae."))}
+    del student, grads, now
+    pseudo = {}
+    run(T.AdaptConfig(n_class=2, only_pseudo=True), 0.0, pseudo)
+    # timed: 3 more steps of the full loss after a first one
+    student, teacher, opt, gen = fresh(blob["lr"])
+    step = T.make_adapt_step(full)
+    times = []
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    for _ in range(4):
+        t0 = time.perf_counter()
+        with S.active(mesh):
+            step(student, teacher, opt, image, label, gen, sched)
+        sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+    res.update(step_ms=sorted(times[1:])[1], step_ms_all=times,
+               peak_memory_bytes=torch.cuda.max_memory_allocated()
+               if cuda else None)
+    del student, teacher, opt
+    for switch, key in (("VAESEG_MERGED_BWD", "merged"),
+                        ("VAESEG_PALLAS", "norm")):
+        os.environ[switch] = "1"
+        try:
+            ops.reset_launch_counts()
+            _, raux, rgrads = run(full, blob["lr"], {})
+            res[key] = {"aux": raux, "launches": ops.launch_counts(),
+                        "dlim_launches": ops.dlim_launch_counts(),
+                        "grad_digest": {k: _digest(g)
+                                        for k, g in rgrads.items()}}
+            del rgrads
+        finally:
+            del os.environ[switch]
+    if rank == 0:
+        res["grads"], res["pseudo_grads"] = grads0, pseudo
+    return res
+
+
+def world_gate(torch, worlds: dict, ref: dict, log, failures) -> dict:
+    """Phase 17(b)'s rule, per world against the one-process kernel step
+    on the card (phase 6's step 1, `ref`): each loss term within phase 6's
+    loss gate (DRIFT_MULTIPLE times the largest term's plain-path drift
+    under reordered f32 sums, 1e-3 at least), each gradient tensor of the
+    full loss and of the pseudo-label loss alone within DRIFT_MULTIPLE
+    times its (or the median tensor's) plain-path drift, every rank's
+    gradients and updated parameters the same bits, the VAE unmoved, K1
+    launched with a range on every rank of a 'spatial' mesh (and conv3_dk,
+    and on the merged route conv3_bwd); the merged and norm routes' steps
+    finite, their kernels launched, the same gradient bits on every rank
+    (their loss terms reported)."""
+    out = {}
+    for layout, ranks in worlds.items():
+        r0 = ranks[0]
+        grads = {k: torch.from_numpy(v) for k, v in r0["grads"].items()}
+        pseudo = {k: torch.from_numpy(v)
+                  for k, v in r0["pseudo_grads"].items()}
+        err = grad_drift(grads, ref["grads_k"])
+        drift = grad_drift(ref["grads_r"], ref["grads_p"])
+        median = sorted(drift.values())[len(drift) // 2]
+        worst = {k: err[k] / max(drift[k], median) for k in err}
+        perr = grad_drift(pseudo, ref["pseudo_k"])
+        pdrift = grad_drift(ref["pseudo_r"], ref["pseudo_p"])
+        pmedian = sorted(pdrift.values())[len(pdrift) // 2]
+        pworst = {k: perr[k] / max(pdrift[k], pmedian) for k in perr}
+        loss_err = {k: max(abs(r["aux"][k] - ref["aux_k"][k])
+                           for r in ranks) for k in ref["loss_gate_keys"]}
+        spatial = layout[1] > 1
+        launched = all(
+            r["dlim_launches"]["conv3"] > 0
+            and r["dlim_launches"]["conv3_dk"] > 0
+            and r["merged"]["dlim_launches"]["conv3_bwd"] > 0
+            for r in ranks) if spatial else all(
+            sum(r["dlim_launches"].values()) == 0 for r in ranks)
+        same = all(r["grad_digest"] == r0["grad_digest"]
+                   and r["param_digest"] == r0["param_digest"]
+                   and r["merged"]["grad_digest"]
+                   == r0["merged"]["grad_digest"]
+                   and r["norm"]["grad_digest"] == r0["norm"]["grad_digest"]
+                   for r in ranks)
+        # the opt-in routes' steps: finite, their kernels launched, their
+        # loss terms reported beside the default route's
+        routes = all(
+            all(v == v and abs(v) != float("inf")
+                for v in r[key]["aux"].values())
+            and r[key]["launches"][kern] > 0
+            for r in ranks for key, kern in (("merged", "conv3_bwd"),
+                                             ("norm", "norm_bwd_sums")))
+        ok = (same and launched and routes
+              and all(r["vae_unmoved"] for r in ranks)
+              and all(v <= ref["loss_gate"] for v in loss_err.values())
+              and all(v <= DRIFT_MULTIPLE for v in worst.values())
+              and all(v <= DRIFT_MULTIPLE for v in pworst.values())
+              and sorted(grads) == sorted(ref["grads_k"]))
+        name = f"DP{layout[0]} x SP{layout[1]}"
+        rec = {"phase": "mesh_step", "mesh": name, "ranks": len(ranks),
+               "backend": r0["backend"],
+               "per_rank": [{f: r[f] for f in (
+                   "rank", "step_ms", "step_ms_all", "peak_memory_bytes",
+                   "dlim_launches")} | {"backend": r["backend"],
+                   "merged_dlim_launches": r["merged"]["dlim_launches"]}
+                   for r in ranks],
+               "losses_rank0": r0["aux"], "losses_one_process": ref["aux_k"],
+               "loss_err": loss_err, "loss_gate": ref["loss_gate"],
+               "grad_worst_ratio": max(worst.values()),
+               "grad_median_ratio": sorted(worst.values())[len(worst) // 2],
+               "grad_rel_l2_mesh_vs_one_process": err,
+               "pseudo_only_worst_ratio": max(pworst.values()),
+               "ranks_bitwise_equal": same, "dlim_launched": launched,
+               "routes_ok": routes,
+               "merged_route_losses_rank0": r0["merged"]["aux"],
+               "norm_route_losses_rank0": r0["norm"]["aux"],
+               "vae_unmoved": all(r["vae_unmoved"] for r in ranks),
+               "drift_multiple": DRIFT_MULTIPLE,
+               "note": "ranks share one card over gloo: step_ms measures "
+                       "no scaling", "ok": ok}
+        emit(rec, log)
+        out[name] = rec
+        if not ok:
+            failures.append(f"mesh_step {name}: the sharded adaptation step "
+                            "disagrees with one process or between ranks")
+    return out
+
+
+def torchrun(argv: list, cwd: str, nproc: int, timeout: float) -> tuple:
+    """``torchrun --standalone --nproc_per_node nproc`` of a module
+    (``python -m torch.distributed.run``) in `cwd`, in a session of its
+    own that is killed whole at the deadline: (returncode, seconds,
+    stdout + stderr)."""
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), *argv]
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.time()
+    proc = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        return -9, time.time() - t0, out
+    return proc.returncode, time.time() - t0, out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3581,7 +4066,15 @@ def main() -> int:
         expected_step = expected_step_launches(model)
         (aux_p, grads_p), step_totals, calls = record_checked(
             step1, expected_step, "step_kernel", "train step")
-        del calls
+        # ---- 17(a), while the recording is alive: the K1 kernels with a
+        # valid-plane range on the SP2 slabs of the step's calls, each
+        # against its plain version, and the slabs put together against
+        # the whole call
+        slabs = dlim_calls(torch, calls)
+        dlim_totals = check_step_calls(torch, slabs, log, failures,
+                                       phase="dlim_kernel")
+        dlim_stitch = stitch_check(torch, slabs, log, failures)
+        del calls, slabs
         torch.cuda.empty_cache()
 
         # ---- 6. the train path
@@ -3664,6 +4157,12 @@ def main() -> int:
               "vae_backward_worst_ratio": max(bwd_worst.values()),
               "vae_backward_ok": bwd_ok,
               "drift_multiple": DRIFT_MULTIPLE, "ok": step1_ok}, log)
+        # phase 17(b)'s reference: this one-process step 1 on the card
+        mesh_ref = {"aux_k": aux_k, "loss_gate": loss_gate,
+                    "loss_gate_keys": loss_keys,
+                    **{f"grads_{n}": {k: v.cpu() for k, v in g.items()}
+                       for n, g in (("k", grads_k), ("p", grads_p),
+                                    ("r", grads_r))}}
         del grads_p, grads_r, grads_k
 
         adapt_rec, step_launches = adapt_steps("train_steps", expected_step,
@@ -4070,10 +4569,115 @@ def main() -> int:
         # the numpy path, case by case, and the eval CLI on each path
         host_data(run_cli, target_main, work, data, manifest, args, log,
                   failures)
+
+        # ---- 17(b). the adaptation step on worlds of ranks sharing this
+        # card over gloo (DP2, SP2, DP2 x SP2), against phase 6's step 1
+        from vae_segmentation_tpu_torch.parallel import launch
+
+        with plain_ops(reordered=True):
+            mesh_ref["pseudo_r"] = {k: v.cpu() for k, v in
+                                    step1(seg_step)[1].items()}
+        with plain_ops():
+            mesh_ref["pseudo_p"] = {k: v.cpu() for k, v in
+                                    step1(seg_step)[1].items()}
+        mesh_ref["pseudo_k"] = {k: v.cpu() for k, v in
+                                step1(seg_step)[1].items()}
+        blob = os.path.join(work, "mesh_step.pt")
+        torch.save({"state": state0, "image": batches[0][0].cpu(),
+                    "label": batches[0][1].cpu(), "seed": args.seed,
+                    "lr": TRAIN_LR, "lambda": TRAIN_LAMBDA,
+                    "device": "cuda", "model": dict(
+                        n_class=2, dim=128, bottleneck=16384)}, blob)
+        torch.cuda.empty_cache()
+        worlds = {}
+        for n_data, n_sp in MESH_LAYOUTS:
+            t0 = time.time()
+            worlds[n_data, n_sp] = launch.spawn(
+                adapt_world, n_data * n_sp, backend="gloo",
+                timeout=WORLD_TIMEOUT, args=(n_data, n_sp, blob), threads=2)
+            emit({"phase": "mesh_world", "mesh": [n_data, n_sp],
+                  "seconds": time.time() - t0}, log)
+        mesh_steps = world_gate(torch, worlds, mesh_ref, log, failures)
+        # the K1 kernels' launches with a range on the sharded steps 1 (and
+        # conv3_bwd's on the merged route's step)
+        mesh_launches = {"conv3": 0, "conv3_dk": 0, "conv3_bwd": 0}
+        for ranks in worlds.values():
+            for r in ranks:
+                for name in ("conv3", "conv3_dk"):
+                    mesh_launches[name] += r["dlim_launches"][name]
+                mesh_launches["conv3_bwd"] += \
+                    r["merged"]["dlim_launches"]["conv3_bwd"]
+        del worlds, mesh_ref
+
+        # ---- 17(c). both CLIs under torchrun on 2 ranks of this card, one
+        # epoch each, against the same run in one process
+        mesh_cli = {}
+        mesh_args = ["--train_list", "NIH_train", "--val_list", "NIH_val",
+                  "--data_root", train_data, "--val_data_root", data,
+                  "--data_path", lists, "-b", str(TRAIN_BATCH),
+                  "--val_batch", "1", "--eval_epoch", "1", "--save_epoch",
+                  "1", "--num_workers", "2", "--save_root",
+                  os.path.join(work, "3dmodel"), "--device", "cuda"]
+        runs = {
+            "mesh_vae": ("source_main", [
+                "--method", "vae_train", "--max_epoch", "1", "--lr_seg",
+                str(VAE_LR), *mesh_args], []),
+            "mesh_sp": ("target_main", [
+                "--method", "domain_adaptation", "--load_prefix",
+                "smoke_seg", "--load_prefix_vae", "smoke",
+                "--domain_loss_type", "8", "--lambda_vae",
+                str(TRAIN_LAMBDA), "--lr_seg", str(TRAIN_LR),
+                "--vae_decoder_dropout", "0.5", "--max_epoch", "2",
+                *mesh_args], ["--spatial_shards", "2"]),
+        }
+        mesh_cli_ok = True
+        for prefix, (mod, argv, mesh_flags) in runs.items():
+            cli = source_main if mod == "source_main" else target_main
+            run_cli(cli.main, [prefix + "_one", *argv])
+            rc, secs, out = torchrun(
+                ["-m", f"vae_segmentation_tpu_torch.cli.{mod}", prefix,
+                 *argv, *mesh_flags], work, 2, WORLD_TIMEOUT)
+            epochs = (0,) if mod == "source_main" else (0, 1)
+            got = read_scores(work, prefix, epochs)
+            want = read_scores(work, prefix + "_one", epochs)
+            diff = max((abs(g[k] - w[k]) for g, w in zip(got, want)
+                        for k in w), default=None)
+            ok = (rc == 0 and len(got) == len(epochs) and diff is not None
+                  and all(g.keys() == w.keys() for g, w in zip(got, want))
+                  and diff <= 0.01
+                  and len(saved_checkpoints(work, prefix)) >= 2
+                  and "backend gloo" in out)
+            mesh_cli[prefix] = {"returncode": rc, "seconds": secs,
+                                "scores": got, "scores_one_process": want,
+                                "max_dice_diff": diff, "ok": ok,
+                                "tail": out[-2000:]}
+            mesh_cli_ok = mesh_cli_ok and ok
+        rc, secs, out = torchrun(
+            ["-m", "vae_segmentation_tpu_torch.cli.target_main", "mesh_ev",
+             "--method", "domain_adaptation", "--test_only",
+             "--load_prefix_joint", "mesh_sp", "--spatial_shards", "2",
+             *mesh_args], work, 2, WORLD_TIMEOUT)
+        got = read_scores(work, "mesh_ev", (0,))
+        # the checkpoint is the run's best outer epoch: the first whose mean
+        # Dice beat every earlier one's
+        trained = read_scores(work, "mesh_sp", (0, 1))
+        means = [sum(sc.values()) / max(len(sc), 1) for sc in trained]
+        best = trained[1] if len(means) == 2 and means[1] > means[0] \
+            else trained[0] if trained else {}
+        ev_ok = rc == 0 and len(got) == 1 and got[0].keys() == best.keys() \
+            and all(abs(got[0][k] - v) <= 0.01 for k, v in best.items())
+        mesh_cli["mesh_ev"] = {"returncode": rc, "seconds": secs,
+                               "scores": got, "best_epoch_scores": best,
+                               "ok": ev_ok, "tail": out[-2000:]}
+        mesh_cli_ok = mesh_cli_ok and ev_ok
+        if not mesh_cli_ok:
+            failures.append("the CLIs under torchrun failed a check")
+        emit({"phase": "mesh_cli", "runs": mesh_cli, "dice_gate": 0.01,
+              "ok": mesh_cli_ok}, log)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 17. summary lines: K1-K3 per eval forward (phase 2), the backward
+    # ---- 18. summary lines: K1-K3 per eval forward (phase 2), the backward
     # and loss kernels per adaptation step (phase 5), reparam_kl per
     # vae_train step (phase 7); the kernels of an opt-in route per pass of
     # that route, and their launches counted on its runs: norm_stats and
@@ -4153,6 +4757,45 @@ def main() -> int:
                 failures.append(f"{name} was never launched on the runs of "
                                 "phase 15")
         kernels.append(rec)
+    # the K1 kernels with a valid-plane range (phase 17): their slab calls'
+    # totals (phase 17(a)) and their launches on the sharded steps (17(b))
+    for name, keys, base in DLIM_KERNELS:
+        parts = [dlim_totals[k] for k in keys if k in dlim_totals]
+        t = {f: sum(p_[f] for p_ in parts) for f in (
+            "kernel_ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms",
+            "calls")}
+        libs = [p_["library_ms"] for p_ in parts]
+        source, replaces = SOURCES[base]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces + " (with its dlim operand)",
+            "launches": mesh_launches[base],
+            "max_abs_err": max((p_["err"] for p_ in parts), default=None),
+            "max_rel_err_bf16": max((p_["bf16_rel_err"] for p_ in parts),
+                                    default=None),
+            "max_rel_err_f32": max((p_["f32_rel_err"] for p_ in parts),
+                                   default=None),
+            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"]
+            else "operations",
+            "library_ms": None if None in libs else sum(libs),
+            "slab_calls": t["calls"],
+            "per": "the SP2 slab calls (first, last and interior range) of "
+                   "one adaptation step's prologue convs at D 128-4, batch "
+                   f"{TRAIN_BATCH}",
+            "timed_by": "cuda events",
+            "path": "phase 17(b): the sharded adaptation steps 1 (DP2, SP2, "
+                    "DP2 x SP2) on ranks sharing one card over gloo"
+                    + ("; VAESEG_MERGED_BWD=1" if base == "conv3_bwd"
+                       else "")})
+        if not parts or mesh_launches[base] == 0:
+            failures.append(f"{name}: no slab call checked or no launch on "
+                            "the sharded steps")
+    emit({"phase": "dlim_totals", "per_step": dlim_totals,
+          "stitch": dlim_stitch, "mesh_steps": {
+              k: {f: v[f] for f in ("per_rank", "ok")}
+              for k, v in mesh_steps.items()}}, log)
     emit({"phase": "step_totals", "per_kernel": step_totals}, log)
     emit({"phase": "vae_step_totals", "per_kernel": vae_totals}, log)
     emit({"phase": "norm_totals", "per_forward": norm_fwd_totals,

@@ -90,7 +90,6 @@ def test_cli_without_gpu_or_cpu_request_raises(workdir):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--spatial_shards", "2"],
     ["--load_prefix_encoder", "enc"],
     ["--profile_dir", "prof"],
     ["--save_eval_result"],
@@ -98,6 +97,14 @@ def test_cli_without_gpu_or_cpu_request_raises(workdir):
 def test_cli_unported_flags_raise(workdir, extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         target_main.main(_argv(workdir, "--device", "cpu", *extra))
+
+
+def test_cli_spatial_shards_needs_a_world_of_ranks(workdir):
+    """--spatial_shards is ported (ROADMAP item 9): in one process it says
+    to run under torchrun (tests/test_torch_dist_cli.py runs it there)."""
+    with pytest.raises(ValueError, match="torchrun"):
+        target_main.main(_argv(workdir, "--device", "cpu",
+                               "--spatial_shards", "2"))
 
 
 def _eval_scores(model, root):

@@ -1198,3 +1198,71 @@ def test_replay_step_matches_the_plain_path(gen):
         chip_smoke.DRIFT_MULTIPLE * abs(loss_r - loss_p), 1e-3)
     _, _, worst = chip_smoke.drift_ratios(grads_k, grads_p, grads_r)
     assert max(worst.values()) <= chip_smoke.DRIFT_MULTIPLE, worst
+
+
+# the valid-plane range (dlim) of rows 1-5: the halo slabs of a 'spatial'
+# mesh, ragged tiles and odd channels among them; ranges of the first, an
+# interior and the last slab, and one plane only
+DLIM_CASES = [((2, 6, 9, 19, 3), 5, (1, 5)), ((1, 10, 8, 16, 8), 16, (0, 9)),
+              ((2, 6, 16, 16, 16), 8, (0, 4)), ((1, 4, 4, 4, 256), 256, (1, 2)),
+              ((1, 34, 32, 32, 16), 16, (1, 33)), ((2, 3, 5, 7, 24), 8, (1, 1))]
+
+
+@pytest.mark.parametrize("shape,cout,dlim", DLIM_CASES)
+def test_dlim_kernels_match_plain(gen, shape, cout, dlim):
+    """K1 with the prologue and stats, K1's dx conv with post, conv3_dk and
+    conv3_bwd under the prologue, each with a range, against their plain
+    versions with it (y, dx within 1e-2 of the largest element; f32 sums
+    within 1e-3), with a shift whose relu is nonzero where x is 0; one
+    launch each, counted with a range; and the range changes the result
+    (a zero halo plane outside it would turn into relu(t))."""
+    b, cin = shape[0], shape[-1]
+    x = _rnd(gen, *shape).bfloat16()
+    x[:, 0] = 0
+    x[:, -1] = 0
+    gy = _rnd(gen, *shape[:-1], cout).bfloat16()
+    w = _rnd(gen, cout, cin, 3, 3, 3, scale=(27 * cin) ** -0.5)
+    bias = _rnd(gen, cout)
+    aff = (_rnd(gen, b, cin).abs() + 0.5,
+           _rnd(gen, b, cin, scale=0.3).abs() + 0.2)
+    kw = conv3.kernel_weight(w)
+    counts = (conv3.conv3.dlim_launches, conv3.conv3_dk.dlim_launches,
+              conv3.conv3_bwd.dlim_launches)
+    y, st = conv3.conv3_op(x, w, bias, kw, aff, True, dlim=dlim)
+    y_p, st_p = conv3.conv3_plain(x, w, bias, aff, True, dlim=dlim)
+    _close(y, y_p, 1e-2)
+    assert _rel(st, st_p) <= 1e-3
+    if dlim != (0, shape[1] - 1):
+        assert not torch.equal(y, conv3.conv3_op(x, w, bias, kw, aff, True)[0])
+    w_t = w.flip(2, 3, 4).transpose(0, 1)
+    kw_t = kw.flip(0).transpose(1, 2).contiguous()
+    dx, dst = conv3.conv3_op(gy, w_t, None, kw_t, post=(x, *aff), dlim=dlim)
+    dx_p, dst_p = conv3.conv3_plain(gy, w_t, None, post=(x, *aff), dlim=dlim)
+    _close(dx, dx_p, 1e-2)
+    assert _rel(dst, dst_p) <= 1e-3
+    dk, db = conv3.conv3_dk(x, gy, aff, dlim)
+    dk_p, db_p = conv3.conv3_dk_plain(x, gy, aff, dlim)
+    assert _rel(dk, dk_p) <= 1e-3 and _rel(db, db_p) <= 1e-3
+    got = conv3.conv3_bwd(x, gy, w, kw, aff, dlim)
+    want = conv3.conv3_bwd_plain(x, gy, w, aff, dlim)
+    torch.cuda.synchronize()
+    _close(got[0], want[0], 1e-2)
+    for g, p in zip(got[1:], want[1:]):
+        assert _rel(g, p) <= 1e-3
+    assert (conv3.conv3.dlim_launches, conv3.conv3_dk.dlim_launches,
+            conv3.conv3_bwd.dlim_launches) == (counts[0] + 2, counts[1] + 1,
+                                               counts[2] + 1)
+
+
+def test_dlim_kernels_refuse_a_range_outside_the_planes(gen):
+    x = _rnd(gen, 1, 4, 8, 8, 8).bfloat16()
+    w = _rnd(gen, 8, 8, 3, 3, 3, scale=0.05)
+    aff = (_rnd(gen, 1, 8).abs() + 0.5, _rnd(gen, 1, 8))
+    kw = conv3.kernel_weight(w)
+    for dlim in ((0, 4), (-1, 2), (3, 1)):
+        with pytest.raises(ValueError):
+            conv3.conv3_op(x, w, None, kw, aff, dlim=dlim)
+        with pytest.raises(ValueError):
+            conv3.conv3_dk(x, x, aff, dlim)
+        with pytest.raises(ValueError):
+            conv3.conv3_bwd(x, x, w, kw, aff, dlim)

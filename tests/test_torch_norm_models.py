@@ -49,7 +49,7 @@ def test_models_match_jax_on_the_norm_route(monkeypatch, kind, size):
     calls = []
     real = pblocks.instance_norm_act
     monkeypatch.setattr(pblocks, "instance_norm_act",
-                        lambda x: (calls.append(1), real(x))[1])
+                        lambda x, **kw: (calls.append(1), real(x, **kw))[1])
     got, model = tm._port_out(kind, "f32", size)
     want = _jax_norm_route(kind, size)
     # one norm per conv but the head (SegUNet 25, ShapeVAE 31)

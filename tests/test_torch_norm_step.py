@@ -95,7 +95,7 @@ def _run(monkeypatch):
             calls = []
             real = pblocks.instance_norm_act
             m.setattr(pblocks, "instance_norm_act",
-                      lambda x: (calls.append(1), real(x))[1])
+                      lambda x, **kw: (calls.append(1), real(x, **kw))[1])
             _RUN["port"] = _port_grads(params, batch)
             _RUN["norms"] = len(calls)
             ns = tt.types.SimpleNamespace(
@@ -163,7 +163,7 @@ def test_cli_trains_and_evaluates_on_the_norm_route(workdir, monkeypatch):
     calls = []
     real = pblocks.instance_norm_act
     monkeypatch.setattr(pblocks, "instance_norm_act",
-                        lambda x: (calls.append(1), real(x))[1])
+                        lambda x, **kw: (calls.append(1), real(x, **kw))[1])
     best = target_main.main(_train_argv(workdir, "--pseudo_save_epoch", "1"))
     assert 0.0 <= best <= 1.0 and calls
     for name in ("best_model.ckpt", "model_epoch1.ckpt", "model_epoch2.ckpt"):

@@ -181,12 +181,20 @@ def test_the_warp_changes_the_step(workdir):
     (["--method", "seg_train", "--save_more_reference"], "item 11"),
     (["--method", "seg_train", "--load_prefix_vae", "vae"], "item 11"),
     (["--method", "vae_train", "--profile_dir", "prof"], "item 11"),
-    (["--method", "seg_train", "--spatial_shards", "2"], "item 9"),
-    (["--method", "vae_train", "--spatial_shards", "2"], "item 9"),
 ])
 def test_unported_flags_and_methods_raise(workdir, extra, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
         source_main.main(["x", *_common(workdir), *extra])
+
+
+@pytest.mark.parametrize("method", ["seg_train", "vae_train"])
+def test_spatial_shards_needs_a_world_of_ranks(workdir, method):
+    """--spatial_shards is ported (ROADMAP item 9): in one process, with
+    no world to split the volume over, it says to run under torchrun
+    (tests/test_torch_dist_cli.py runs it there)."""
+    with pytest.raises(ValueError, match="torchrun"):
+        source_main.main(["x", *_common(workdir), "--method", method,
+                          "--spatial_shards", "2"])
 
 
 def test_source_config_matches_the_jax_package():

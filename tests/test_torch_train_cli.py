@@ -299,13 +299,19 @@ def test_cli_trains_two_outer_epochs(workdir, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--spatial_shards", "2"], "item 9"),
     (["--load_prefix_encoder", "enc"], "item 11"),
     (["--save_more_reference"], "item 11"),
 ])
 def test_cli_training_flags_of_later_slices_raise(workdir, extra, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
         target_main.main(_train_argv(workdir, *extra))
+
+
+def test_cli_training_spatial_shards_needs_a_world_of_ranks(workdir):
+    """--spatial_shards is ported (ROADMAP item 9): a training run in one
+    process says to run under torchrun (tests/test_torch_dist_cli.py)."""
+    with pytest.raises(ValueError, match="torchrun"):
+        target_main.main(_train_argv(workdir, "--spatial_shards", "2"))
 
 
 def _resumed(argv, capsys):

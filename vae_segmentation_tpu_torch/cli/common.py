@@ -8,12 +8,23 @@ checkpoints, main_source.py:806-850, main_target.py:1022-1062) and
 --resume (``resume``). A checkpoint holds the JAX package's payload
 (``core/checkpoint.py``), and either package's file loads.
 ``run_sliding_window_eval`` is the full-volume eval of both trainers
-(common.py:321-385 of the JAX package)."""
+(common.py:321-385 of the JAX package).
+
+Under ``torchrun`` (``start``) both trainers run as a world of ranks laid
+out as the JAX package's mesh (``parallel/sharding.py::
+make_mesh_if_multichip``): every rank loads the same global batch and
+takes its slice (``make_train_ingest``, ``shard_train_batch``), the steps
+run under the mesh, and the eval, ft1 and the sliding window run on rank 0
+as in one process while the other ranks wait for its result
+(``share``); rank 0 alone prints and writes scores and checkpoints
+(``EpochRunner``'s ``writes``). Without ``torchrun`` nothing changes."""
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import sys
 from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
@@ -22,6 +33,7 @@ import torch
 from vae_segmentation_tpu_torch.core.checkpoint import (
     checkpoint_path, latest_checkpoint, load_checkpoint, save_checkpoint)
 from vae_segmentation_tpu_torch.core.config import CommonConfig
+from vae_segmentation_tpu_torch.core.device import resolve_device
 from vae_segmentation_tpu_torch.data import augment
 from vae_segmentation_tpu_torch.data.manifest import filedict_from_json
 from vae_segmentation_tpu_torch.data.pipeline import (
@@ -33,12 +45,73 @@ from vae_segmentation_tpu_torch.eval.postprocess import largest_components
 from vae_segmentation_tpu_torch.eval.sliding_window import (
     sliding_window_predict)
 from vae_segmentation_tpu_torch.ops import losses as L
+from vae_segmentation_tpu_torch.parallel import launch, sharding
+from vae_segmentation_tpu_torch.parallel.sharding import Mesh
 
 
 def todo(what: str, item: str) -> None:
     """Refuse a flag or method a later slice of the port brings."""
     raise NotImplementedError(
         f"{what} is not ported yet: ROADMAP.md queue 1, {item}")
+
+
+def start(cfg: CommonConfig):
+    """(world, mesh, device) of the run: torchrun's world
+    (``launch.init_distributed``) and its mesh, or (None, None, the
+    device) in one process. A rank outside the mesh says so and gets
+    device None: it does no work."""
+    world = launch.init_distributed(cfg.device)
+    if world is None:
+        if cfg.spatial_shards > 1:
+            raise ValueError(
+                f"--spatial_shards {cfg.spatial_shards} splits the volume "
+                f"over {cfg.spatial_shards} ranks: run the CLI under "
+                "torchrun --nproc_per_node N (N >= --spatial_shards)")
+        return None, None, resolve_device(cfg.device)
+    mesh = sharding.make_mesh_if_multichip(cfg, world.size)
+    if not (mesh.member if mesh is not None else world.rank == 0):
+        grid = "1 x 1" if mesh is None else \
+            f"{mesh.n_data} x {mesh.n_spatial}"
+        print(f"rank {world.rank} of {world.size}: outside the mesh "
+              f"({grid}); no work", file=sys.stderr)
+        return world, mesh, None
+    return world, mesh, world.device
+
+
+def writes(mesh: Optional[Mesh]) -> bool:
+    """Whether this rank prints and writes: one process, or rank 0."""
+    return mesh is None or mesh.first_rank
+
+
+@contextlib.contextmanager
+def rank_stdout():
+    """Within: stdout of a rank other than 0 of torchrun's world goes
+    nowhere (rank 0 prints the run's lines once)."""
+    if int(os.environ.get("RANK", "0")) == 0:
+        yield
+        return
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        yield
+
+
+def share(mesh: Optional[Mesh], value):
+    """Rank 0's `value` on every rank of the mesh (the others wait here
+    while rank 0 evaluates)."""
+    if mesh is None or mesh.size == 1:
+        return value
+    import torch.distributed as dist
+
+    box = [value]
+    dist.broadcast_object_list(box, src=0, group=mesh.group)
+    return box[0]
+
+
+def stop(world) -> None:
+    """Tear down a world this process started."""
+    if world is not None and world.owned:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
 
 
 def n_classes(cfg: CommonConfig) -> int:
@@ -168,14 +241,29 @@ def run_sliding_window_eval(
     return mean_score(scores), scores
 
 
-def make_train_ingest(cfg: CommonConfig, device: torch.device) -> Callable:
+def shard_train_batch(mesh: Optional[Mesh], image: torch.Tensor,
+                      label: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This rank's slice of a global train batch (common.py:284-290 of the
+    JAX package): its items and, over 'spatial', its D planes."""
+    if mesh is None:
+        return image, label
+    return sharding.batch_shard(mesh, image), sharding.batch_shard(mesh,
+                                                                   label)
+
+
+def make_train_ingest(cfg: CommonConfig, device: torch.device,
+                      mesh: Optional[Mesh] = None) -> Callable:
     """(host batch, generator) -> (image_norm [B, *patch], label [B, *patch])
     on `device`: the random affine warp drawn from `generator` (on
     `device`; the image at --aug_order, 1 trilinear or 3 the cubic spline)
     unless --no_aug, then Clip(-200, 400) and (x - 100) / 300
     (main_source.py:197-213). With --aug_host the loader's workers have
     warped the batch already, so it only normalises (common.py:128-142 of
-    the JAX package)."""
+    the JAX package). Under a mesh every rank holds the same global batch
+    (one loader, one seed) and the same generator: the warp is drawn for
+    the whole batch, each rank warps its items whole and keeps its slice,
+    so the items and the draws are one process's."""
     patch = tuple(cfg.patch_size)
     no_aug = cfg.no_aug or cfg.aug_host
 
@@ -183,10 +271,21 @@ def make_train_ingest(cfg: CommonConfig, device: torch.device) -> Callable:
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         image = torch.from_numpy(batch["image"]).to(device)
         label = torch.from_numpy(batch["label"]).to(device)
-        if not no_aug:
+        if no_aug:
+            image, label = shard_train_batch(mesh, image, label)
+        elif mesh is None:
             image, label = augment.spatial_augment(
                 image, label, generator, patch_size=patch,
                 order=cfg.aug_order)
+        else:
+            n = image.shape[0] // mesh.n_data
+            image, label = augment.spatial_augment(
+                image, label, generator, patch_size=patch,
+                order=cfg.aug_order,
+                items=slice(mesh.data_index * n, (mesh.data_index + 1) * n))
+            if mesh.n_spatial > 1:
+                image = sharding.take_planes(mesh, image)
+                label = sharding.take_planes(mesh, label)
         return intensity_normalize(image), label
 
     return ingest
@@ -231,18 +330,24 @@ def resume(cfg: CommonConfig, runner: "EpochRunner",
 
 class EpochRunner:
     """Score, best and periodic checkpoint bookkeeping after every outer
-    epoch (common.py:195-237 of the JAX package)."""
+    epoch (common.py:195-237 of the JAX package). With writes=False (a
+    rank of a world other than 0) it keeps the best result and writes
+    nothing."""
 
-    def __init__(self, cfg: CommonConfig):
+    def __init__(self, cfg: CommonConfig, writes: bool = True):
         self.cfg = cfg
         self.best_result = 0.0
-        os.makedirs(cfg.save_path, exist_ok=True)
-        os.makedirs(cfg.display_path, exist_ok=True)
+        self.writes = writes
+        if writes:
+            os.makedirs(cfg.save_path, exist_ok=True)
+            os.makedirs(cfg.display_path, exist_ok=True)
 
     def dump_scores(self, epoch: int, scores: Dict[int, float],
                     name: str = "score") -> None:
         """tensorboard/<prefix>/<name>_<epoch>.json: {case index: Dice}
         (``score_noft`` holds ft1's scores without the finetune)."""
+        if not self.writes:
+            return
         with open(os.path.join(self.cfg.display_path,
                                f"{name}_{epoch}.json"), "w") as f:
             json.dump({str(k): v for k, v in scores.items()}, f)
@@ -263,6 +368,8 @@ class EpochRunner:
             self.best_result = dsc
         kw = dict(epoch=stamp, model=model, optimizer=optimizer,
                   extra={"best_result": self.best_result})
+        if not self.writes:
+            return improved
         if improved:
             save_checkpoint(os.path.join(cfg.save_path, "best_model.ckpt"),
                             **kw)

@@ -28,6 +28,11 @@ result, with a fresh optimizer (``cli/common.py::resume``).
 ``--aug_order 3`` warps the image with the cubic spline, ``--aug_host``
 warps in the loader's workers (``data/host_augment.py``).
 
+Under ``torchrun --nproc_per_node N`` the ranks train as the JAX
+package's mesh (``cli/common.py::start``; ``--spatial_shards`` splits the
+volume's D axis): each step on a rank's slice, the gradients averaged over
+the mesh, the eval on rank 0, which alone prints and writes.
+
 The other methods and the flags this slice does not port raise
 NotImplementedError naming their ROADMAP item. It runs on ``--device cuda``
 unless told otherwise.
@@ -44,10 +49,10 @@ from vae_segmentation_tpu_torch.cli import common
 from vae_segmentation_tpu_torch.cli.common import todo
 from vae_segmentation_tpu_torch.core.config import (
     SourceConfig, parse_source_args)
-from vae_segmentation_tpu_torch.core.device import resolve_device
 from vae_segmentation_tpu_torch.eval.evaluate import (
     make_seg_eval_step, make_vae_eval_step, run_eval)
 from vae_segmentation_tpu_torch.models import SegUNet, ShapeVAE, load_network
+from vae_segmentation_tpu_torch.parallel import sharding
 from vae_segmentation_tpu_torch.train import (
     make_seg_train_step, make_vae_train_step, optim)
 
@@ -63,8 +68,6 @@ def _check_supported(cfg: SourceConfig) -> None:
         todo(f"--method {cfg.method}", "item 11 (the other source methods)")
     if cfg.softrelu == 1:
         todo("--softrelu 1 (the soft-ReLU VAE)", "item 11")
-    if cfg.spatial_shards != 1:
-        todo("--spatial_shards", "item 9")
     if cfg.save_eval_result or cfg.save_more_reference \
             or cfg.profile_dir is not None:
         todo("eval npy dumps, TensorBoard panels and profiling", "item 11")
@@ -107,21 +110,29 @@ def _print_line(method: str, epoch: int, eval_epoch: int, idx: int,
 
 def run(cfg: SourceConfig) -> float:
     """Train (or with --test_only just evaluate) the method's network;
-    returns the best mean validation Dice."""
+    returns the best mean validation Dice. Under torchrun: rank 0's,
+    on every rank of the mesh (0.0 on a rank outside it)."""
     _check_supported(cfg)
-    device = resolve_device(cfg.device)
+    world, mesh, device = common.start(cfg)
+    try:
+        return 0.0 if device is None else _run(cfg, device, mesh)
+    finally:
+        common.stop(world)
+
+
+def _run(cfg: SourceConfig, device: torch.device, mesh) -> float:
     np.random.seed(cfg.seed)
     torch.manual_seed(cfg.seed)
     n_class = common.n_classes(cfg)
     vae = cfg.method == "vae_train"
-    runner = common.EpochRunner(cfg)
+    runner = common.EpochRunner(cfg, writes=common.writes(mesh))
 
     loader = ingest = None
     if not cfg.test_only:
         print("Loading data.")
         loader = common.build_train_loader(cfg, data_root=cfg.data_root,
                                            list_key=cfg.train_list)
-        ingest = common.make_train_ingest(cfg, device)
+        ingest = common.make_train_ingest(cfg, device, mesh)
     val_ds = common.build_val_dataset(cfg, data_root=cfg.val_data_root,
                                       list_key=cfg.val_list)
 
@@ -130,6 +141,8 @@ def run(cfg: SourceConfig) -> float:
     print("Loading prefix.")
     _load_prefix(cfg, model)
     model = model.to(device)
+    if mesh is not None:
+        sharding.replicate(mesh, model)
     optimizer = optim.build(model.parameters(), cfg.adam, cfg.lr_seg,
                             weight_decay=cfg.weight_decay)
     if vae:
@@ -152,20 +165,24 @@ def run(cfg: SourceConfig) -> float:
             else:
                 for idx, batch in enumerate(loader):
                     image, label = ingest(batch, generator)
-                    metrics = step(model, optimizer, label, generator) if vae \
-                        else step(model, optimizer, image, label)
+                    with sharding.active(mesh):
+                        metrics = step(model, optimizer, label, generator) \
+                            if vae else step(model, optimizer, image, label)
                     _print_line(cfg.method, epoch, cfg.eval_epoch, idx,
                                 metrics)
         print("Start evaluation")
-        if cfg.eval_mode == "sliding_window" and not vae:
-            dsc, scores = common.run_sliding_window_eval(
-                cfg, lambda net, x: net(x), model, n_class=n_class,
-                data_root=cfg.val_data_root, list_key=cfg.val_list,
-                pan_index=cfg.pan_index)
-        else:
-            dsc, scores = run_eval(
-                common.val_batches(val_ds, cfg.val_batch, device), eval_step,
-                uses_image=not vae)
+        dsc, scores = 0.0, {}
+        if common.writes(mesh):
+            if cfg.eval_mode == "sliding_window" and not vae:
+                dsc, scores = common.run_sliding_window_eval(
+                    cfg, lambda net, x: net(x), model, n_class=n_class,
+                    data_root=cfg.val_data_root, list_key=cfg.val_list,
+                    pan_index=cfg.pan_index)
+            else:
+                dsc, scores = run_eval(
+                    common.val_batches(val_ds, cfg.val_batch, device),
+                    eval_step, uses_image=not vae)
+        dsc = common.share(mesh, dsc)
         runner.dump_scores(epoch, scores)
         runner.end_of_epoch(epoch, dsc, model, optimizer)
         if cfg.test_only:
@@ -174,7 +191,8 @@ def run(cfg: SourceConfig) -> float:
 
 
 def main(argv: Optional[List[str]] = None) -> float:
-    return run(parse_source_args(argv))
+    with common.rank_stdout():
+        return run(parse_source_args(argv))
 
 
 if __name__ == "__main__":

@@ -46,6 +46,13 @@ pick the cubic and the host warp (``cli/common.py::make_train_ingest``).
 package (its Joint always encodes with the mean latent). Every other
 method, and the flags of later slices, raise NotImplementedError naming
 the ROADMAP item that will port them.
+
+Under ``torchrun --nproc_per_node N`` the ranks train as the JAX package's
+mesh (``cli/common.py::start``; ``--spatial_shards S`` splits the volume's
+D axis over S ranks): every adaptation and replay step on a rank's slice,
+the gradients averaged over the mesh, the EMA teacher updated alike on
+every rank; the eval (with ft1 and the sliding window) runs on rank 0 as
+in one process, which alone prints and writes.
 """
 
 from __future__ import annotations
@@ -60,13 +67,13 @@ from vae_segmentation_tpu_torch.cli import common
 from vae_segmentation_tpu_torch.cli.common import todo
 from vae_segmentation_tpu_torch.core.config import (
     TargetConfig, parse_target_args)
-from vae_segmentation_tpu_torch.core.device import resolve_device
 from vae_segmentation_tpu_torch.data.pipeline import (
     TrainLoader, intensity_normalize)
 from vae_segmentation_tpu_torch.eval.evaluate import (
     make_joint_eval_step, mean_score, record_scores)
 from vae_segmentation_tpu_torch.models import (
     Joint, load_component, load_state)
+from vae_segmentation_tpu_torch.parallel import sharding
 from vae_segmentation_tpu_torch.train import (
     AdaptConfig, copy_params, default_sched, ema_update_seg, make_adapt_step,
     make_seg_replay_step, optim)
@@ -75,8 +82,6 @@ from vae_segmentation_tpu_torch.train import (
 def _check_supported(cfg: TargetConfig) -> None:
     if cfg.method != "domain_adaptation":
         todo(f"--method {cfg.method}", "item 11 (the other methods)")
-    if cfg.spatial_shards != 1:
-        todo("--spatial_shards", "item 9")
     if cfg.analysis_figure_name is not None or cfg.save_eval_result \
             or cfg.save_more_reference or cfg.profile_dir is not None:
         todo("eval figures, npy dumps, TensorBoard panels and profiling",
@@ -237,7 +242,7 @@ class SourceReplay:
     package does."""
 
     def __init__(self, cfg: TargetConfig, n_class: int, ingest, optimizer,
-                 generator):
+                 generator, mesh=None):
         self.loader = common.build_train_loader(
             cfg, data_root=cfg.pseudo_data_root, list_key=cfg.pseudo_list,
             pan_index=cfg.pseudo_pan_index, seed_salt=101)
@@ -247,6 +252,7 @@ class SourceReplay:
         self.step = make_seg_replay_step(n_class)
         self.ingest, self.optimizer = ingest, optimizer
         self.generator = generator
+        self.mesh = mesh
         self.batches = None
 
     def new_pass(self) -> None:
@@ -259,16 +265,19 @@ class SourceReplay:
             self.new_pass()
             batch = next(self.batches)
         image, label = self.ingest(batch, self.generator)
-        return self.step(student, self.optimizer, image, label)["dice_loss"]
+        with sharding.active(self.mesh):
+            return self.step(student, self.optimizer, image,
+                             label)["dice_loss"]
 
 
 def _train_epoch(cfg: TargetConfig, epoch: int, loader: TrainLoader, step,
                  ingest, model, teacher, optimizer, generator,
                  lambda_vae: float,
-                 replay: Optional[SourceReplay] = None) -> float:
+                 replay: Optional[SourceReplay] = None, mesh=None) -> float:
     """One outer epoch of adaptation steps (each followed by a replay step
     with --pseudo_list); returns lambda_vae after the --tag decay.
-    `generator` draws the warps and the MC dropout masks."""
+    `generator` draws the warps and the MC dropout masks; the steps run on
+    this rank's slice of `mesh`."""
     if epoch == 0:
         common.skip_epoch(loader)  # epoch-0 skip (main_target.py:506)
         return lambda_vae
@@ -300,8 +309,9 @@ def _train_epoch(cfg: TargetConfig, epoch: int, loader: TrainLoader, step,
                 lambda_vae = cfg.alpha * lambda_vae
                 sched = _epoch_sched(cfg, epoch, lambda_vae)
         image, label = ingest(batch, generator)
-        metrics = step(model, teacher, optimizer, image, label, generator,
-                       sched)
+        with sharding.active(mesh):
+            metrics = step(model, teacher, optimizer, image, label,
+                           generator, sched)
         if replay is not None:
             metrics = dict(metrics, dice_loss_pseudo=replay(model))
         _print_line(epoch, cfg.eval_epoch, idx, metrics)
@@ -310,15 +320,27 @@ def _train_epoch(cfg: TargetConfig, epoch: int, loader: TrainLoader, step,
 
 def run(cfg: TargetConfig) -> float:
     """Train (or with --test_only just evaluate) the Joint; returns the
-    best mean validation Dice (the mean Dice with --test_only)."""
+    best mean validation Dice (the mean Dice with --test_only). Under
+    torchrun: rank 0's, on every rank of the mesh (0.0 on a rank outside
+    it)."""
     _check_supported(cfg)
-    device = resolve_device(cfg.device)
+    world, mesh, device = common.start(cfg)
+    try:
+        return 0.0 if device is None else _run(cfg, device, mesh)
+    finally:
+        common.stop(world)
+
+
+def _run(cfg: TargetConfig, device: torch.device, mesh) -> float:
     np.random.seed(cfg.seed)
     torch.manual_seed(cfg.seed)
     n_class = common.n_classes(cfg)
 
     print("Building model.")
     model, teacher = _build_models(cfg, n_class, device)
+    if mesh is not None:
+        sharding.replicate(mesh, model)
+        sharding.replicate(mesh, teacher)
     val_ds = common.build_val_dataset(cfg, data_root=cfg.val_data_root,
                                       list_key=cfg.val_list)
     eval_step = make_joint_eval_step(model, n_class)
@@ -326,7 +348,7 @@ def run(cfg: TargetConfig) -> float:
     if cfg.val_finetune != 0:
         finetune, ft_model = _make_finetune(cfg, n_class, device)
         ft_eval_step = make_joint_eval_step(ft_model, n_class)
-    runner = common.EpochRunner(cfg)
+    runner = common.EpochRunner(cfg, writes=common.writes(mesh))
     # params, epoch and best of the latest periodic checkpoint; the teacher
     # stays the copy made from the load flags, as in the JAX package
     start_epoch = common.resume(cfg, runner, lambda ck: load_state(model, ck))
@@ -336,7 +358,7 @@ def run(cfg: TargetConfig) -> float:
         print("Loading data.")
         loader = common.build_train_loader(cfg, data_root=cfg.data_root,
                                            list_key=cfg.train_list)
-        ingest = common.make_train_ingest(cfg, device)
+        ingest = common.make_train_ingest(cfg, device, mesh)
         trainable = optim.freeze_all_but_seg_head(model) if cfg.fix_layer \
             else optim.freeze_vae(model)
         optimizer = optim.build(trainable, cfg.adam, cfg.lr_seg,
@@ -348,7 +370,8 @@ def run(cfg: TargetConfig) -> float:
             variant="pseudo" if cfg.pseudo_list is not None else "train")
         generator = torch.Generator(device=device).manual_seed(cfg.seed)
         if cfg.pseudo_list is not None:
-            replay = SourceReplay(cfg, n_class, ingest, optimizer, generator)
+            replay = SourceReplay(cfg, n_class, ingest, optimizer, generator,
+                                  mesh)
         print("Start training")
 
     lambda_vae = cfg.lambda_vae  # host-mutable (--tag decay)
@@ -356,21 +379,23 @@ def run(cfg: TargetConfig) -> float:
         if not cfg.test_only:
             lambda_vae = _train_epoch(cfg, epoch, loader, step, ingest,
                                       model, teacher, optimizer, generator,
-                                      lambda_vae, replay)
+                                      lambda_vae, replay, mesh)
         print("Start evaluation")
         t0 = time.time()
         # ft1 from the first outer epoch that trained (main_target.py:807)
         ft = finetune if epoch != 0 or cfg.test_only else None
         sched = _epoch_sched(cfg, epoch, lambda_vae)
-        if cfg.eval_mode == "sliding_window":
-            scores, scores_noft = _sliding_window_eval(
-                cfg, n_class, val_ds, device, ft, ft_model, model, teacher,
-                sched)
-        else:
-            scores, scores_noft = _crop_eval(
-                cfg, val_ds, device, eval_step, ft, ft_eval_step, model,
-                teacher, sched)
-        dsc = mean_score(scores)
+        scores, scores_noft = {}, {}
+        if common.writes(mesh):  # the other ranks wait in share()
+            if cfg.eval_mode == "sliding_window":
+                scores, scores_noft = _sliding_window_eval(
+                    cfg, n_class, val_ds, device, ft, ft_model, model,
+                    teacher, sched)
+            else:
+                scores, scores_noft = _crop_eval(
+                    cfg, val_ds, device, eval_step, ft, ft_eval_step, model,
+                    teacher, sched)
+        dsc = common.share(mesh, mean_score(scores))
         runner.dump_scores(epoch, scores)
         if scores_noft:
             runner.dump_scores(epoch, scores_noft, name="score_noft")
@@ -385,7 +410,8 @@ def run(cfg: TargetConfig) -> float:
 
 
 def main(argv: Optional[List[str]] = None) -> float:
-    return run(parse_target_args(argv))
+    with common.rank_stdout():
+        return run(parse_target_args(argv))
 
 
 if __name__ == "__main__":

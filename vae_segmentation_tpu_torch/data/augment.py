@@ -28,7 +28,7 @@ host. The host warp of ``--aug_host`` is ``data/host_augment.py``.
 from __future__ import annotations
 
 import functools
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -288,11 +288,19 @@ def warp_at(image: torch.Tensor, label: torch.Tensor, coords: torch.Tensor,
 def spatial_augment(images: torch.Tensor, labels: torch.Tensor,
                     generator: torch.Generator,
                     patch_size: Sequence[int] = (128, 128, 128),
-                    order: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+                    order: int = 1, items: Optional[slice] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Random affine warp of a batch (images, labels [B, D, H, W] f32 on
     the generator's device) into [B, *patch]: one draw per sample
-    (augment.py:229-237 of the JAX package); order 3 is --aug_order 3."""
+    (augment.py:229-237 of the JAX package); order 3 is --aug_order 3.
+    `items`: warp only these items (a rank's share of the batch); the draws
+    are the whole batch's all the same, so the generator moves as in one
+    process and each item gets its one-process warp (a 3D warp mixes D, so
+    a rank warps its items whole and keeps its planes afterwards)."""
     angles, scale, centre = sample_affine_params(
         generator, images.shape[0], patch_size, images.shape[1:])
+    if items is not None:
+        images, labels = images[items], labels[items]
+        angles, scale, centre = angles[items], scale[items], centre[items]
     return warp_with_params(images, labels, angles, scale, centre,
                             patch_size, order)

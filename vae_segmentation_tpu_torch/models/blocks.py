@@ -30,6 +30,22 @@ on every call and keeps no copy, so no write to the weight, however made
 leave a kernel reading old values. The JAX package's space-to-depth fold
 and W-pack (ops/s2d.py) are not ported: they only filled the TPU's
 128-lane tiles.
+
+Under an active mesh (``parallel.sharding.active``, the train steps of a
+multi-rank run) each rank holds its slice: its batch items and, over a
+'spatial' axis, its D planes. The leaf modules are the JAX package's shard
+wraps (blocks.py:149-311): ``Conv3`` exchanges the D halo planes
+(``collectives.halo_exchange``), runs K1 on the slab with its valid-plane
+range (``dlim``) and keeps the owned planes; with the stats epilogue it
+subtracts the two halo planes' sums and adds the slabs' stats over the
+data row (``stats_slab_correct``), so an InstanceNorm divides by the
+volume's count (``sharding.global_voxels``). The bridges are plane-local
+and split with no halo while the slab's D splits in pairs; otherwise (and
+for a volume that is whole on the rank: ``sharding.mark_replicated``) they
+run on the whole volume, as the JAX wraps fall back to the unsharded op,
+and hand on this rank's planes wherever the next stage's D splits. On the
+norm route each norm adds its slab's f64 sums over the data row before
+the fold (``instance_norm_act``'s ``mesh``).
 """
 
 from __future__ import annotations
@@ -44,6 +60,7 @@ import torch.nn as nn
 from vae_segmentation_tpu_torch.ops import bridges, conv3 as conv3_ops
 from vae_segmentation_tpu_torch.ops.instance_norm import (
     affine_from_stats, instance_norm_act)
+from vae_segmentation_tpu_torch.parallel import collectives, sharding
 
 DEFAULT_FMAPS: Tuple[int, ...] = (8, 16, 32, 64, 128, 256)
 Affine = Tuple[torch.Tensor, torch.Tensor]
@@ -71,7 +88,7 @@ def apply_affine_relu(x: torch.Tensor, aff: Affine) -> torch.Tensor:
     s, t = aff
     y = torch.relu(x.float() * s[:, None, None, None, :]
                    + t[:, None, None, None, :])
-    return y.to(x.dtype)
+    return sharding.like(y.to(x.dtype), x)
 
 
 class _KernelConv(nn.Module):
@@ -109,8 +126,35 @@ class Conv3(_KernelConv):
 
     def forward(self, x: torch.Tensor, pre: Optional[Affine] = None,
                 stats: bool = False, softmax: bool = False):
-        return conv3_ops.conv3(x, self.weight, self.bias,
-                               self.kernel_weight(), pre, stats, softmax)
+        mesh = sharding.spatial_mesh(x)
+        if mesh is None:
+            return sharding.like(conv3_ops.conv3(
+                x, self.weight, self.bias, self.kernel_weight(), pre, stats,
+                softmax), x)
+        # the stencil shard wrap: K1 on the halo slab, the owned planes
+        slab = collectives.halo_exchange(x, mesh)
+        out = conv3_ops.conv3(slab, self.weight, self.bias,
+                              self.kernel_weight(), pre, stats, softmax,
+                              dlim=collectives.halo_dlim(mesh, slab.shape[1]))
+        if not stats:
+            return out[:, 1:-1].contiguous()
+        y, st = out
+        return y[:, 1:-1].contiguous(), stats_slab_correct(y, st, mesh)
+
+
+def stats_slab_correct(y: torch.Tensor, st: torch.Tensor,
+                       mesh: sharding.Mesh) -> torch.Tensor:
+    """A halo slab's K1 stats [B, 2, C] -> the volume's (the JAX package's
+    ``_stats_slab_correct``): less the (sum, sumsq) of the slab's two halo
+    output planes (duplicates of the neighbours' boundary planes, or the
+    edge's zero-padding planes), then summed over the data row. The kernel
+    sums every plane in its fixed order; these two planes are read again
+    (the design of ``ops/conv3.py``'s note, chosen over a second plane
+    range in the stats epilogue)."""
+    halo = torch.stack([y[:, 0], y[:, -1]], dim=1).float()
+    corr = torch.stack([halo.sum(dim=(1, 2, 3)),
+                        (halo * halo).sum(dim=(1, 2, 3))], dim=1)
+    return collectives.spatial_sum(st - corr, mesh)
 
 
 class DownConv(_KernelConv):
@@ -124,8 +168,15 @@ class DownConv(_KernelConv):
     kernel_layout = staticmethod(bridges.down_kernel_weight)
 
     def forward(self, x: torch.Tensor, pre: Optional[Affine] = None):
-        return bridges.down_k2s2(x, self.weight, self.bias,
-                                 self.kernel_weight(), pre)
+        mesh = sharding.spatial_mesh(x)
+        if mesh is not None and x.shape[1] % 2:
+            # the slab's planes do not pair up: the whole volume on each
+            # rank of the row, whose output is whole too
+            x = collectives.gather_spatial(x, mesh)
+            return sharding.mark_replicated(bridges.down_k2s2(
+                x, self.weight, self.bias, self.kernel_weight(), pre))
+        return sharding.like(bridges.down_k2s2(
+            x, self.weight, self.bias, self.kernel_weight(), pre), x)
 
 
 class TConv2(_KernelConv):
@@ -140,8 +191,25 @@ class TConv2(_KernelConv):
     kernel_layout = staticmethod(bridges.up_kernel_weight)
 
     def forward(self, x: torch.Tensor):
-        return bridges.up_k2s2(x, self.weight, self.bias,
-                               self.kernel_weight())
+        mesh = sharding.spatial_mesh(x)
+        whole = mesh is None      # x is the whole volume on this rank
+        if mesh is not None and x.shape[1] % 2:
+            # the JAX wrap's fallback where D does not split in pairs
+            x, whole = collectives.gather_spatial(x, mesh), True
+        y = bridges.up_k2s2(x, self.weight, self.bias, self.kernel_weight())
+        return spread(y) if whole else y
+
+
+def spread(y: torch.Tensor) -> torch.Tensor:
+    """A volume computed whole on every rank of a data row (an unsharded
+    stage under a 'spatial' axis): this rank's D planes when its D splits,
+    else the whole volume, tagged so."""
+    mesh = sharding.current()
+    if mesh is None or mesh.n_spatial == 1:
+        return y
+    if y.shape[1] % mesh.n_spatial == 0:
+        return sharding.take_planes(mesh, y)
+    return sharding.mark_replicated(y)
 
 
 def mc_dropout(x: torch.Tensor, rate: float,
@@ -150,15 +218,38 @@ def mc_dropout(x: torch.Tensor, rate: float,
     torch ``F.dropout(p, training=True)`` as used for decoder and Seg MC
     sampling (joint_model.py:256-264, 379-387; counterpart of the JAX
     package's ``blocks.mc_dropout``). The keep mask is drawn from
-    ``generator``, which must live on x's device."""
+    ``generator``, which must live on x's device. Under a mesh every rank
+    draws the mask of the global batch (the generator stays in step on
+    every rank) and keeps its slice: replicated stages get the same mask
+    on every rank of a data row, each slab its own, and the masks are one
+    process's."""
     if not rate:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+    mesh = sharding.current()
+    if mesh is None:
+        keep = torch.rand(x.shape, generator=generator,
+                          device=x.device) >= rate
+    else:
+        b = x.shape[0]
+        full = (b * mesh.n_data, sharding.global_depth(x), *x.shape[2:])
+        keep = torch.rand(full, generator=generator,
+                          device=x.device) >= rate
+        keep = keep[mesh.data_index * b:(mesh.data_index + 1) * b]
+        if sharding.spatial_mesh(x) is not None:
+            keep = sharding.take_planes(mesh, keep)
+    return sharding.like(torch.where(keep, x / (1.0 - rate),
+                                     torch.zeros_like(x)), x)
 
 
 def _n_spatial(x: torch.Tensor) -> int:
-    return x.shape[1] * x.shape[2] * x.shape[3]
+    return sharding.global_voxels(x)
+
+
+def _norm(y: torch.Tensor) -> torch.Tensor:
+    """The norm route's InstanceNorm+ReLU of a conv output: the volume's
+    norm when y is a slab of it."""
+    return sharding.like(instance_norm_act(
+        y, mesh=sharding.spatial_mesh(y)), y)
 
 
 class ConvNormAct(nn.Module):
@@ -175,7 +266,7 @@ class ConvNormAct(nn.Module):
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, Optional[Affine]]:
         if use_pallas_norm():
-            return instance_norm_act(self.conv["0"](x)), None
+            return _norm(self.conv["0"](x)), None
         y, st = self.conv["0"](x, stats=True)
         return y, affine_from_stats(st, _n_spatial(y))
 
@@ -201,7 +292,7 @@ class DoubleConv(nn.Module):
     def forward(self, x: torch.Tensor, defer: bool = False):
         if use_pallas_norm():
             for key in self._KEYS:
-                x = instance_norm_act(self.conv[key](x))
+                x = _norm(self.conv[key](x))
             return (x, None) if defer else x
         pre = None
         for key in self._KEYS:

@@ -8,7 +8,8 @@ entry's prologue and up5's final norm+ReLU the head's prologue
 (unet.py:92-120 of the JAX package); with MC dropout active the norm is
 applied inline and the softmax follows the head's own dropout. On the norm
 route (``blocks.use_pallas_norm``) the blocks return normalized tensors and
-no affine (unet.py:86-137 with ``fold`` false).
+no affine (unet.py:86-137 with ``fold`` false). Under a mesh the blocks'
+shard wraps take the rank's slice; a skip-add keeps its operands' layout.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch.nn as nn
 from vae_segmentation_tpu_torch.models.blocks import (
     DEFAULT_FMAPS, Conv3, ConvNormAct, Down, Up, apply_affine_relu,
     mc_dropout)
+from vae_segmentation_tpu_torch.parallel import sharding
 
 
 class SegUNet(nn.Module):
@@ -59,12 +61,13 @@ class SegUNet(nn.Module):
         x4 = self.down3(x3)
         x5 = self.down4(x4)
         h = drop(self.up2(x5))
-        h = drop(self.up3(h) + x3)
-        h = drop(self.up4(h) + x2)
+        h = drop(sharding.like(self.up3(h) + x3, x3))
+        h = drop(sharding.like(self.up4(h) + x2, x2))
         h, aff5 = self.up5(h, defer=True)
         if not dropout:
             return self.out_block(h, pre=aff5, softmax=True)
         if aff5 is not None:
             h = apply_affine_relu(h, aff5)
         h = drop(self.out_block(drop(h)))
-        return torch.softmax(h.float(), dim=-1).to(self.dtype)
+        return sharding.like(torch.softmax(h.float(), dim=-1).to(self.dtype),
+                             h)

@@ -13,6 +13,14 @@ returns the KL term that the same call computes (the ``vae_train`` step).
 The decoder's MC dropout is ported (joint_model.py:255-264). On the norm
 route (``blocks.use_pallas_norm``) the blocks return normalized tensors and
 no affine (vae.py:113-166 with ``fold`` false).
+
+Under a 'spatial' axis (``parallel.sharding``) the flatten needs the whole
+4^3 volume: the encoder's output is gathered over the data row before
+fc_mean / fc_std, and fc2's output, whole on every rank, is cut back to
+the rank's planes (``blocks.spread``) before the decoder. Under a 'data'
+axis each data rank draws its latent's eps from the step's seed plus its
+data index and the KL is averaged over 'data' (the JAX package's
+reparam.py:111-135).
 """
 
 from __future__ import annotations
@@ -25,8 +33,9 @@ import torch.nn.functional as F
 
 from vae_segmentation_tpu_torch.models.blocks import (
     DEFAULT_FMAPS, Conv3, ConvNormAct, Down, Up, apply_affine_relu,
-    mc_dropout, torch_uniform_init)
+    mc_dropout, spread, torch_uniform_init)
 from vae_segmentation_tpu_torch.ops import reparam
+from vae_segmentation_tpu_torch.parallel import collectives, sharding
 
 
 def _linear(cin: int, cout: int, generator) -> nn.Linear:
@@ -91,6 +100,9 @@ class ShapeVAE(nn.Module):
         h = self.down1(x1, pre=aff)
         for down in (self.down2, self.down3, self.down4, self.down5):
             h = down(h)
+        mesh = sharding.spatial_mesh(h)
+        if mesh is not None:
+            h = collectives.gather_spatial(h, mesh)
         flat = self.flatten(h)
         mean = self._dense(self.fc_mean, flat).float()
         std = torch.relu(self._dense(self.fc_std, flat).float())
@@ -103,7 +115,7 @@ class ShapeVAE(nn.Module):
         after every Up stage, drawn from ``generator``; up5's deferred norm
         is then applied inline before the last dropout instead of riding
         into the head's prologue (vae.py:141-165 of the JAX package)."""
-        h = self.unflatten(self._dense(self.fc2, z))
+        h = spread(self.unflatten(self._dense(self.fc2, z)))
         for up in (self.up1, self.up2, self.up3, self.up4):
             h = mc_dropout(up(h), dropout, generator)
         h, aff = self.up5(h, defer=True)
@@ -120,9 +132,15 @@ class ShapeVAE(nn.Module):
         """(latent, kl): latent = mean + eps * std * scale and the batch-mean
         KL term, from one ``ops.reparam.reparam_kl`` call whose eps is drawn
         from a seed out of `generator` (on mean's device). At scale 0 the
-        latent equals mean."""
+        latent equals mean. Under a mesh: the seed plus the data index, and
+        the KL averaged over 'data'."""
         seed = reparam.draw_seed(generator, mean.device)
+        mesh = sharding.current()
+        if mesh is not None:
+            seed = (seed + mesh.data_index) % reparam.SEED_MAX
         latent, kl, _ = reparam.reparam_kl(mean, std, scale, seed)
+        if mesh is not None:
+            kl = collectives.data_mean(kl, mesh)
         return latent, kl
 
     def forward(self, x: torch.Tensor, if_random: bool = False,

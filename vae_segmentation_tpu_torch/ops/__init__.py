@@ -4,7 +4,9 @@ merged backward ``conv3.conv3_bwd``, K2 ``bridges.down_k2s2`` and K3
 ``bridges.up_k2s2`` with their backwards, ``losses.softmax_vjp`` /
 ``losses.dice_sums`` / ``losses.dice_sums_vjp``, ``reparam.reparam_kl`` /
 ``reparam.reparam_kl_vjp`` and the InstanceNorm kernels of
-``instance_norm``."""
+``instance_norm``. The three K1 kernels also count their launches with a
+valid-plane range (``dlim``: the halo slabs of a 'spatial' mesh) in
+``.dlim_launches``."""
 
 from typing import Dict
 
@@ -19,10 +21,20 @@ KERNELS = (conv3.conv3, bridges.down_k2s2, bridges.up_k2s2, conv3.conv3_dk,
            losses.dice_sums_vjp, reparam.reparam_kl_vjp)
 
 
+DLIM_KERNELS = (conv3.conv3, conv3.conv3_dk, conv3.conv3_bwd)
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+    for k in DLIM_KERNELS:
+        k.dlim_launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
     return {k.__name__: k.launches for k in KERNELS}
+
+
+def dlim_launch_counts() -> Dict[str, int]:
+    """Launches with a valid-plane range, of the three K1 kernels."""
+    return {k.__name__: k.dlim_launches for k in DLIM_KERNELS}

@@ -27,8 +27,21 @@ pair: the merged kernel ``kernels/csrc/conv3_bwd.cu`` (replacing
 dx, dk and db, on the tensor cores from its own plan (``conv3_bwd_plan``),
 with every sum in a fixed order.
 
+Every one of them, and its plain version, takes ``dlim``: the valid D-plane
+range [lo, hi] of the TPU kernels' operand of that name (``stencil3.py::
+_load_planes``, ``_apply_post``; default [0, D - 1]). Under the prologue
+xn is 0 on planes outside it, in the forward, in dk and in the merged
+backward; the dx conv's ``post`` epilogue leaves those planes out of
+(ds, dt). A D-slab of a spatially sharded volume carries its neighbours'
+boundary planes as halo (``models/blocks.py``); an edge slab's missing
+neighbour is a zero plane, which the prologue would turn into relu(t) != 0.
+The slab's stats are the whole slab's: the caller subtracts the halo
+planes' sums (the JAX package's ``blocks.py::_stats_slab_correct``), so the
+stats epilogue keeps one range and its f64 fixed-order second pass.
+
 ``conv3.launches`` / ``conv3_dk.launches`` / ``conv3_bwd.launches`` count
-kernel launches (never the plain versions).
+kernel launches (never the plain versions), and ``.dlim_launches`` those
+of them with a valid-plane range.
 """
 
 from __future__ import annotations
@@ -44,6 +57,7 @@ import torch.nn.functional as F
 
 Affine = Tuple[torch.Tensor, torch.Tensor]
 Post = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+DLim = Tuple[int, int]
 
 
 def kernel_weight(weight: torch.Tensor) -> torch.Tensor:
@@ -74,6 +88,32 @@ def _affine_relu(x: torch.Tensor, pre: Affine) -> torch.Tensor:
     return torch.relu(_pre_activation(x, pre))
 
 
+def dlim_range(dlim: Optional[DLim], d: int) -> DLim:
+    """The valid D-plane range [lo, hi] of a call on `d` planes (all of
+    them when dlim is None), or raise."""
+    if dlim is None:
+        return 0, d - 1
+    lo, hi = (int(v) for v in dlim)
+    if not 0 <= lo <= hi < d:
+        raise ValueError(f"conv3: dlim {dlim} is no plane range of {d} "
+                         "planes")
+    return lo, hi
+
+
+def _plane_mask(x: torch.Tensor, dlim: Optional[DLim]):
+    """[1, D, 1, 1, 1] bool of the planes in dlim, or None for all."""
+    if dlim is None:
+        return None
+    lo, hi = dlim_range(dlim, x.shape[1])
+    d = torch.arange(x.shape[1], device=x.device)
+    return ((d >= lo) & (d <= hi))[None, :, None, None, None]
+
+
+def _masked(v: torch.Tensor, mask) -> torch.Tensor:
+    return v if mask is None else torch.where(
+        mask, v, torch.zeros((), dtype=v.dtype, device=v.device))
+
+
 def _stats(y: torch.Tensor) -> torch.Tensor:
     y32 = y.float()
     return torch.stack([y32.sum(dim=(1, 2, 3)),
@@ -83,7 +123,8 @@ def _stats(y: torch.Tensor) -> torch.Tensor:
 def conv3_plain(x: torch.Tensor, weight: torch.Tensor,
                 bias: Optional[torch.Tensor],
                 pre: Optional[Affine] = None, stats: bool = False,
-                softmax: bool = False, post: Optional[Post] = None):
+                softmax: bool = False, post: Optional[Post] = None,
+                dlim: Optional[DLim] = None):
     """The plain PyTorch version of K1, in f32 on the values it is given.
 
     x [B, D, H, W, Cin] in the compute dtype (bf16 or f32); weight is the
@@ -99,11 +140,16 @@ def conv3_plain(x: torch.Tensor, weight: torch.Tensor,
     cotangent of relu(xs * s + t) and goes through that prologue's
     backward, gm = g where xs * s + t > 0 else 0. Returns (gm * s in
     x.dtype, dst [B, 2, Cout] f32 = (sum gm * xs, sum gm) over the
-    volume)."""
+    volume).
+
+    dlim = (lo, hi): the valid D-plane range of the prologue (xn is 0 on
+    the other planes) and of the post sums (the other planes are left
+    out); None is every plane."""
     if sum((stats, softmax, post is not None)) > 1:
         raise ValueError("conv3: the stats, softmax and post epilogues are "
                          "exclusive")
-    xin = x.float() if pre is None else _affine_relu(x, pre)
+    mask = _plane_mask(x, dlim)
+    xin = x.float() if pre is None else _masked(_affine_relu(x, pre), mask)
     w = weight.to(x.dtype).float()
     y = F.conv3d(xin.permute(0, 4, 1, 2, 3), w,
                  None if bias is None else bias.float(), padding=1)
@@ -112,8 +158,9 @@ def conv3_plain(x: torch.Tensor, weight: torch.Tensor,
         xs, s, t = post
         gm = torch.where(_pre_activation(xs, (s, t)) > 0, y,
                          torch.zeros((), dtype=y.dtype, device=y.device))
-        dst = torch.stack([(gm * xs.float()).sum(dim=(1, 2, 3)),
-                           gm.sum(dim=(1, 2, 3))], dim=1)
+        gs = _masked(gm, mask)
+        dst = torch.stack([(gs * xs.float()).sum(dim=(1, 2, 3)),
+                           gs.sum(dim=(1, 2, 3))], dim=1)
         dx = gm * s[:, None, None, None, :].float()
         return dx.to(x.dtype).contiguous(), dst
     if softmax:
@@ -123,13 +170,14 @@ def conv3_plain(x: torch.Tensor, weight: torch.Tensor,
 
 
 def conv3_dk_plain(x: torch.Tensor, gy: torch.Tensor,
-                   pre: Optional[Affine] = None
+                   pre: Optional[Affine] = None, dlim: Optional[DLim] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain weight and bias gradient of K1 in f32: dk [27, Cin, Cout]
     (the kernel layout, tap-major) and db [Cout], summed over the batch and
-    all voxels, from x (through the prologue; out-of-volume taps are 0)
-    and the output cotangent gy."""
-    xin = x.float() if pre is None else _affine_relu(x, pre)
+    all voxels, from x (through the prologue, 0 on planes outside dlim;
+    out-of-volume taps are 0) and the output cotangent gy."""
+    xin = x.float() if pre is None else \
+        _masked(_affine_relu(x, pre), _plane_mask(x, dlim))
     cin, cout = x.shape[-1], gy.shape[-1]
     g = gy.float().permute(0, 4, 1, 2, 3)
     dw = torch.nn.grad.conv3d_weight(xin.permute(0, 4, 1, 2, 3),
@@ -181,11 +229,12 @@ def conv3_op(x: torch.Tensor, weight: torch.Tensor,
              bias: Optional[torch.Tensor],
              kweight: Optional[torch.Tensor] = None,
              pre: Optional[Affine] = None, stats: bool = False,
-             softmax: bool = False, post: Optional[Post] = None):
+             softmax: bool = False, post: Optional[Post] = None,
+             dlim: Optional[DLim] = None):
     """K1. Same contract as ``conv3_plain``; on CUDA, x must be bf16 and
     ``kweight`` the weight in the kernel's layout (``kernel_weight``)."""
     if x.device.type == "cpu":
-        return conv3_plain(x, weight, bias, pre, stats, softmax, post)
+        return conv3_plain(x, weight, bias, pre, stats, softmax, post, dlim)
     if x.device.type != "cuda":
         raise RuntimeError(f"conv3: no kernel for device {x.device}")
     if x.dim() != 5:
@@ -200,8 +249,9 @@ def conv3_op(x: torch.Tensor, weight: torch.Tensor,
         else "post" if post is not None else "none"
     plan = conv3_plan(b, (d, h, w), cin, kweight.shape[-1], pre is not None,
                       epilogue, sm_count(x.device.index or 0))
-    out = conv3_launch(x, kweight, bias, plan, pre, post)
+    out = conv3_launch(x, kweight, bias, plan, pre, post, dlim)
     conv3.launches += 1
+    conv3.dlim_launches += dlim is not None
     return out
 
 
@@ -321,10 +371,11 @@ def conv3_plan(batch: int, grid: Tuple[int, int, int], cin: int, cout: int,
 
 def conv3_launch(x: torch.Tensor, kweight: torch.Tensor,
                  bias: Optional[torch.Tensor], plan: dict,
-                 pre: Optional[Affine] = None, post: Optional[Post] = None):
+                 pre: Optional[Affine] = None, post: Optional[Post] = None,
+                 dlim: Optional[DLim] = None):
     """One launch of K1 on CUDA tensors under a given ``conv3_plan``, whose
     prologue and epilogue it takes: y, or (y, [B, 2, Cout] f32 sums) for
-    the stats and post epilogues. ``conv3_op`` plans the call and counts
+    the stats and post epilogues; dlim the valid D-plane range. ``conv3_op`` plans the call and counts
     it; chip_smoke.py also times the one-pass plan beside a split one
     through here."""
     from vae_segmentation_tpu_torch.ops.kernels import build
@@ -332,6 +383,7 @@ def conv3_launch(x: torch.Tensor, kweight: torch.Tensor,
     b, d, h, w, cin = x.shape
     cout = kweight.shape[-1]
     dev = x.device
+    lo, hi = dlim_range(dlim, d)
     check_tensor("conv3", "x", x, dev, torch.bfloat16, (b, d, h, w, cin))
     check_tensor("conv3", "kweight", kweight, dev, torch.bfloat16,
                  (27, cin, cout))
@@ -364,7 +416,8 @@ def conv3_launch(x: torch.Tensor, kweight: torch.Tensor,
         rc = lib.vaeseg_conv3(
             x.data_ptr(), kweight.data_ptr(), _ptr(bias), _ptr(s), _ptr(t),
             _ptr(xs), _ptr(ps), _ptr(pt), y.data_ptr(), _ptr(st), _ptr(ws),
-            _ptr(part), b, d, h, w, cin, cout, plan["epi"], plan["arg"],
+            _ptr(part), b, d, h, w, cin, cout, plan["epi"], lo, hi,
+            plan["arg"],
             torch.cuda.current_stream(dev).cuda_stream)
     raise_if(rc, lib, "conv3")
     return y if st is None else (y, st)
@@ -452,12 +505,12 @@ def wgrad_workspace(plan: dict, device):
 
 
 def conv3_dk(x: torch.Tensor, gy: torch.Tensor,
-             pre: Optional[Affine] = None
+             pre: Optional[Affine] = None, dlim: Optional[DLim] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dk [27, Cin, Cout] f32 and db [Cout] f32 of K1. Same contract as
     ``conv3_dk_plain``; on CUDA, x and gy must be bf16."""
     if x.device.type == "cpu":
-        return conv3_dk_plain(x, gy, pre)
+        return conv3_dk_plain(x, gy, pre, dlim)
     if x.device.type != "cuda":
         raise RuntimeError(f"conv3_dk: no kernel for device {x.device}")
     from vae_segmentation_tpu_torch.ops.kernels import build
@@ -467,6 +520,7 @@ def conv3_dk(x: torch.Tensor, gy: torch.Tensor,
     b, d, h, w, cin = x.shape
     cout = gy.shape[-1]
     dev = x.device
+    lo, hi = dlim_range(dlim, d)
     check_tensor("conv3_dk", "x", x, dev, torch.bfloat16, (b, d, h, w, cin))
     check_tensor("conv3_dk", "gy", gy, dev, torch.bfloat16,
                  (b, d, h, w, cout))
@@ -483,10 +537,11 @@ def conv3_dk(x: torch.Tensor, gy: torch.Tensor,
         rc = lib.vaeseg_conv3_dk(
             x.data_ptr(), gy.data_ptr(), _ptr(s), _ptr(t), ws.data_ptr(),
             wsdb.data_ptr(), dk.data_ptr(), db.data_ptr(), b, d, h, w, cin,
-            cout, plan_arg(plan["fields"]),
+            cout, lo, hi, plan_arg(plan["fields"]),
             torch.cuda.current_stream(dev).cuda_stream)
     raise_if(rc, lib, "conv3_dk")
     conv3_dk.launches += 1
+    conv3_dk.dlim_launches += dlim is not None
     return dk, db
 
 
@@ -499,20 +554,21 @@ def use_merged_bwd() -> bool:
 
 
 def conv3_bwd_plain(x: torch.Tensor, gy: torch.Tensor, weight: torch.Tensor,
-                    pre: Optional[Affine] = None):
+                    pre: Optional[Affine] = None, dlim: Optional[DLim] = None):
     """The plain merged backward of K1: the pair it replaces, the dx conv
     (``conv3_plain`` on the flipped, transposed weight, with the prologue's
     backward as its ``post`` epilogue) and ``conv3_dk_plain``. x
     [B, D, H, W, Cin] and gy [B, D, H, W, Cout] in the compute dtype,
     weight the torch layout [Cout, Cin, 3, 3, 3], pre = (s, t) [B, Cin] f32
-    or None. Returns (dx in x.dtype, dk [27, Cin, Cout] f32, db [Cout] f32,
-    dst [B, 2, Cin] f32 = (ds, dt) with the prologue, else None)."""
+    or None, dlim the valid D-plane range of both. Returns (dx in x.dtype,
+    dk [27, Cin, Cout] f32, db [Cout] f32, dst [B, 2, Cin] f32 = (ds, dt)
+    with the prologue, else None)."""
     w_t = weight.detach().flip(2, 3, 4).transpose(0, 1)
     if pre is None:
         dx, dst = conv3_plain(gy, w_t, None), None
     else:
-        dx, dst = conv3_plain(gy, w_t, None, post=(x, *pre))
-    dk, db = conv3_dk_plain(x, gy, pre)
+        dx, dst = conv3_plain(gy, w_t, None, post=(x, *pre), dlim=dlim)
+    dk, db = conv3_dk_plain(x, gy, pre, dlim)
     return dx, dk, db, dst
 
 
@@ -644,12 +700,12 @@ def conv3_bwd_plan(batch: int, grid: Tuple[int, int, int], cin: int,
 
 def conv3_bwd(x: torch.Tensor, gy: torch.Tensor, weight: torch.Tensor,
               kweight: Optional[torch.Tensor] = None,
-              pre: Optional[Affine] = None):
+              pre: Optional[Affine] = None, dlim: Optional[DLim] = None):
     """Row 5, the merged backward: same contract as ``conv3_bwd_plain``; on
     CUDA, x and gy must be bf16 and ``kweight`` the forward's weight in the
     kernel's layout (``kernel_weight``), which the kernel reads flipped."""
     if x.device.type == "cpu":
-        return conv3_bwd_plain(x, gy, weight, pre)
+        return conv3_bwd_plain(x, gy, weight, pre, dlim)
     if x.device.type != "cuda":
         raise RuntimeError(f"conv3_bwd: no kernel for device {x.device}")
     from vae_segmentation_tpu_torch.ops.kernels import build
@@ -663,6 +719,7 @@ def conv3_bwd(x: torch.Tensor, gy: torch.Tensor, weight: torch.Tensor,
     b, d, h, w, cin = x.shape
     cout = gy.shape[-1]
     dev = x.device
+    lo, hi = dlim_range(dlim, d)
     check_tensor("conv3_bwd", "x", x, dev, torch.bfloat16, (b, d, h, w, cin))
     check_tensor("conv3_bwd", "gy", gy, dev, torch.bfloat16,
                  (b, d, h, w, cout))
@@ -689,10 +746,11 @@ def conv3_bwd(x: torch.Tensor, gy: torch.Tensor, weight: torch.Tensor,
             x.data_ptr(), gy.data_ptr(), kweight.data_ptr(), _ptr(s),
             _ptr(t), dx.data_ptr(), _ptr(dst), dk.data_ptr(), db.data_ptr(),
             _ptr(wsx), ws.data_ptr(), wsdb.data_ptr(), _ptr(part), b, d, h,
-            w, cin, cout, plan["arg"],
+            w, cin, cout, lo, hi, plan["arg"],
             torch.cuda.current_stream(dev).cuda_stream)
     raise_if(rc, lib, "conv3_bwd")
     conv3_bwd.launches += 1
+    conv3_bwd.dlim_launches += dlim is not None
     return dx, dk, db, dst
 
 
@@ -711,16 +769,18 @@ def stats_cotangent(y: torch.Tensor, gy: Optional[torch.Tensor],
 
 class _Conv3Fn(torch.autograd.Function):
     """K1 with its backward kernels. Inputs (x, weight, bias, s, t) are
-    differentiable; s and t are None without the prologue."""
+    differentiable; s and t are None without the prologue; dlim goes to
+    every kernel of the backward, as the TPU's ``_bwd_pre`` passes it."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, s, t, kweight, stats, softmax):
+    def forward(ctx, x, weight, bias, s, t, kweight, stats, softmax, dlim):
         pre = None if s is None else (s, t)
-        out = conv3_op(x, weight, bias, kweight, pre, stats, softmax)
+        out = conv3_op(x, weight, bias, kweight, pre, stats, softmax,
+                       dlim=dlim)
         y = out[0] if stats else out
         ctx.save_for_backward(x, weight, s, t, kweight,
                               y if (stats or softmax) else None)
-        ctx.stats, ctx.softmax = stats, softmax
+        ctx.stats, ctx.softmax, ctx.dlim = stats, softmax, dlim
         return out
 
     @staticmethod
@@ -740,8 +800,9 @@ class _Conv3Fn(torch.autograd.Function):
         dx = ds = dt = dw = db = dst = dk = None
         need_dx = need_x or need_s or need_t
         need_dk = need_w or need_b
+        dlim = ctx.dlim
         if need_dx and need_dk and use_merged_bwd():
-            dx, dk, db, dst = conv3_bwd(x, gy, weight, kweight, pre)
+            dx, dk, db, dst = conv3_bwd(x, gy, weight, kweight, pre, dlim)
         elif need_dx:
             # the dx conv: K1 on the flipped taps with Cin and Cout swapped
             w_t = weight.detach().flip(2, 3, 4).transpose(0, 1)
@@ -750,32 +811,36 @@ class _Conv3Fn(torch.autograd.Function):
             if pre is None:
                 dx = conv3_op(gy, w_t, None, kw_t)
             else:
-                dx, dst = conv3_op(gy, w_t, None, kw_t, post=(x, s, t))
+                dx, dst = conv3_op(gy, w_t, None, kw_t, post=(x, s, t),
+                                   dlim=dlim)
         if dst is not None:
             ds, dt = dst[:, 0].to(s.dtype), dst[:, 1].to(t.dtype)
         if need_dk:
             if dk is None:
-                dk, db = conv3_dk(x, gy, pre)
+                dk, db = conv3_dk(x, gy, pre, dlim)
             cout, cin = weight.shape[:2]
             dw = dk.reshape(3, 3, 3, cin, cout).permute(4, 3, 0, 1, 2) \
                 .to(weight.dtype)
             db = db.to(weight.dtype)
-        return dx, dw, db, ds, dt, None, None, None
+        return dx, dw, db, ds, dt, None, None, None, None
 
 
 def conv3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
           kweight: Optional[torch.Tensor] = None,
           pre: Optional[Affine] = None, stats: bool = False,
-          softmax: bool = False):
+          softmax: bool = False, dlim: Optional[DLim] = None):
     """The differentiable K1: y, or (y, stats) with ``stats``; the contract
     of ``conv3_plain``. Gradients reach x, weight, bias and the prologue's
     (s, t) through ``conv3_op`` (dx, ds, dt) and ``conv3_dk`` (dk, db), or
     through one ``conv3_bwd`` under ``use_merged_bwd`` when both sides are
-    needed; what does not require a gradient launches nothing."""
+    needed; what does not require a gradient launches nothing. dlim: the
+    valid D-plane range of the prologue and of the backward's (ds, dt)."""
     s, t = (None, None) if pre is None else pre
-    return _Conv3Fn.apply(x, weight, bias, s, t, kweight, stats, softmax)
+    dlim = None if dlim is None else dlim_range(dlim, x.shape[1])
+    return _Conv3Fn.apply(x, weight, bias, s, t, kweight, stats, softmax,
+                          dlim)
 
 
-conv3.launches = 0
-conv3_dk.launches = 0
-conv3_bwd.launches = 0
+conv3.launches = conv3.dlim_launches = 0
+conv3_dk.launches = conv3_dk.dlim_launches = 0
+conv3_bwd.launches = conv3_bwd.dlim_launches = 0

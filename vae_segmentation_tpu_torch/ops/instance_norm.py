@@ -10,6 +10,9 @@ them to (scale, shift) = (rstd, -mean * rstd) and applies them in one
 launch, and whose backward is ``norm_bwd``: ``norm_bwd_sums`` (the masked
 cotangent's two sums, f64), then ``norm_bwd_dx``, which takes their means
 itself. On the card a norm is thus two or three launches each way.
+Under a 'spatial' mesh axis (``mesh``: a rank holds D planes of the
+volume) both f64 sums are added over the data row before the fold, so the
+norm is the volume's.
 
 Four hand-written kernels live here (``kernels/csrc/instance_norm.cu``),
 each with its plain version, launched on CUDA tensors and counted in
@@ -43,6 +46,7 @@ import torch
 
 from vae_segmentation_tpu_torch.ops.conv3 import (
     _pre_activation, _ptr, check_affine, check_tensor, raise_if, sm_count)
+from vae_segmentation_tpu_torch.parallel import collectives
 
 EPS = 1e-5
 Affine = Tuple[torch.Tensor, torch.Tensor]
@@ -368,37 +372,54 @@ def norm_bwd_dx(x: torch.Tensor, g: torch.Tensor, s: torch.Tensor,
 
 
 def norm_bwd(x: torch.Tensor, g: torch.Tensor, s: torch.Tensor,
-             t: torch.Tensor, relu: bool = True) -> torch.Tensor:
+             t: torch.Tensor, relu: bool = True, mesh=None) -> torch.Tensor:
     """Row 17: the cotangent of x from the cotangent g of
     ``[relu](x * s + t)`` where (s, t) are x's own norm statistics:
     ``norm_bwd_sums``, then ``norm_bwd_dx``, which takes their means
-    (instance_norm.py:244-295)."""
-    sums = norm_bwd_sums(x, g, s, t, relu, f64=True)
+    (instance_norm.py:244-295); under `mesh` the volume's
+    (``volume_sums``)."""
+    sums = volume_sums(norm_bwd_sums(x, g, s, t, relu, f64=True), mesh)
     return norm_bwd_dx(x, g, s, t, sums, relu)
+
+
+def volume_sums(sums: torch.Tensor, mesh) -> torch.Tensor:
+    """A slab's f64 [B, 2, C] sums -> the volume's, in the units of the
+    slab's voxel count (the folds divide by x's own): added over the data
+    row, then divided by n_spatial (exact for a power of 2). Unchanged
+    without a mesh."""
+    if mesh is None:
+        return sums
+    return collectives.spatial_sum(sums, mesh) / mesh.n_spatial
 
 
 class _InstanceNormActFn(torch.autograd.Function):
     """InstanceNorm(+ReLU) with its backward kernels; x is the only
-    differentiable input."""
+    differentiable input. Under a 'spatial' mesh both passes' sums are
+    the volume's (``volume_sums``): the backward's all-reduce is the
+    adjoint of the forward's."""
 
     @staticmethod
-    def forward(ctx, x, relu):
-        y, s, t = norm_apply(x, norm_stats(x, f64=True), relu)
+    def forward(ctx, x, relu, mesh):
+        y, s, t = norm_apply(x, volume_sums(norm_stats(x, f64=True), mesh),
+                             relu)
         ctx.save_for_backward(x, s, t)
-        ctx.relu = relu
+        ctx.relu, ctx.mesh = relu, mesh
         return y
 
     @staticmethod
     def backward(ctx, g):
         x, s, t = ctx.saved_tensors
-        return norm_bwd(x, g.contiguous(), s, t, ctx.relu), None
+        return norm_bwd(x, g.contiguous(), s, t, ctx.relu, ctx.mesh), \
+            None, None
 
 
-def instance_norm_act(x: torch.Tensor, relu: bool = True) -> torch.Tensor:
+def instance_norm_act(x: torch.Tensor, relu: bool = True,
+                      mesh=None) -> torch.Tensor:
     """Parameter-free InstanceNorm over the spatial axes of [B, D, H, W, C]
     (+ ReLU), f32 statistics, stored in x.dtype; differentiable in x
-    (instance_norm.py:187-206)."""
-    return _InstanceNormActFn.apply(x.contiguous(), relu)
+    (instance_norm.py:187-206). `mesh`: x is this rank's D planes of the
+    volume over the mesh's 'spatial' axis."""
+    return _InstanceNormActFn.apply(x.contiguous(), relu, mesh)
 
 
 norm_stats.launches = 0

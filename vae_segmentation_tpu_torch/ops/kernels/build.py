@@ -7,7 +7,9 @@ the shared ``*.cuh`` headers, so an edited source never loads a stale
 library), then opened with ``ctypes``.
 Building happens at first use, never at import: a process that only runs
 CPU tensors never looks for ``nvcc``. ``build_all()`` starts one ``nvcc``
-per source at once and waits for all of them.
+per source at once and waits for all of them, holding ``build/nvcc.lock``
+(``flock``) meanwhile, so that the ranks of a world that start together
+build each library once and the others load it.
 
 ``build_host_library()`` does the same for a host C++ source (the data
 loader's ``data/csrc/fastloader.cpp``) with ``$CXX``, under a file lock,
@@ -38,15 +40,15 @@ _L = ctypes.c_longlong
 # exported C functions and their argument types, per source file
 SIGNATURES = {
     "conv3": {
-        "vaeseg_conv3": [_P] * 12 + [_I] * 7 + [_P, _P],
+        "vaeseg_conv3": [_P] * 12 + [_I] * 9 + [_P, _P],
         "vaeseg_error_string": [_I],
     },
     "conv3_dk": {
-        "vaeseg_conv3_dk": [_P] * 8 + [_I] * 6 + [_P, _P],
+        "vaeseg_conv3_dk": [_P] * 8 + [_I] * 8 + [_P, _P],
         "vaeseg_error_string": [_I],
     },
     "conv3_bwd": {
-        "vaeseg_conv3_bwd": [_P] * 13 + [_I] * 6 + [_P, _P],
+        "vaeseg_conv3_bwd": [_P] * 13 + [_I] * 8 + [_P, _P],
         "vaeseg_error_string": [_I],
     },
     "instance_norm": {
@@ -132,20 +134,23 @@ def build_all(names: List[str] = None) -> Dict[str, str]:
     with _lock:
         todo = [n for n in names if n not in _libs]
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        procs = {n: _start(n, _target(n)) for n in todo
-                 if not _target(n).exists()}
-        errors = []
-        for n, proc in procs.items():
-            out, _ = proc.communicate()
-            logs[n] = out
-            tmp = _tmp(_target(n))
-            if proc.returncode != 0:
-                errors.append(f"nvcc failed for {n}.cu:\n{out}")
-            else:
-                os.replace(tmp, _target(n))
-                (BUILD_DIR / f"{n}.log").write_text(out)
-        if errors:
-            raise RuntimeError("\n".join(errors))
+        if any(not _target(n).exists() for n in todo):
+            with open(BUILD_DIR / "nvcc.lock", "w") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)
+                procs = {n: _start(n, _target(n)) for n in todo
+                         if not _target(n).exists()}
+                errors = []
+                for n, proc in procs.items():
+                    out, _ = proc.communicate()
+                    logs[n] = out
+                    tmp = _tmp(_target(n))
+                    if proc.returncode != 0:
+                        errors.append(f"nvcc failed for {n}.cu:\n{out}")
+                    else:
+                        os.replace(tmp, _target(n))
+                        (BUILD_DIR / f"{n}.log").write_text(out)
+                if errors:
+                    raise RuntimeError("\n".join(errors))
         for n in todo:
             _libs[n] = _load(n, _target(n))
     return logs

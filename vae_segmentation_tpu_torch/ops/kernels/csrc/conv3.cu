@@ -23,6 +23,12 @@
 //   over in-volume voxels only. x * s + t is two roundings (multiply, then
 //   add) wherever it is computed, so the backward's mask repeats the
 //   forward's arithmetic bit for bit.
+//   [dlo, dhi] is the valid D-plane range (stencil3.py's dlim; default
+//   [0, D - 1]): the prologue's xn is 0 on staged planes outside it, and the
+//   post epilogue leaves those planes out of (ds, dt). A D-slab of a
+//   spatially sharded volume carries its neighbours' boundary planes as
+//   halo; an edge slab's missing neighbour is a zero plane, which the
+//   prologue would turn into relu(t) != 0 without the range.
 //
 // What bounds it on the H100: the bytes (3.35 TB/s) at the 128^3 / 64^3
 // stages (C = 1..16), the operations at the deep ones (C = 64..256 at
@@ -104,6 +110,7 @@ struct Args {
   float* part;              // [B, parts, 2, Cout] f32 (stats and post)
   int64_t nvol;             // D H W
   int B, D, H, W, Cin, Cout, epi;
+  int dlo, dhi;             // the valid D-plane range (prologue and post)
   int td, th, tw, tiles_d, tiles_h, tiles_w;
   int ci, wm, wn, mt, nt, splits, rvox, parts;
   int nvox, mtiles, co, co_chunks, ci_chunks, nks, hrows, astr, wstr;
@@ -141,7 +148,8 @@ __device__ __forceinline__ float bf16_round(float v) {
 // (the halo's, one voxel before the tile) is (od, oh, ow): row r is halo
 // voxel r (w fastest), zero outside the volume and past Cin. With the
 // prologue, xn = relu(x * s + t) in f32 goes in as hi (into sa), mid and
-// lo (into sl, the halo's size apart).
+// lo (into sl, the halo's size apart), and is 0 on planes outside
+// [dlo, dhi].
 template <bool SPLIT>
 __device__ __forceinline__ void stage_halo(const Args& a, __nv_bfloat16* sa,
                                            __nv_bfloat16* sl, int b, int c0,
@@ -182,7 +190,7 @@ __device__ __forceinline__ void stage_halo(const Args& a, __nv_bfloat16* sa,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       float xn = 0.f;
-      if (ok && c + j < a.Cin) {
+      if (ok && c + j < a.Cin && gd >= a.dlo && gd <= a.dhi) {
         const int sc = b * a.Cin + c + j;
         xn = fmaxf(pre_activation(__bfloat162float(v[j]), a.s[sc], a.t[sc]),
                    0.f);
@@ -224,19 +232,22 @@ __device__ __forceinline__ void stage_weights(const Args& a,
   }
 }
 
-// The epilogue of one (voxel, channel) value v = the conv sum + bias:
-// returns what y stores and adds to the two sums of the stats (of the
-// stored bf16 value) or post ((ds, dt)) epilogue.
+// The epilogue of one (voxel, channel) value v = the conv sum + bias at
+// plane od: returns what y stores and adds to the two sums of the stats (of
+// the stored bf16 value) or post ((ds, dt), planes in [dlo, dhi] only)
+// epilogue.
 __device__ __forceinline__ float epilogue(const Args& a, float v, int b,
-                                          int64_t vox, int c, float& s1,
-                                          float& s2) {
+                                          int64_t vox, int od, int c,
+                                          float& s1, float& s2) {
   if (a.epi == kPost) {
     const int sc = b * a.Cout + c;
     const float xv = __bfloat162float(a.xs[vox * a.Cout + c]);
     const float ps = a.ps[sc];
     const float gm = pre_activation(xv, ps, a.pt[sc]) > 0.f ? v : 0.f;
-    s1 += gm * xv;
-    s2 += gm;
+    if (od >= a.dlo && od <= a.dhi) {
+      s1 += gm * xv;
+      s2 += gm;
+    }
     return gm * ps;
   }
   if (a.epi == kStats) {
@@ -443,7 +454,8 @@ __global__ void __launch_bounds__(kThreads) conv3_kernel(const Args a) {
 #pragma unroll
         for (int e = 0; e < 2; ++e)
           if (c + e < a.Cout)
-            o[e] = epilogue(a, v[n][e], b, vox, c + e, s1[n][e], s2[n][e]);
+            o[e] = epilogue(a, v[n][e], b, vox, od, c + e, s1[n][e],
+                            s2[n][e]);
         if ((a.Cout & 1) == 0 && c + 1 < a.Cout) {
           *reinterpret_cast<__nv_bfloat162*>(yp + c) =
               __floats2bfloat162_rn(o[0], o[1]);
@@ -508,7 +520,8 @@ __global__ void __launch_bounds__(kThreads) conv3_reduce_kernel(const Args a) {
     const float* in = a.ws + vox * a.Cout + c;
     double sum = 0.0;
     for (int s = 0; s < a.splits; ++s) sum += in[s * stride];
-    const float out = epilogue(a, (float)sum + bias, b, vox, c, s1, s2);
+    const float out = epilogue(a, (float)sum + bias, b, vox,
+                               (int)(v / ((int64_t)a.H * a.W)), c, s1, s2);
     a.y[vox * a.Cout + c] = __float2bfloat16(out);
   }
   if (a.part == nullptr) return;
@@ -574,7 +587,8 @@ const char* vaeseg_error_string(int code) {
 
 // x [B, D, H, W, Cin] and wk [27, Cin, Cout] bf16; bias [Cout] f32 or null;
 // (s, t) [B, Cin] f32 the prologue or null; epi 0 none, 1 stats, 2 softmax,
-// 3 post (xs [B, D, H, W, Cout] bf16 and (ps, pt) [B, Cout] f32); y
+// 3 post (xs [B, D, H, W, Cout] bf16 and (ps, pt) [B, Cout] f32); [dlo, dhi]
+// the valid D-plane range of the prologue and the post sums; y
 // [B, D, H, W, Cout] bf16; stats [B, 2, Cout] f32 (epi 1 and 3), written
 // whole; ws [splits, B, D H W, Cout] f32 (splits > 1) and part
 // [B, parts, 2, Cout] f32 (epi 1 and 3) the workspace of `plan`
@@ -584,8 +598,8 @@ const char* vaeseg_error_string(int code) {
 int vaeseg_conv3(const void* x, const void* w, const void* bias, const void* s,
                  const void* t, const void* xs, const void* ps, const void* pt,
                  void* y, void* stats, void* ws, void* part, int B, int D,
-                 int H, int W, int Cin, int Cout, int epi, const void* plan,
-                 void* stream) {
+                 int H, int W, int Cin, int Cout, int epi, int dlo, int dhi,
+                 const void* plan, void* stream) {
   const int* p = static_cast<const int*>(plan);
   Args a;
   a.x = static_cast<const __nv_bfloat16*>(x);
@@ -600,6 +614,7 @@ int vaeseg_conv3(const void* x, const void* w, const void* bias, const void* s,
   a.ws = static_cast<float*>(ws);
   a.part = static_cast<float*>(part);
   a.B = B; a.D = D; a.H = H; a.W = W; a.Cin = Cin; a.Cout = Cout; a.epi = epi;
+  a.dlo = dlo; a.dhi = dhi;
   a.nvol = (int64_t)D * H * W;
   a.td = p[kPlanTd]; a.th = p[kPlanTh]; a.tw = p[kPlanTw];
   a.tiles_d = p[kPlanTilesD]; a.tiles_h = p[kPlanTilesH];
@@ -627,6 +642,7 @@ int vaeseg_conv3(const void* x, const void* w, const void* bias, const void* s,
   const bool bad =
       B <= 0 || D <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 ||
       epi < kNone || epi > kPost || (s == nullptr) != (t == nullptr) ||
+      dlo < 0 || dhi >= D || dlo > dhi ||
       sums != (stats != nullptr) || sums != (part != nullptr) ||
       (epi == kPost && (xs == nullptr || ps == nullptr || pt == nullptr)) ||
       a.td <= 0 || a.th <= 0 || a.tw <= 0 || a.tiles_d * a.td < D ||

@@ -19,6 +19,9 @@
 //   db[o]         = sum_{b, v} gy[b, v, o],
 //   xn = relu(x * s + t) with the prologue, else x; out-of-volume taps are 0,
 //   and x * s + t is rounded as in every kernel of the port (common.cuh).
+//   [dlo, dhi] is the valid D-plane range (stencil3.py's dlim, default
+//   [0, D - 1]), as in K1: under the prologue dk's xn is 0 on planes
+//   outside it and (ds, dt) leave those planes out.
 //
 // What bounds it on the H100: the two products' 54 Cin Cout MACs a voxel,
 // so the bytes at the 128^3 / 64^3 stages (C = 2..16) and the tensor-core
@@ -85,6 +88,7 @@ struct Args {
   float* part;              // [B, parts, 2, Cin] f32 (prologue)
   int64_t nvol;             // D H W
   int B, D, H, W, Cin, Cout;
+  int dlo, dhi;             // the valid D-plane range (prologue)
   int td, th, tw, tiles_d, tiles_h, tiles_w;
   int ci, co, wm, wn, mt, nt, splits, rvox, parts;
   int nvox, kpad, mtiles, ci_chunks, co_chunks, nks, hrows, xstr, gstr, wstr;
@@ -276,7 +280,8 @@ __global__ void __launch_bounds__(kThreads) conv3_bwd_kernel(const Args a) {
     const __nv_bfloat16* gs = sg + slot * gsz;
     if (SPLIT) {
       // xn = relu(x * s + t) in f32, zero outside the volume (SAME pads the
-      // normalized tensor): hi = bf16(xn) in place, lo = bf16(xn - hi)
+      // normalized tensor) and outside [dlo, dhi]: hi = bf16(xn) in place,
+      // lo = bf16(xn - hi)
       const int c = tid & (CI - 1);
       const bool cin = c0 + c < a.Cin;
       const float sv = cin ? a.s[b * a.Cin + c0 + c] : 0.f;
@@ -288,8 +293,8 @@ __global__ void __launch_bounds__(kThreads) conv3_bwd_kernel(const Args a) {
         const int gd = d0 - 1 + (pp >> 20), gh = h0 - 1 + ((pp >> 10) & 1023),
                   gw = w0 - 1 + (pp & 1023);
         float v = 0.f;
-        if (cin && gd >= 0 && gd < a.D && gh >= 0 && gh < a.H && gw >= 0 &&
-            gw < a.W)
+        if (cin && gd >= a.dlo && gd <= a.dhi && gh >= 0 && gh < a.H &&
+            gw >= 0 && gw < a.W)
           v = fmaxf(pre_activation(__bfloat162float(xs[row * a.xstr + c]), sv,
                                    tv), 0.f);
         const __nv_bfloat16 hv = __float2bfloat16(v);
@@ -438,8 +443,10 @@ __global__ void __launch_bounds__(kThreads) conv3_bwd_kernel(const Args a) {
               const float sv = a.s[sc];
               const float gm = pre_activation(xv, sv, a.t[sc]) > 0.f ? v[e]
                                                                     : 0.f;
-              s1[n][e] += gm * xv;
-              s2[n][e] += gm;
+              if (od >= a.dlo && od <= a.dhi) {
+                s1[n][e] += gm * xv;
+                s2[n][e] += gm;
+              }
               v[e] = gm * sv;
             }
           }
@@ -550,8 +557,11 @@ __global__ void __launch_bounds__(kThreads) bwd_dx_reduce_kernel(const Args a,
         const int sc = b * a.Cin + c;
         const float xv = __bfloat162float(a.x[vox * a.Cin + c]);
         const float gm = pre_activation(xv, a.s[sc], a.t[sc]) > 0.f ? out : 0.f;
-        s1 += gm * xv;
-        s2 += gm;
+        const int od = (int)(v / ((int64_t)a.H * a.W));
+        if (od >= a.dlo && od <= a.dhi) {
+          s1 += gm * xv;
+          s2 += gm;
+        }
         out = gm * a.s[sc];
       }
       a.dx[vox * a.Cin + c] = __float2bfloat16(out);
@@ -624,7 +634,8 @@ const char* vaeseg_error_string(int code) {
 
 // x, dx [B, D, H, W, Cin] and gy [B, D, H, W, Cout] bf16; w [27, Cin, Cout]
 // bf16 (the forward's kernel layout, read flipped); (s, t) [B, Cin] f32 the
-// prologue or null, and then dst [B, 2, Cin] f32 = (ds, dt) and part
+// prologue or null, and then dst [B, 2, Cin] f32 = (ds, dt) over the planes
+// [dlo, dhi] (which also bound dk's xn) and part
 // [B, parts, 2, Cin] f32; dk [27, Cin, Cout] and db [Cout] f32; wsx
 // [co_chunks, B D H W, Cin] f32 (co_chunks > 1), wsk [splits, 27, Cin, Cout]
 // f32 and wsdb [splits, Cout] f64 the workspace of `plan`
@@ -635,7 +646,7 @@ int vaeseg_conv3_bwd(const void* x, const void* gy, const void* w,
                      const void* s, const void* t, void* dx, void* dst,
                      void* dk, void* db, void* wsx, void* wsk, void* wsdb,
                      void* part, int B, int D, int H, int W, int Cin, int Cout,
-                     const void* plan, void* stream) {
+                     int dlo, int dhi, const void* plan, void* stream) {
   const int* p = static_cast<const int*>(plan);
   Args a;
   a.x = static_cast<const __nv_bfloat16*>(x);
@@ -649,6 +660,7 @@ int vaeseg_conv3_bwd(const void* x, const void* gy, const void* w,
   a.wsdb = static_cast<double*>(wsdb);
   a.part = static_cast<float*>(part);
   a.B = B; a.D = D; a.H = H; a.W = W; a.Cin = Cin; a.Cout = Cout;
+  a.dlo = dlo; a.dhi = dhi;
   a.nvol = (int64_t)D * H * W;
   a.td = p[kPlanTd]; a.th = p[kPlanTh]; a.tw = p[kPlanTw];
   a.tiles_d = p[kPlanTilesD]; a.tiles_h = p[kPlanTilesH];
@@ -675,6 +687,7 @@ int vaeseg_conv3_bwd(const void* x, const void* gy, const void* w,
   const int rows = cpad <= kThreads ? kThreads / cpad : 0;
   const bool bad =
       B <= 0 || D <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 ||
+      dlo < 0 || dhi >= D || dlo > dhi ||
       (s == nullptr) != (t == nullptr) || split != (dst != nullptr) ||
       split != (part != nullptr) || wsk == nullptr || wsdb == nullptr ||
       a.td <= 0 || a.th <= 0 || a.tw <= 0 || a.tiles_d * a.td < D ||

@@ -11,7 +11,9 @@
 //   db[o]         = sum_{b, d, h, w} gy[b, d, h, w, o]          (f32)
 //   xn = relu(x * s[b, c] + t[b, c]) with the prologue, else x; an
 //   out-of-volume tap contributes 0 (SAME pads the normalized tensor), and
-//   x * s + t is rounded as in K1's forward (common.cuh).
+//   x * s + t is rounded as in K1's forward (common.cuh). Under the
+//   prologue xn is also 0 on planes outside [dlo, dhi] (stencil3.py's dlim:
+//   a D-slab's missing-neighbour halo is no plane of the volume).
 //
 // What bounds it on the H100: the forward's 27 Cin Cout MACs a voxel, so
 // the bytes (3.35 TB/s) at the 128^3 / 64^3 stages (C = 1..16) and the
@@ -36,23 +38,24 @@ const char* vaeseg_error_string(int code) {
 }
 
 // x [B, D, H, W, Cin] and gy [B, D, H, W, Cout] bf16; s/t [B, Cin] f32 or
-// null; ws [splits, 27, Cin, Cout] f32 and wsdb [splits, Cout] f64 the
+// null, [dlo, dhi] the planes the prologue keeps; ws [splits, 27, Cin,
+// Cout] f32 and wsdb [splits, Cout] f64 the
 // workspace of `plan` (ops/conv3.py::wgrad_plan, mode 0); dk [27, Cin, Cout]
 // and db [Cout] f32, written whole. Returns the first launch error (0 on
 // success).
 int vaeseg_conv3_dk(const void* x, const void* gy, const void* s,
                     const void* t, void* ws, void* wsdb, void* dk, void* db,
-                    int B, int D, int H, int W, int Cin, int Cout,
-                    const void* plan, void* stream) {
+                    int B, int D, int H, int W, int Cin, int Cout, int dlo,
+                    int dhi, const void* plan, void* stream) {
   const int* p = static_cast<const int*>(plan);
-  if (D <= 0 || H <= 0 || W <= 0) return cudaErrorInvalidValue;
+  if (D <= 0 || H <= 0 || W <= 0 || dhi >= D) return cudaErrorInvalidValue;
   return wgrad::weight_grad<wgrad::kConv3>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(gy), static_cast<const float*>(s),
       static_cast<const float*>(t), static_cast<float*>(ws),
       static_cast<double*>(wsdb), static_cast<float*>(dk),
       static_cast<float*>(db), B, D, H, W, Cin, D, H, W, Cout, p,
-      static_cast<cudaStream_t>(stream));
+      static_cast<cudaStream_t>(stream), dlo, dhi);
 }
 
 }  // extern "C"

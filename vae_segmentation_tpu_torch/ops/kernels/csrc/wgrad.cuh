@@ -185,6 +185,7 @@ struct Args {
   float* ws;                // [splits, taps, Cin, Cout] f32 partials
   double* wsdb;             // [splits, Cout] f64 partials of db
   int B, tD, tH, tW, tC, dD, dH, dW, dC;
+  int dlo, dhi;             // K1's valid T-plane range under the prologue
   int td, th, tw, tiles_d, tiles_h, tiles_w;
   int ci, t_chunks, d_chunks, splits;
   int nvox, kpad, trows, tstr, dstr;
@@ -360,7 +361,8 @@ __global__ void __launch_bounds__(kThreads) dk_kernel(const Args a) {
     const __nv_bfloat16* db_rows = up ? ta : sd + slot * dsz;
     if (SPLIT) {
       // xn = relu(x * s + t) in f32, zero outside the volume (SAME pads
-      // the normalized tensor), split into bf16 hi + lo
+      // the normalized tensor) and on planes outside [dlo, dhi] (K1's
+      // dlim: a D-slab's missing-neighbour halo), split into bf16 hi + lo
       const Tile t = tile_at(a, tile);
       int od, oh, ow;
       t_origin(conv, t, od, oh, ow);
@@ -375,8 +377,8 @@ __global__ void __launch_bounds__(kThreads) dk_kernel(const Args a) {
         const int gd = od + (pp >> 20), gh = oh + ((pp >> 10) & 1023),
                   gw = ow + (pp & 1023);
         float v = 0.f;
-        if (cin && pp >= 0 && gd >= 0 && gd < a.tD && gh >= 0 && gh < a.tH &&
-            gw >= 0 && gw < a.tW)
+        if (cin && pp >= 0 && gd >= a.dlo && gd <= a.dhi && gd < a.tD &&
+            gh >= 0 && gh < a.tH && gw >= 0 && gw < a.tW)
           v = fmaxf(pre_activation(__bfloat162float(ta[row * a.tstr + c]),
                                    sv, tv), 0.f);
         const __nv_bfloat16 h = __float2bfloat16(v);
@@ -556,9 +558,10 @@ cudaError_t dispatch(const Args& a, int mtw, int co, bool split, int smem,
 }
 
 // The weight and bias gradient: T [B, tD, tH, tW, tC] and D [B, dD, dH,
-// dW, dC] as above, (s, sh) the prologue on T or null; ws / wsdb the
-// workspace of `plan`; dk [taps, Cin, Cout] and db [Cout] f32 are written
-// whole (no zeroing needed). Returns the first launch error, or
+// dW, dC] as above, (s, sh) the prologue on T or null, [dlo, dhi] the
+// planes of T the prologue keeps (K1's dlim; the bridges keep every plane);
+// ws / wsdb the workspace of `plan`; dk [taps, Cin, Cout] and db [Cout] f32
+// are written whole (no zeroing needed). Returns the first launch error, or
 // cudaErrorInvalidValue for a plan this file does not compute.
 template <int MODE>
 cudaError_t weight_grad(const __nv_bfloat16* t, const __nv_bfloat16* d,
@@ -566,11 +569,13 @@ cudaError_t weight_grad(const __nv_bfloat16* t, const __nv_bfloat16* d,
                                double* wsdb, float* dk, float* db, int B,
                                int tD, int tH, int tW, int tC, int dD, int dH,
                                int dW, int dC, const int* plan,
-                               cudaStream_t stream) {
+                               cudaStream_t stream, int dlo = 0,
+                               int dhi = 0x7fffffff) {
   Args a;
   a.t = t; a.d = d; a.s = s; a.sh = sh; a.ws = ws; a.wsdb = wsdb;
   a.B = B; a.tD = tD; a.tH = tH; a.tW = tW; a.tC = tC;
   a.dD = dD; a.dH = dH; a.dW = dW; a.dC = dC;
+  a.dlo = dlo; a.dhi = dhi;
   const int taps = MODE == kConv3 ? 27 : 8;
   a.td = plan[kPlanTd]; a.th = plan[kPlanTh]; a.tw = plan[kPlanTw];
   a.tiles_d = plan[kPlanTilesD]; a.tiles_h = plan[kPlanTilesH];
@@ -590,6 +595,7 @@ cudaError_t weight_grad(const __nv_bfloat16* t, const __nv_bfloat16* d,
   const Layout L = dk_layout(a.trows, a.tstr, a.kpad, a.dstr, split);
   const int mtiles = (taps * (a.ci / 8) + 1) / 2;
   if (plan[kPlanMode] != MODE || B <= 0 || a.td <= 0 || a.th <= 0 ||
+      dlo < 0 || dlo > dhi ||
       a.tw <= 0 || tC <= 0 || dC <= 0 ||
       (a.ci != 8 && a.ci != 16) || a.t_chunks * a.ci < tC ||
       a.d_chunks * co < dC || (a.t_chunks - 1) * a.ci >= tC ||

@@ -17,6 +17,12 @@ _run`` (every sum the adaptation loss's three soft Dices need, each volume
 read once) and ``dice_sums_vjp`` the VJP attached to it there
 (dicesums.py::_bwd), both over the 16-byte items of ``dice_sums_plan``.
 ``multi_soft_dice`` is their differentiable use.
+
+Under a mesh (``parallel.sharding.active``) a rank holds a slice of the
+batch: the per-item sums of its slab are added over the data row and
+gathered over 'data' (``collectives.global_sums``, the JAX package's
+dicesums.py:86-123 psum), so every nonlinear term of a loss sees the global
+batch, as in one process, on every rank.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import torch.nn.functional as F
 
 from vae_segmentation_tpu_torch.ops.conv3 import (
     check_tensor, on_device, raise_if, sm_count)
+from vae_segmentation_tpu_torch.parallel import collectives, sharding
 
 # eps used by utils/evaluation.py:72-79 (the target-domain trainer)
 EVAL_EPS = 1e-6
@@ -70,12 +77,14 @@ def onehot_argmax(probs: torch.Tensor) -> torch.Tensor:
 
 def soft_dice_per_class(source: torch.Tensor, target: torch.Tensor,
                         eps: float = EVAL_EPS) -> torch.Tensor:
-    """Per-sample, per-class soft Dice: [B, ..., C] x2 -> [B, C], f32."""
+    """Per-sample, per-class soft Dice: [B, ..., C] x2 -> [B, C], f32 (of
+    the global batch under a mesh)."""
     dims = _reduce_dims(source)
     s32, t32 = source.float(), target.float()
-    inter = (s32 * t32).sum(dim=dims)
-    denom = s32.sum(dim=dims) + t32.sum(dim=dims)
-    return 2.0 * inter / (denom + eps)
+    sums = torch.stack([(s32 * t32).sum(dim=dims), s32.sum(dim=dims),
+                        t32.sum(dim=dims)], dim=1)
+    sums = collectives.global_sums(sums, source, sharding.current())
+    return 2.0 * sums[:, 0] / (sums[:, 1] + sums[:, 2] + eps)
 
 
 def avg_dsc(source: torch.Tensor, target: torch.Tensor, *,
@@ -386,8 +395,9 @@ def multi_soft_dice(pred: torch.Tensor, targets: Sequence[torch.Tensor],
     """Per-sample, per-class soft Dice [B, C] of pred against each target
     (``soft_dice_per_class``'s formula), all volumes read once by
     ``dice_sums``; differentiable in pred and in any target that requires
-    a gradient."""
-    sums = _DiceSumsFn.apply(pred, *targets)
+    a gradient. Under a mesh, [B, C] of the global batch."""
+    sums = collectives.global_sums(_DiceSumsFn.apply(pred, *targets), pred,
+                                   sharding.current())
     return [2.0 * sums[:, 2 + 2 * i] / (sums[:, 0] + sums[:, 1 + 2 * i] + eps)
             for i in range(len(targets))]
 

@@ -17,6 +17,17 @@ Every step is a plain eager callable. Scalars that change between epochs
 (lambda_vae with its --tag decay, the warmup ramp, the turn phase) travel
 in the ``sched`` dict; the loss arithmetic stays on the device
 (``torch.where``, no ``.item()``), so a step never waits for the card.
+
+Under an active mesh (``parallel.sharding.active``; the JAX package's
+sharded steps) every step takes this rank's slice of the batch
+(``sharding.batch_shard``), the losses are those of the global batch on
+every rank (``ops/losses.py``; the teacher's KL averaged over 'data'), and
+before the optimizer's update the trainable gradients are averaged over
+the mesh by one fixed-order flat all-reduce (``collectives.mean_grads``;
+the gradient convention of ``parallel/collectives.py``), so every rank
+applies the same update and the parameters stay equal bit for bit. What
+is frozen has no gradient and is never reduced. The detached loss terms
+a step returns are already the global batch's.
 """
 
 from __future__ import annotations
@@ -27,6 +38,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from vae_segmentation_tpu_torch.ops import losses as L
+from vae_segmentation_tpu_torch.parallel import collectives, sharding
 
 
 @dataclass(frozen=True)
@@ -41,6 +53,27 @@ class AdaptConfig:
     vae_mont_number: int = 1           # --vae_mont_number
     turn_enabled: bool = False         # --turn_epoch != -1
     kl_weight: float = 2e-5
+
+
+def _update(optimizer: torch.optim.Optimizer) -> None:
+    """optimizer.step(), after the mesh's gradient mean when one is
+    active."""
+    mesh = sharding.current()
+    if mesh is not None:
+        collectives.mean_grads(
+            [p for g in optimizer.param_groups for p in g["params"]], mesh)
+    optimizer.step()
+
+
+def _global_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of a rank's slice `x` over the global batch's volume."""
+    mesh = sharding.current()
+    if mesh is None:
+        return x.mean()
+    total, n = x.sum(), x.numel() * mesh.n_data
+    if sharding.spatial_mesh(x) is not None:
+        total, n = collectives.spatial_sum(total, mesh), n * mesh.n_spatial
+    return collectives.data_sum(total, mesh) / n
 
 
 def make_vae_train_step(n_class: int, *, scale: float = 0.35,
@@ -68,7 +101,7 @@ def make_vae_train_step(n_class: int, *, scale: float = 0.35,
         dsc_loss = 1.0 - L.avg_dsc(recon, onehot, botindex=1,
                                    topindex=n_class, eps=eps)
         (dsc_loss + kl_weight * klv).backward()
-        optimizer.step()
+        _update(optimizer)
         return {"dice_loss": dsc_loss.detach(), "kl_loss": klv.detach()}
 
     return step
@@ -94,7 +127,7 @@ def make_seg_train_step(n_class: int, *, eps: float = L.SOURCE_EPS
         dsc_loss = 1.0 - L.avg_dsc(pred, onehot, botindex=1,
                                    topindex=n_class, eps=eps)
         dsc_loss.backward()
-        optimizer.step()
+        _update(optimizer)
         return {"dice_loss": dsc_loss.detach()}
 
     return step
@@ -122,7 +155,7 @@ def make_seg_replay_step(n_class: int, *, eps: float = L.SOURCE_EPS
         dsc = L.multi_soft_dice(pred, (onehot,), eps=eps)[0]
         dsc_loss = 1.0 - dsc[:, 1:n_class].mean()
         dsc_loss.backward()
-        optimizer.step()
+        _update(optimizer)
         return {"dice_loss": dsc_loss.detach()}
 
     return step
@@ -247,7 +280,7 @@ def _student_mc_losses(model, img, onehot, pseudo, klv, cfg: AdaptConfig,
         recon_loss = 1.0 - d_pr[:, 1:n].mean()
         fake_loss = 1.0 - d_ps[:, 1:n].mean()
         dsc_loss = 1.0 - d_po[:, 1:n].mean()
-        pred_sq = pred.float().square().mean() \
+        pred_sq = _global_mean(pred.float().square()) \
             if cfg.domain_loss_type == 10 else 0.0
         final = adapt_loss(recon_loss, fake_loss, klv, pred_sq, cfg, sched,
                            variant=variant)
@@ -281,14 +314,18 @@ def make_adapt_step(cfg: AdaptConfig, *, variant: str = "train") -> Callable:
         t_pred, t_mean, t_std = _teacher_forward(teacher, img, cfg.kl)
         pseudo = L.confident_binarize(t_pred) if cfg.use_confident_binarize \
             else L.binarize(t_pred)
-        klv = L.kl_loss(t_mean, t_std) if cfg.kl \
-            else torch.zeros((), device=img.device)
+        klv = torch.zeros((), device=img.device)
+        if cfg.kl:
+            klv = L.kl_loss(t_mean, t_std)
+            mesh = sharding.current()
+            if mesh is not None:
+                klv = collectives.data_mean(klv, mesh)
         optimizer.zero_grad(set_to_none=True)
         final, aux = _student_mc_losses(student, img, onehot, pseudo, klv,
                                         cfg, sched, generator,
                                         variant=variant)
         final.backward()
-        optimizer.step()
+        _update(optimizer)
         aux = {k: v.detach() for k, v in aux.items()}
         aux["final_loss"] = final.detach()
         aux["kl_loss"] = klv
