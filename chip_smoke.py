@@ -267,12 +267,40 @@ Phases, each printed as JSON records:
      process, then ``--test_only`` on the target run's checkpoint under
      torchrun (its scores the run's last). Each world has a deadline
      (``WORLD_TIMEOUT``): a rank that dies or hangs fails the phase.
- 18. the ``kernels`` line (sixteen kernels; those of an opt-in route
+ 18. the serving outputs and observability (ROADMAP item 11b) and the
+     Joint's source methods (item 11c), on the default route
+     (``serving_and_methods``): (a) the eval CLI ``--test_only`` on phase
+     3's phantoms plain and with ``--save_eval_result
+     --save_more_reference`` (and ``--analysis_figure_name`` where
+     matplotlib imports) in turns (plain, outputs, outputs, plain): every
+     run's scores equal, launches derived from the model (the analysis adds
+     two Joint forwards and a VAE forward a case), the dumped prediction,
+     image and one-hot label equal to phase 3's model's on the card bit
+     for bit, the four figures, the analysis metrics of each case finite
+     and in [0, 1], ``cli_s`` of each run and the bytes written; a
+     ``--profile_dir`` run whose Chrome trace holds one primary kernel a
+     K1, K2 and K3 launch (``trace_kernels``); whether tensorboardX and
+     matplotlib import on the card's image; (b) one step of joint_train,
+     the cached pseudo label's domain_adaptation and sep_joint_train at
+     batch 2 from phase 3's weights (the VAE frozen; the teacher Joint a
+     copy): every kernel call against its plain version (untimed,
+     ``check_untimed``), launches derived from the model
+     (``expected_joint_step_launches``), the loss terms within
+     ``DRIFT_MULTIPLE`` times the plain path's reordered drift (1e-3 at
+     least) and the Seg update by phase 6's rule, the VAE unmoved;
+     ``step_ms``, ``enqueue_ms``, peak memory and launches of 3 steps;
+     (c) ``source_main`` with each method from phase 3's checkpoint on
+     phase 5's train cases (the warp on): joint_train and sep_joint_train
+     one outer epoch, domain_adaptation two with ``--mode 1`` (epoch 0
+     fills the pseudo cache, epoch 1 trains and refreshes it): launches,
+     loss lines, scores in [0, 1], the cache's files.
+ 19. the ``kernels`` line (sixteen kernels; those of an opt-in route
      carry its switch in ``path`` and count their launches on its runs;
-     the others count phase 14's CLI runs in ``launches_test_time_path``
-     and phase 15's in ``launches_later_flags_path`` too; then the three
-     K1 kernels with a range, their slab calls' totals and their launches
-     on phase 17(b)'s steps), then the last line ``{"ok": true, "device":
+     the others count phase 14's CLI runs in ``launches_test_time_path``,
+     phase 15's in ``launches_later_flags_path`` and phase 18's in
+     ``launches_serving_and_methods_path`` too; then the three K1 kernels
+     with a range, their slab calls' totals and their launches on phase
+     17(b)'s steps), then the last line ``{"ok": true, "device":
      {...}}``.
 Any failed check exits non-zero without the last line. Without a CUDA GPU
 it exits 2 and prints no result. All records also go to --out (JSON,
@@ -3257,6 +3285,348 @@ def host_data(run_cli, target_main, work, data, manifest, args, log,
           "phase_16_s": time.time() - t_phase, "ok": ok}, log)
 
 
+# ------------------------------------------------------------ phase 18: the
+# serving outputs and observability (ROADMAP item 11b) and the Joint's
+# source methods (item 11c)
+
+# the kernels of phase 18's runs: phase 18 fails if its runs launch one of
+# them no time
+SERVING_KERNELS = TEST_TIME_KERNELS
+# the primary device kernel of each forward wrapper (one a launch) in a
+# profiler trace: the --profile_dir check
+TRACE_KERNELS = {"conv3": r"\bconv3_kernel\b",
+                 "down_k2s2": r"\bdown(?:_pre)?_kernel\b",
+                 "up_k2s2": r"\bup_kernel\b"}
+
+
+def expected_joint_step_launches(joint, teacher_joint: bool) -> dict:
+    """Kernel launches of one source step of the Joint, derived from the
+    model: the adaptation step's (``expected_step_launches``) less its
+    teacher's Seg forward (joint_train, the cached pseudo label); with
+    teacher_joint (sep_joint_train) plus the teacher Joint's forward and
+    its Dice-sums pass (no VJP: no gradient)."""
+    step = expected_step_launches(joint)
+    seg = forward_launches(joint.Seg)
+    out = {k: step[k] - seg[k] for k in KERNEL_NAMES}
+    if teacher_joint:
+        out = added(out, seg, forward_launches(joint.Vae))
+        out["dice_sums"] += 1
+    return out
+
+
+def trace_kernels(path: str) -> dict:
+    """Device kernel events of a torch.profiler Chrome trace: the count of
+    each TRACE_KERNELS pattern and of each kernel family."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    fams = {}
+    for n in names:
+        fams[_family(n)] = fams.get(_family(n), 0) + 1
+    return {"kernels": len(names),
+            "primary": {k: sum(bool(re.search(p, n)) for n in names)
+                        for k, p in TRACE_KERNELS.items()},
+            "families": fams}
+
+
+def tree_bytes(*dirs) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for top in dirs
+               if os.path.isdir(top) for d, _, fs in os.walk(top)
+               for f in fs)
+
+
+def serving_and_methods(torch, ops, run_cli, record_checked, model, work,
+                        data, manifest, train_data, lists, args, log,
+                        failures) -> dict:
+    """Phase 18 on the default route: (a) the eval CLI's serving outputs
+    on phase 3's phantoms: --save_eval_result, --save_more_reference and
+    --analysis_figure_name (where matplotlib imports) against a plain run
+    (cli_s, bytes written; the dumps against phase 3's model, bit for
+    bit), --profile_dir's trace against the run's launches, the analysis
+    metrics on the card; (b) one step of each Joint source method at batch
+    2: every kernel call against its plain version (untimed), the loss
+    terms and the Seg update against the plain path's drift, the VAE
+    unmoved, step_ms / enqueue_ms / peak memory; (c) the source CLI, one
+    trained epoch of each method and its eval. Returns the launches of its
+    CLI runs."""
+    import contextlib
+    import importlib.util
+    import io
+    import math
+
+    import numpy as np
+
+    from vae_segmentation_tpu_torch import train as T
+    from vae_segmentation_tpu_torch.cli import source_main, target_main
+    from vae_segmentation_tpu_torch.data.pipeline import (
+        CaseDataset, intensity_normalize)
+    from vae_segmentation_tpu_torch.data.transforms import parse_pan_index
+    from vae_segmentation_tpu_torch.eval.evaluate import (
+        make_analysis_metrics_step)
+    from vae_segmentation_tpu_torch.models import Joint
+    from vae_segmentation_tpu_torch.ops import losses as L
+    t_phase = time.time()
+    launches = {k: 0 for k in KERNEL_NAMES}
+    fwd = {**{k: 0 for k in KERNEL_NAMES}, **PER_FORWARD}
+    packages = {p_: importlib.util.find_spec(p_) is not None
+                for p_ in ("tensorboardX", "matplotlib")}
+
+    def cli(fn, argv):
+        """run_cli with stdout captured and printed on: (best, seconds,
+        launches, stdout)."""
+        nonlocal launches
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            best, secs, got = run_cli(fn, argv)
+        print(out.getvalue(), end="")
+        launches = added(launches, got)
+        return best, secs, got, out.getvalue()
+
+    # ---- (a) the serving outputs of the eval CLI
+    base = ["--method", "domain_adaptation", "--test_only",
+            "--load_prefix_joint", "smoke", "--save_root",
+            os.path.join(work, "3dmodel"), "--val_list", "NIH_val",
+            "--val_data_root", data, "--data_path", manifest,
+            "--val_batch", "1", "--device", "cuda"]
+    outputs = ["--save_eval_result", "--save_more_reference"]
+    per_case = fwd
+    if packages["matplotlib"]:
+        outputs += ["--analysis_figure_name", "smoke_fig"]
+        # the analysis: the student's Joint forward again, its VAE on the
+        # one-hot label, the teacher's Joint forward
+        per_case = added(scaled(fwd, 3), forward_launches(model.Vae))
+    runs = {}
+    for name, extra in (("plain", []), ("outputs", outputs),
+                        ("outputs_again", outputs), ("plain_again", [])):
+        prefix = "smoke_serve_" + name
+        _, secs, got, _ = cli(target_main.main, [prefix, *base, *extra])
+        runs[name] = {"cli_s": secs, "launches": got,
+                      "scores": (read_scores(work, prefix, (0,))
+                                 or [{}])[0]}
+    prof = os.path.join(work, "prof")
+    _, prof_s, prof_launches, _ = cli(target_main.main, [
+        "smoke_serve_profiled", *base, "--profile_dir", prof])
+    trace = trace_kernels(os.path.join(prof, "trace.json"))
+    trace_ok = all(trace["primary"][k] == prof_launches[k]
+                   for k in TRACE_KERNELS)
+    out_dir = os.path.join(work, "result", "smoke_serve_outputs")
+    written = tree_bytes(out_dir, os.path.join(work, "figure"),
+                         os.path.join(work, "tensorboard",
+                                      "smoke_serve_outputs"))
+    with open(manifest) as f:
+        entries = json.load(f)["NIH_val"]
+    cases = CaseDataset(entries, data, parse_pan_index("1"))
+    analysis = make_analysis_metrics_step(model, model, 2)
+    dumps_ok, metrics = True, {}
+    with torch.no_grad():
+        for i in range(len(cases)):
+            case = cases[i]
+            img = intensity_normalize(
+                torch.from_numpy(case["image"]).cuda())[None]
+            lab = torch.from_numpy(case["label"]).cuda()[None]
+            pred = model(img[..., None])[0]
+            want = {"pred.join": L.binarize(pred).float()
+                    .permute(0, 4, 1, 2, 3),
+                    "pic": img[:, None],
+                    "gt": L.one_hot_label(lab, 2, torch.float32)
+                    .permute(0, 4, 1, 2, 3)}
+            for stem, w in want.items():
+                got = np.load(os.path.join(out_dir,
+                                           f"0_{case['index']}_{stem}.npy"))
+                dumps_ok = dumps_ok and got.dtype == np.float32 and \
+                    np.array_equal(got, w.cpu().numpy())
+            metrics[int(case["index"])] = {
+                k: v.item() for k, v in analysis(img, lab).items()}
+    metrics_ok = all(math.isfinite(v) and 0.0 <= v <= 1.0
+                     for m in metrics.values() for v in m.values())
+    figures = sorted(os.listdir(os.path.join(work, "figure",
+                                             "analysis_figure"))) \
+        if packages["matplotlib"] else []
+    want_plain = scaled(fwd, args.cases)
+    want_out = scaled(per_case, args.cases)
+    a_ok = (dumps_ok and metrics_ok and trace_ok
+            and all(r["launches"] == (want_out if "outputs" in n
+                                      else want_plain)
+                    for n, r in runs.items())
+            and prof_launches == want_plain
+            and all(r["scores"] == runs["plain"]["scores"]
+                    for r in runs.values())
+            and len(runs["plain"]["scores"]) == args.cases
+            and (figures == ["analysis.jpg", "smoke_fig.jpg",
+                             "smoke_fig_gt.jpg", "smoke_fig_pseudo.jpg"]
+                 or not packages["matplotlib"]))
+    if not a_ok:
+        failures.append(f"serving outputs: dumps {dumps_ok}, metrics "
+                        f"{metrics_ok}, trace {trace['primary']} against "
+                        f"{prof_launches}, figures {figures}, runs "
+                        f"{ {n: r['launches'] for n, r in runs.items()} }")
+    emit({"phase": "serving_outputs", "cases": args.cases,
+          "packages_importable": packages, "outputs_flags": outputs,
+          "cli_s_plain": [runs["plain"]["cli_s"],
+                          runs["plain_again"]["cli_s"]],
+          "cli_s_outputs": [runs["outputs"]["cli_s"],
+                            runs["outputs_again"]["cli_s"]],
+          "cli_s_profiled": prof_s, "bytes_written": written,
+          "launches_plain": runs["plain"]["launches"],
+          "launches_outputs": runs["outputs"]["launches"],
+          "launches_expected_outputs": want_out,
+          "dumps_equal_phase3_bitwise": dumps_ok,
+          "analysis_metrics": metrics, "analysis_metrics_ok": metrics_ok,
+          "figures": figures, "trace": trace,
+          "trace_launches": prof_launches, "trace_ok": trace_ok,
+          "ok": a_ok}, log)
+
+    # ---- (b) one step of each Joint source method at batch 2
+    state0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    with open(lists) as f:
+        train_entries = json.load(f)["NIH_train"]
+    tds = CaseDataset(train_entries, train_data, parse_pan_index("1"))
+    tcases = [tds[i] for i in range(TRAIN_BATCH)]
+    img = intensity_normalize(torch.stack(
+        [torch.from_numpy(c["image"]) for c in tcases]).cuda()).contiguous()
+    lab = torch.stack([torch.from_numpy(c["label"])
+                       for c in tcases]).cuda().contiguous()
+    with torch.no_grad():
+        pseudo = model(img[..., None])[0].float()
+    sched = T.default_sched(TRAIN_LAMBDA)
+    joint_step = T.make_joint_train_step(2)
+    cached_step = T.make_cached_pseudo_adapt_step(T.AdaptConfig(n_class=2))
+    sep_step = T.make_sep_joint_train_step(2)
+    teacher = Joint(n_class=2, dim=128, bottleneck=16384).cuda()
+    teacher.load_state_dict(state0)
+    for p_ in teacher.parameters():
+        p_.requires_grad_(False)
+    methods = {
+        "joint_train": (lambda st, opt: joint_step(st, opt, img, lab, sched),
+                        expected_joint_step_launches(model, False)),
+        "domain_adaptation": (lambda st, opt: cached_step(
+            st, opt, img, lab, pseudo, sched),
+            expected_joint_step_launches(model, False)),
+        "sep_joint_train": (lambda st, opt: sep_step(st, teacher, opt, img),
+                            expected_joint_step_launches(model, True)),
+    }
+
+    def fresh(lr):
+        student = Joint(n_class=2, dim=128, bottleneck=16384).cuda()
+        student.load_state_dict(state0)
+        return student, T.optim.sgd(T.optim.freeze_vae(student), lr)
+
+    def step1(run, lr=TRAIN_LR):
+        student, opt = fresh(lr)
+        aux = run(student, opt)
+        torch.cuda.synchronize()
+        now = student.state_dict()
+        update = {k: (now[k] - state0[k]).float() for k in now
+                  if k.startswith("Seg.")}
+        vae_still = all(torch.equal(v, state0[k]) for k, v in now.items()
+                        if k.startswith("Vae."))
+        return {k: v.item() for k, v in aux.items() if k != "pred"}, \
+            update, vae_still
+
+    b_recs, b_ok, totals = {}, True, {}
+    for name, (run, want) in methods.items():
+        _, totals[name], calls = record_checked(
+            lambda: step1(run, 0.0), want, f"{name}_step_kernel",
+            f"{name} step", timed=False)
+        del calls
+        with plain_ops(reordered=True):
+            loss_r, upd_r, _ = step1(run)
+        with plain_ops():
+            loss_p, upd_p, _ = step1(run)
+        ops.reset_launch_counts()
+        loss_k, upd_k, vae_still = step1(run)
+        got = ops.launch_counts()
+        err, drift, worst = drift_ratios(upd_k, upd_p, upd_r)
+        loss_gate = max(DRIFT_MULTIPLE * max(abs(loss_r[k] - loss_p[k])
+                                             for k in loss_p), 1e-3)
+        loss_err = {k: abs(loss_k[k] - loss_p[k]) for k in loss_p}
+        moved = all(bool(v.any()) for k, v in upd_k.items()
+                    if k.endswith(".weight"))
+        student, opt = fresh(TRAIN_LR)
+        timing = timed_steps(torch, ops, lambda i: {
+            k: v for k, v in run(student, opt).items() if k != "pred"})
+        del student, opt, upd_k, upd_p, upd_r
+        torch.cuda.empty_cache()
+        ok = (got == want and vae_still and moved and timing["finite"]
+              and all(c == want for c in timing["launches"])
+              and all(v <= loss_gate for v in loss_err.values())
+              and all(v <= DRIFT_MULTIPLE for v in worst.values()))
+        b_ok = b_ok and ok
+        b_recs[name] = {
+            "launches": got, "launches_expected": want,
+            "losses_kernels": loss_k, "losses_plain": loss_p,
+            "losses_reordered": loss_r, "loss_err": loss_err,
+            "loss_gate": loss_gate, "update_tensors": len(err),
+            "update_worst_ratio": max(worst.values()),
+            "update_median_ratio": sorted(worst.values())[len(worst) // 2],
+            "vae_unchanged": vae_still, "seg_moved": moved,
+            "step_ms": timing["step_ms"], "step_ms_all": timing["step_ms_all"],
+            "enqueue_ms": timing["enqueue_ms"],
+            "peak_memory_bytes": timing["peak_memory_bytes"], "ok": ok}
+        if not ok:
+            failures.append(f"{name} step: {b_recs[name]}")
+    del teacher, pseudo
+    torch.cuda.empty_cache()
+    emit({"phase": "joint_source_steps", "batch": TRAIN_BATCH,
+          "lr": TRAIN_LR, "steps": b_recs,
+          "drift_multiple": DRIFT_MULTIPLE, "ok": b_ok}, log)
+
+    # ---- (c) the source CLI: one trained epoch of each method (the cached
+    # pseudo label: outer epoch 0 fills the cache, epoch 1 trains and
+    # refreshes it, --mode 1), then its eval
+    src_argv = ["--load_prefix_joint", "smoke", "--save_root",
+                os.path.join(work, "3dmodel"), "--train_list", "NIH_train",
+                "--val_list", "NIH_val", "--data_root", train_data,
+                "--val_data_root", data, "--data_path", lists,
+                "-b", str(TRAIN_BATCH), "--val_batch", "1",
+                "--eval_epoch", "1", "--save_epoch", "1",
+                "--num_workers", "2", "--lr_seg", str(TRAIN_LR),
+                "--device", "cuda"]
+    n_steps = len(train_entries) // TRAIN_BATCH
+    evals = scaled(fwd, args.cases)
+    c_recs, c_ok = {}, True
+    for name, epochs, extra in (("joint_train", 1, []),
+                                ("sep_joint_train", 1, []),
+                                ("domain_adaptation", 2, ["--mode", "1"])):
+        prefix = "smoke_src_" + name
+        best, secs, got, out = cli(source_main.main, [
+            prefix, "--method", name, "--max_epoch", str(epochs),
+            *src_argv, *extra])
+        want = added(scaled(methods[name][1], n_steps),
+                     scaled(evals, epochs))
+        if name == "domain_adaptation":   # the cache: the Seg forwards
+            want = added(want, scaled(forward_launches(model.Seg), n_steps))
+        lines = re.findall(r"^\[\s*\d+,\s*\d+\] loss: (.*)$", out, re.M)
+        scores = read_scores(work, prefix, range(epochs))
+        cache = sorted(os.listdir(os.path.join(
+            work, "domain_cache", prefix))) \
+            if name == "domain_adaptation" else []
+        ok = (got == want and len(lines) == n_steps
+              and len(scores) == epochs
+              and all(len(sc) == args.cases
+                      and all(0.0 <= v <= 1.0 for v in sc.values())
+                      for sc in scores)
+              and 0.0 <= best <= 1.0
+              and (name != "domain_adaptation"
+                   or cache == sorted(f"{i}_pred.npy"
+                                      for i in range(len(train_entries)))))
+        c_ok = c_ok and ok
+        c_recs[name] = {"seconds": secs, "best_dice": best, "scores": scores,
+                        "loss_lines": lines, "cache": cache,
+                        "launches": got, "launches_expected": want,
+                        "ok": ok}
+    if not c_ok:
+        failures.append(f"the source CLI's Joint methods: {c_recs}")
+    emit({"phase": "joint_source_cli", "runs": c_recs, "ok": c_ok}, log)
+    for name in SERVING_KERNELS:
+        if launches[name] == 0:
+            failures.append(f"{name} was never launched on the runs of "
+                            "phase 18")
+    emit({"phase": "serving_and_methods_seconds",
+          "seconds": time.time() - t_phase}, log)
+    return {"launches": launches, "step_totals": totals}
+
+
 # ------------------------------------------------------------ phase 17: the
 # mesh (ROADMAP item 9): the valid-plane range of rows 1-5 on the card, the
 # adaptation step on worlds of ranks sharing the one card, both CLIs under
@@ -4674,10 +5044,17 @@ def main() -> int:
             failures.append("the CLIs under torchrun failed a check")
         emit({"phase": "mesh_cli", "runs": mesh_cli, "dice_gate": 0.01,
               "ok": mesh_cli_ok}, log)
+
+        # ---- 18. the serving outputs and observability of the eval CLI,
+        # one step of each Joint source method, their source CLI runs
+        sm = serving_and_methods(torch, ops, run_cli, record_checked, model,
+                                 work, data, manifest, train_data, lists,
+                                 args, log, failures)
+        serving_launches = sm["launches"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 18. summary lines: K1-K3 per eval forward (phase 2), the backward
+    # ---- 19. summary lines: K1-K3 per eval forward (phase 2), the backward
     # and loss kernels per adaptation step (phase 5), reparam_kl per
     # vae_train step (phase 7); the kernels of an opt-in route per pass of
     # that route, and their launches counted on its runs: norm_stats and
@@ -4741,11 +5118,14 @@ def main() -> int:
                                 f"({switch})")
         else:
             rec.update(launches=eval_launches[name] + train_launches[name]
-                       + test_time_launches[name] + later_launches[name],
+                       + test_time_launches[name] + later_launches[name]
+                       + serving_launches[name],
                        launches_eval_path=eval_launches[name],
                        launches_train_path=train_launches[name],
                        launches_test_time_path=test_time_launches[name],
-                       launches_later_flags_path=later_launches[name])
+                       launches_later_flags_path=later_launches[name],
+                       launches_serving_and_methods_path=serving_launches[
+                           name])
             if train_launches[name] == 0 or \
                     (name in PER_FORWARD and eval_launches[name] == 0):
                 failures.append(f"{name} was never launched on its main "
@@ -4805,6 +5185,8 @@ def main() -> int:
           "per_window_chunk": tt["sw_totals"]}, log)
     emit({"phase": "later_flags_totals",
           "per_replay_step": lf["replay_totals"]}, log)
+    emit({"phase": "joint_source_step_totals",
+          "per_step": sm["step_totals"]}, log)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump({"records": log, "kernels": kernels, "failures": failures,

@@ -89,10 +89,12 @@ def test_cli_without_gpu_or_cpu_request_raises(workdir):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+# what stays refused (item 11e), alone and beside the eval outputs ported
+# since (tests/test_torch_eval_outputs.py)
 @pytest.mark.parametrize("extra", [
     ["--load_prefix_encoder", "enc"],
-    ["--profile_dir", "prof"],
-    ["--save_eval_result"],
+    ["--method", "domain_adaptation_dis", "--profile_dir", "prof"],
+    ["--method", "discriminator_train", "--save_eval_result"],
 ])
 def test_cli_unported_flags_raise(workdir, extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -153,6 +155,21 @@ def test_cli_unported_methods_raise(workdir):
     argv[2] = "discriminator_train"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         target_main.main(argv)
+
+
+@pytest.mark.parametrize("extra,item", [
+    (["--method", "discriminator_train"], "item 11e"),
+    (["--method", "domain_adaptation_dis"], "item 11e"),
+    (["--load_prefix_encoder", "enc"], "item 11e"),
+    (["--method", "vae_train"], "item 11h"),
+])
+def test_cli_refusals_name_their_item_letter(workdir, extra, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}$"):
+        target_main.main(_argv(workdir, "--device", "cpu", *extra))
+    if extra[0] == "--method":
+        with pytest.raises(ValueError, match="valid method"):
+            target_main.main(_argv(workdir, "--device", "cpu", "--method",
+                                   "no_such_method"))
 
 
 def test_port_imports_no_jax_and_no_jax_package():

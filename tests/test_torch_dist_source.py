@@ -3,7 +3,7 @@ the CPU: vae_train at 64^3 under DP2 (its reparam streams, seed + data
 index, and the KL averaged over 'data') and seg_train at 32^3 under SP2,
 and the adaptation step on the norm route (VAESEG_PALLAS=1) under SP2,
 against the one-process port step, with tests/test_torch_dist_step.py's
-rules."""
+rules (the Joint's source steps: tests/test_torch_dist_joint_source.py)."""
 
 import numpy as np
 import pytest
@@ -106,3 +106,4 @@ def test_adapt_step_on_the_norm_route_under_sp2(monkeypatch):
                                  reordered["grads"])[2].items():
         assert ratio <= DRIFT_MULTIPLE, (k, ratio)
     assert ranks[1]["grad_digest"] == ranks[0]["grad_digest"]
+

@@ -3,8 +3,8 @@ and the chain it starts, on the CPU (``--device cpu``) at 32^3, full width,
 with the augmentation warp on: ``vae_train`` then ``seg_train`` train two
 outer epochs each (seg_train takes no step in the first, as the reference),
 then the target CLI adapts from their two checkpoints. Also: the flags and
-methods this slice does not port raise NotImplementedError naming their
-ROADMAP item, and the target CLI's ``--vae_forward_scale`` is accepted and
+methods not ported yet raise NotImplementedError naming their ROADMAP
+item (11d, 11f), and the target CLI's ``--vae_forward_scale`` is accepted and
 changes nothing (the JAX package's Joint always encodes with the mean
 latent)."""
 
@@ -173,17 +173,42 @@ def test_the_warp_changes_the_step(workdir):
     assert losses[0] != losses[1]
 
 
+# what stays refused (items 11d and 11f; the letters are checked by
+# test_refusals_name_their_item_letter), alone and beside the flags ported
+# since (the Joint methods, --load_prefix_joint, the eval outputs)
 @pytest.mark.parametrize("extra,item", [
-    (["--method", "joint_train"], "item 11"),
+    (["--method", "embed_train"], "item 11"),
     (["--method", "vae_train", "--softrelu", "1"], "item 11"),
-    (["--method", "vae_train", "--load_prefix_joint", "j"], "item 11"),
-    (["--method", "seg_train", "--save_eval_result"], "item 11"),
-    (["--method", "seg_train", "--save_more_reference"], "item 11"),
-    (["--method", "seg_train", "--load_prefix_vae", "vae"], "item 11"),
-    (["--method", "vae_train", "--profile_dir", "prof"], "item 11"),
+    (["--method", "refine_vae", "--load_prefix_joint", "j"], "item 11"),
+    (["--method", "embed_train", "--save_eval_result"], "item 11"),
+    (["--method", "refine_vae", "--save_more_reference"], "item 11"),
+    (["--method", "embed_train", "--load_prefix_vae", "vae"], "item 11"),
+    (["--method", "vae_train", "--softrelu", "1", "--profile_dir", "prof"],
+     "item 11"),
 ])
 def test_unported_flags_and_methods_raise(workdir, extra, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+        source_main.main(["x", *_common(workdir), *extra])
+
+
+@pytest.mark.parametrize("extra,item", [
+    (["--method", "embed_train"], "item 11f"),
+    (["--method", "refine_vae"], "item 11f"),
+    (["--method", "vae_train", "--softrelu", "1"], "item 11d"),
+    (["--method", "joint_train", "--softrelu", "1"], "item 11d"),
+])
+def test_refusals_name_their_item_letter(workdir, extra, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}$"):
+        source_main.main(["x", *_common(workdir), *extra])
+
+
+@pytest.mark.parametrize("extra,match", [
+    (["--method", "vae_train", "--load_prefix_joint", "j"], "Joint"),
+    (["--method", "seg_train", "--load_prefix_joint", "j"], "Joint"),
+    (["--method", "no_such_method"], "valid method"),
+])
+def test_flags_that_do_not_fit_the_method_raise(workdir, extra, match):
+    with pytest.raises(ValueError, match=match):
         source_main.main(["x", *_common(workdir), *extra])
 
 

@@ -144,6 +144,48 @@ def source_step(rank, world, n_data, n_spatial, spec):
             "seeds": seeds}
 
 
+def joint_step(rank, world, n_data, n_spatial, spec):
+    """One source step of a Joint (spec['kind']: 'joint' for joint_train,
+    'cached' for the source domain_adaptation with spec['pseudo'] as its
+    cached pseudo label) from spec['state'], SGD with the VAE frozen, on
+    this rank's slice: loss terms, the gradients (rank 0's) and their
+    digests, whether the VAE moved, and for 'cached' the step's prediction
+    gathered to the global batch (what the CLI's --mode refresh writes)."""
+    mesh = _mesh(world, n_data, n_spatial)
+    model = pm.Joint(n_class=2, dim=spec["dim"], fmaps=spec["fmaps"],
+                     bottleneck=spec["bottleneck"], dtype=torch.float32)
+    pm.load_state(model, {k: torch.from_numpy(v)
+                          for k, v in spec["state"].items()})
+    vae0 = {k: v.clone() for k, v in model.Vae.state_dict().items()}
+    opt = pt.optim.sgd(pt.optim.freeze_vae(model), spec["lr"])
+    img = torch.from_numpy(spec["image"])
+    lab = torch.from_numpy(spec["label"])
+    pseudo = torch.from_numpy(spec["pseudo"])
+    if mesh is not None:
+        img, lab, pseudo = (S.batch_shard(mesh, v) for v in (img, lab,
+                                                             pseudo))
+    sched = pt.default_sched(spec.get("lambda_vae", 1.0))
+    with S.active(mesh):
+        if spec["kind"] == "joint":
+            aux = pt.make_joint_train_step(2)(model, opt, img, lab, sched)
+        else:
+            aux = pt.make_cached_pseudo_adapt_step(pt.AdaptConfig(
+                n_class=2))(model, opt, img, lab, pseudo, sched)
+    pred = aux.pop("pred", None)
+    if pred is not None and mesh is not None:
+        if mesh.n_spatial > 1:
+            pred = C.gather_spatial(pred, mesh)
+        pred = C.gather_data(pred, mesh)
+    grads = {k: p.grad for k, p in model.named_parameters()
+             if p.grad is not None}
+    return {"aux": {k: float(v) for k, v in aux.items()},
+            "grads": grads if rank == 0 else None,
+            "grad_digest": {k: _digest(g) for k, g in grads.items()},
+            "pred": pred,
+            "vae_unmoved": all(torch.equal(v, vae0[k]) for k, v in
+                               model.Vae.state_dict().items())}
+
+
 def dh_loss(rank, world, n_data, n_spatial, pred, recon, pseudo):
     """The adaptation loss (type 8, dh bucketing) of this rank's slice of
     fixed pred / recon / pseudo volumes: the loss, this rank's recon loss

@@ -17,12 +17,21 @@ takes its slice (``make_train_ingest``, ``shard_train_batch``), the steps
 run under the mesh, and the eval, ft1 and the sliding window run on rank 0
 as in one process while the other ranks wait for its result
 (``share``); rank 0 alone prints and writes scores and checkpoints
-(``EpochRunner``'s ``writes``). Without ``torchrun`` nothing changes."""
+(``EpochRunner``'s ``writes``). Without ``torchrun`` nothing changes.
+
+Observability (common.py:204, 383-395 of the JAX package): the runner's
+TensorBoard ``saver`` (``obs/saver.py``; a saver that does nothing on a
+rank that does not write), ``save_eval_npys`` (--save_eval_result),
+``profile`` (--profile_dir) and, under --debug_nans, ``nan_guard`` and
+``check_scores``: the port's counterpart of ``jax_debug_nans``, a run that
+stops with FloatingPointError at the first loss term or score that is not
+finite."""
 
 from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import sys
 from typing import Callable, Dict, Iterator, Optional, Tuple
@@ -44,7 +53,11 @@ from vae_segmentation_tpu_torch.eval.evaluate import mean_score
 from vae_segmentation_tpu_torch.eval.postprocess import largest_components
 from vae_segmentation_tpu_torch.eval.sliding_window import (
     sliding_window_predict)
+from vae_segmentation_tpu_torch.models import load_state
+from vae_segmentation_tpu_torch.obs.saver import NullSaver, Saver, to_numpy
+from vae_segmentation_tpu_torch.obs.timing import profile_trace
 from vae_segmentation_tpu_torch.ops import losses as L
+from vae_segmentation_tpu_torch.train.steps import checking_terms
 from vae_segmentation_tpu_torch.parallel import launch, sharding
 from vae_segmentation_tpu_torch.parallel.sharding import Mesh
 
@@ -112,6 +125,101 @@ def stop(world) -> None:
         import torch.distributed as dist
 
         dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def profile(cfg: CommonConfig):
+    """--profile_dir: the whole run under ``torch.profiler``, its Chrome
+    trace written there (``obs/timing.py::profile_trace``)."""
+    with profile_trace(cfg.profile_dir):
+        yield
+
+
+@contextlib.contextmanager
+def nan_guard(cfg: CommonConfig, where: str):
+    """--debug_nans around a step: autograd's anomaly mode, and each of the
+    step's scalar loss terms checked before its backward; the first that is
+    not finite raises FloatingPointError naming it and `where` (the epoch
+    and iteration). Without the flag: nothing, and no host sync."""
+    if not cfg.debug_nans:
+        yield
+        return
+
+    def check(terms: Dict[str, torch.Tensor]) -> None:
+        for name, value in terms.items():
+            if not bool(torch.isfinite(value).all()):
+                raise FloatingPointError(
+                    f"--debug_nans: loss term {name} = "
+                    f"{float(value.detach())} at "
+                    f"{where}")
+
+    with torch.autograd.set_detect_anomaly(True), checking_terms(check):
+        yield
+
+
+def check_scores(cfg: CommonConfig, scores: Dict[int, float], where: str,
+                 name: str = "score") -> None:
+    """--debug_nans: FloatingPointError at the first eval score that is not
+    finite."""
+    if not cfg.debug_nans:
+        return
+    for idx, v in scores.items():
+        if not math.isfinite(v):
+            raise FloatingPointError(
+                f"--debug_nans: {name} of case {idx} = {v} at {where}")
+
+
+def iterations_per_epoch(cfg: CommonConfig) -> int:
+    """Batches of one outer epoch's train pass (the train loader's length,
+    the list replicated eval_epoch times; 0 without the list): the
+    iteration count of the saver's steps, known without a loader under
+    --test_only as in the JAX package."""
+    return len(filedict_from_json(cfg.data_path, cfg.train_list,
+                                  cfg.eval_epoch)) // cfg.batch_size
+
+
+def save_eval_npys(result_path: str, epoch: int, val_idx: int,
+                   pred_bin: np.ndarray, image: np.ndarray,
+                   gt_bin: np.ndarray) -> None:
+    """--save_eval_result npy dumps (main_target.py:922-936; common.py:
+    383-395 of the JAX package): <epoch>_<idx>_pred.join.npy, _pic.npy and
+    _gt.npy in the reference's channel-first layout, from a [1, D, H, W, C]
+    binarized prediction, the [1, D, H, W] normalized image and the
+    [1, D, H, W, C] one-hot label."""
+    os.makedirs(result_path, exist_ok=True)
+    np.save(os.path.join(result_path, f"{epoch}_{val_idx}_pred.join"),
+            np.moveaxis(pred_bin, -1, 1))
+    np.save(os.path.join(result_path, f"{epoch}_{val_idx}_pic"),
+            image[:, None])
+    np.save(os.path.join(result_path, f"{epoch}_{val_idx}_gt"),
+            np.moveaxis(gt_bin, -1, 1))
+
+
+def dump_eval_batch(cfg: CommonConfig, epoch: int, index, pred: torch.Tensor,
+                    image: torch.Tensor, label: torch.Tensor,
+                    n_class: int) -> None:
+    """``save_eval_npys`` for each case of an eval batch: the binarized
+    prediction, the normalized image and the one-hot label, f32."""
+    pred_b = to_numpy(L.binarize(pred))
+    img_b = to_numpy(image)
+    gt_b = to_numpy(L.one_hot_label(label, n_class))
+    for j, vi in enumerate(np.asarray(index)):
+        save_eval_npys(cfg.result_path, epoch, int(vi), pred_b[j:j + 1],
+                       img_b[j:j + 1], gt_b[j:j + 1])
+
+
+def panel_sample(index, epoch: int, n_cases: int) -> Optional[int]:
+    """The batch position of the case the val panel shows this epoch
+    (case epoch % n_cases, the reference's batch-1 cycle), or None when
+    the batch does not hold it."""
+    pj = np.flatnonzero(np.asarray(index) == epoch % max(n_cases, 1))
+    return int(pj[0]) if pj.size else None
+
+
+def load_joint(cfg: CommonConfig, model: torch.nn.Module) -> torch.nn.Module:
+    """--load_prefix_joint: a whole Joint checkpoint into `model`
+    (common.py:186 of the JAX package)."""
+    return load_state(model, load(cfg, cfg.load_prefix_joint))
 
 
 def n_classes(cfg: CommonConfig) -> int:
@@ -330,17 +438,19 @@ def resume(cfg: CommonConfig, runner: "EpochRunner",
 
 class EpochRunner:
     """Score, best and periodic checkpoint bookkeeping after every outer
-    epoch (common.py:195-237 of the JAX package). With writes=False (a
-    rank of a world other than 0) it keeps the best result and writes
-    nothing."""
+    epoch, and the TensorBoard ``saver`` of the run (common.py:195-237 of
+    the JAX package). With writes=False (a rank of a world other than 0)
+    it keeps the best result and writes nothing: its saver does nothing."""
 
     def __init__(self, cfg: CommonConfig, writes: bool = True):
         self.cfg = cfg
         self.best_result = 0.0
         self.writes = writes
+        self.saver = NullSaver()
         if writes:
             os.makedirs(cfg.save_path, exist_ok=True)
             os.makedirs(cfg.display_path, exist_ok=True)
+            self.saver = Saver(cfg.display_path, display_freq=10)
 
     def dump_scores(self, epoch: int, scores: Dict[int, float],
                     name: str = "score") -> None:

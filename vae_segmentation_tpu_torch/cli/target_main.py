@@ -42,6 +42,23 @@ optimizer). ``--test_only`` evaluates whatever the load flags assemble
 the teacher is the student's copy). ``--aug_order 3`` and ``--aug_host``
 pick the cubic and the host warp (``cli/common.py::make_train_ingest``).
 
+The serving outputs (cli/target_main.py:255-300, 440-564 of the JAX
+package): ``--save_eval_result`` writes each case's binarized prediction,
+image and one-hot label as ``result/<prefix>/<epoch>_<idx>_{pred.join,pic,
+gt}.npy`` every 10th outer epoch and under ``--test_only``;
+``--save_more_reference`` adds the display panels (the train step's, the
+val case's, a train case's after the eval) to the TensorBoard files under
+``tensorboard/<prefix>/`` (``obs/saver.py``: the scalars every 10 steps,
+``steps_per_sec``, ft1's ``finetune_*``, ``val_result`` and
+``val_result_no_finetune``, also printed as ``name value it`` lines);
+``--analysis_figure_name <t>`` computes the pseudo-loss / recon-loss pairs
+of each case (``eval/evaluate.py::make_analysis_metrics_step``) and draws
+``figure/analysis_figure/<t>{,_gt,_pseudo}.jpg`` and ``analysis.jpg``
+(matplotlib, checked at start-up); ``--profile_dir <d>`` writes a
+torch.profiler Chrome trace of the run into ``<d>``; ``--debug_nans``
+stops the run with FloatingPointError at the first loss term or score
+that is not finite (``cli/common.py::nan_guard``).
+
 ``--vae_forward_scale`` is accepted and changes nothing, as in the JAX
 package (its Joint always encodes with the mean latent). Every other
 method, and the flags of later slices, raise NotImplementedError naming
@@ -57,6 +74,7 @@ in one process, which alone prints and writes.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, List, Optional
 
@@ -70,24 +88,35 @@ from vae_segmentation_tpu_torch.core.config import (
 from vae_segmentation_tpu_torch.data.pipeline import (
     TrainLoader, intensity_normalize)
 from vae_segmentation_tpu_torch.eval.evaluate import (
-    make_joint_eval_step, mean_score, record_scores)
+    make_analysis_metrics_step, make_joint_eval_step, mean_score,
+    record_scores)
 from vae_segmentation_tpu_torch.models import (
     Joint, load_component, load_state)
+from vae_segmentation_tpu_torch.obs import draw
+from vae_segmentation_tpu_torch.obs.saver import mid_slice_panel, to_numpy
+from vae_segmentation_tpu_torch.obs.timing import StepTimer
+from vae_segmentation_tpu_torch.ops import losses as L
 from vae_segmentation_tpu_torch.parallel import sharding
 from vae_segmentation_tpu_torch.train import (
     AdaptConfig, copy_params, default_sched, ema_update_seg, make_adapt_step,
     make_seg_replay_step, optim)
 
 
+# the reference's fixed dict key of every display panel
+LABEL_KEY = "venous_pancreas"
+
+
 def _check_supported(cfg: TargetConfig) -> None:
+    if cfg.method in ("discriminator_train", "domain_adaptation_dis"):
+        todo(f"--method {cfg.method} (ShapeEncoder, Joint2)", "item 11e")
+    if cfg.method == "vae_train":
+        todo("--method vae_train of the target CLI", "item 11h")
     if cfg.method != "domain_adaptation":
-        todo(f"--method {cfg.method}", "item 11 (the other methods)")
-    if cfg.analysis_figure_name is not None or cfg.save_eval_result \
-            or cfg.save_more_reference or cfg.profile_dir is not None:
-        todo("eval figures, npy dumps, TensorBoard panels and profiling",
-             "item 11")
+        raise ValueError(f"--method {cfg.method}: try a valid method")
     if cfg.load_prefix_encoder:
-        todo("--load_prefix_encoder", "item 11")
+        todo("--load_prefix_encoder (ShapeEncoder)", "item 11e")
+    if cfg.analysis_figure_name is not None:
+        draw.require_matplotlib()
 
 
 def _adapt_cfg(cfg: TargetConfig, n_class: int) -> AdaptConfig:
@@ -96,7 +125,8 @@ def _adapt_cfg(cfg: TargetConfig, n_class: int) -> AdaptConfig:
         only_pseudo=cfg.only_pseudo,
         use_confident_binarize=cfg.use_confident_binarize, kl=cfg.kl,
         vae_mont_number=cfg.vae_mont_number,
-        turn_enabled=cfg.turn_epoch != -1)
+        turn_enabled=cfg.turn_epoch != -1,
+        return_display=cfg.save_more_reference)
 
 
 def _epoch_sched(cfg: TargetConfig, epoch: int, lambda_vae: float) -> Dict:
@@ -142,7 +172,7 @@ def _make_finetune(cfg: TargetConfig, n_class: int, device: torch.device):
     """ft1 test-time training (main_target.py:807-900; cli/target_main.py:
     271-275, 464-480 of the JAX package). Returns (finetune, ft_model):
 
-        finetune(student, teacher, image, label, sched) -> metrics
+        finetune(student, teacher, image, label, sched[, report]) -> metrics
 
     copies the student into ft_model, one finetune Joint (built once, on
     `device`, with the student's widths and dropouts), freezes its VAE
@@ -151,45 +181,140 @@ def _make_finetune(cfg: TargetConfig, n_class: int, device: torch.device):
     --lr_finetune (stateless: the reference re-creates its optimizer every
     step), its MC dropout masks drawn from its own generator seeded from
     --seed; metrics are the last step's (``make_adapt_step``'s aux). The
-    student, its optimizer and the teacher are not touched."""
+    student, its optimizer and the teacher are not touched. ``report(i,
+    aux)`` sees each step's aux (the ``finetune_*`` scalars)."""
     ft_model = Joint(n_class=n_class, dim=128,
                      bottleneck=common.bottleneck_for(cfg.patch_size),
                      vae_decoder_dropout=cfg.vae_decoder_dropout,
                      seg_dropout=cfg.seg_dropout,
                      generator=torch.Generator().manual_seed(cfg.seed)
                      ).to(device)
-    step = make_adapt_step(_adapt_cfg(cfg, n_class), variant="finetune")
+    step = make_adapt_step(dataclasses.replace(
+        _adapt_cfg(cfg, n_class), return_display=False), variant="finetune")
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
 
-    def finetune(student, teacher, image, label, sched) -> Dict:
+    def finetune(student, teacher, image, label, sched,
+                 report=None) -> Dict:
         copy_params(ft_model, student)
         opt = optim.sgd(optim.freeze_vae(ft_model), cfg.lr_finetune,
                         momentum=0.0, weight_decay=cfg.weight_decay)
         aux = {}
-        for _ in range(cfg.val_finetune):
-            aux = step(ft_model, teacher, opt, image, label, generator, sched)
+        for i in range(cfg.val_finetune):
+            with common.nan_guard(cfg, f"ft1 step {i + 1}"):
+                aux = step(ft_model, teacher, opt, image, label, generator,
+                           sched)
+            if report is not None:
+                report(i, aux)
         return aux
 
     return finetune, ft_model
 
 
-def _crop_eval(cfg: TargetConfig, val_ds, device, eval_step, finetune,
-               ft_eval_step, model, teacher, sched):
-    """The crop eval (cli/target_main.py:456-488 of the JAX package):
-    {case: Dice} and, with ft1, the finetuned model's scores beside the
-    student's ({} without ft1)."""
+class EvalSteps:
+    """The crop eval's steps: the student's eval and analysis steps and,
+    with ft1, the finetune and the ft copy's (None where not asked)."""
+
+    def __init__(self, cfg: TargetConfig, n_class: int, device, model,
+                 teacher):
+        self.eval = make_joint_eval_step(model, n_class)
+        self.analysis = self.ft_eval = self.ft_analysis = None
+        self.finetune = self.ft_model = None
+        if cfg.val_finetune != 0:
+            self.finetune, self.ft_model = _make_finetune(cfg, n_class,
+                                                          device)
+            self.ft_eval = make_joint_eval_step(self.ft_model, n_class)
+        if cfg.analysis_figure_name is not None:
+            self.analysis = make_analysis_metrics_step(model, teacher,
+                                                       n_class)
+            if self.ft_model is not None:
+                self.ft_analysis = make_analysis_metrics_step(
+                    self.ft_model, teacher, n_class)
+
+
+# the analysis figures' (x, y) pairs: (name suffix, x key, y key)
+FIGURES = (("", "dsc_loss_fake", "recon_loss"),
+           ("_gt", "gt_dsc_loss_fake", "gt_recon_loss"),
+           ("_pseudo", "pseudo_dsc_loss_fake", "pseudo_recon_loss"))
+
+
+def _crop_eval(cfg: TargetConfig, n_class: int, val_ds, device,
+               steps: EvalSteps, finetune, epoch, runner, model, teacher,
+               sched):
+    """The crop eval (cli/target_main.py:456-533 of the JAX package):
+    ({case: Dice}, with ft1 the student's own scores beside ({} without),
+    the val display panel, the analysis figures' {case: (x, y)} pairs).
+    With ft1 every finetune step's scalars go to the saver as
+    ``finetune_*``; --save_more_reference takes the val panel of case
+    epoch % cases; --save_eval_result dumps every case every 10th
+    epoch."""
     scores: Dict[int, float] = {}
     scores_noft: Dict[int, float] = {}
+    display: Dict[str, np.ndarray] = {}
+    figs = tuple({} for _ in FIGURES)
     for batch in common.val_batches(val_ds, cfg.val_batch, device):
-        image, label = batch["image_norm"], batch["label"]
-        step = eval_step
+        image, label, index = batch["image_norm"], batch["label"], \
+            batch["index"]
+        step, analysis = steps.eval, steps.analysis
         if finetune is not None:
-            finetune(model, teacher, image, label, sched)
-            record_scores(scores_noft, eval_step(image, label)["score"],
-                          batch["index"])
-            step = ft_eval_step
-        record_scores(scores, step(image, label)["score"], batch["index"])
-    return scores, scores_noft
+            vidx = int(np.asarray(index)[0])
+
+            def report(i, aux):
+                runner.saver.write_display(
+                    i + vidx * cfg.val_finetune,
+                    [("finetune_" + k, v) for k, v in aux.items()
+                     if k != "kl_loss"], force_write=True, verbose=False)
+
+            finetune(model, teacher, image, label, sched, report)
+            record_scores(scores_noft, steps.eval(image, label)["score"],
+                          index)
+            step, analysis = steps.ft_eval, steps.ft_analysis
+        out = step(image, label)
+        record_scores(scores, out["score"], index)
+        j = common.panel_sample(index, epoch, len(val_ds))
+        if cfg.save_more_reference and j is not None:
+            onehot = L.one_hot_label(label, n_class)
+            display[LABEL_KEY + "_display_val"] = mid_slice_panel(
+                out["recon"][j:j + 1][..., 1], onehot[j:j + 1][..., 1],
+                out["pred"][j:j + 1][..., 1])
+        if analysis is not None:
+            am = {k: to_numpy(v).reshape(-1)
+                  for k, v in analysis(image, label).items()}
+            for j, vi in enumerate(np.asarray(index)):
+                for fig, (_, x, y) in zip(figs, FIGURES):
+                    fig[int(vi)] = [float(am[x][j]), float(am[y][j])]
+        if cfg.save_eval_result and epoch % 10 == 0:
+            common.dump_eval_batch(cfg, epoch, index, out["pred"], image,
+                                   label, n_class)
+    return scores, scores_noft, display, figs
+
+
+def _draw_figures(name: str, figs) -> None:
+    """The four analysis figures (main_target.py:978-995)."""
+    for fig, (suffix, _, _) in zip(figs, FIGURES):
+        draw.scatter_plot(fig, name + suffix, "Pseudo_loss", "Recon_loss")
+    draw.scatter_plot_multi(figs[0], figs[1], "analysis")
+
+
+def _train_display_panel(cfg: TargetConfig, n_class: int, eval_step,
+                         teacher, epoch: int) -> np.ndarray:
+    """The post-eval panel of train case epoch % cases (main_target.py:
+    999-1010; cli/target_main.py:570-593 of the JAX package): [recon,
+    gt, pred, the teacher's binarized pseudo label] (class 1), the case
+    normalized as the eval's (no warp)."""
+    ds = common.build_val_dataset(cfg, data_root=cfg.data_root,
+                                  list_key=cfg.train_list)
+    device = next(teacher.parameters()).device
+    case = ds[epoch % len(ds)]
+    image = intensity_normalize(torch.from_numpy(
+        case["image"].astype(np.float32)).to(device))[None]
+    label = torch.from_numpy(case["label"].astype(np.float32))[None]
+    label = label.to(device)
+    out = eval_step(image, label)
+    with torch.no_grad():
+        pseudo = L.binarize(teacher.segment(image[..., None]))
+    onehot = L.one_hot_label(label, n_class)
+    return mid_slice_panel(out["recon"][..., 1], onehot[..., 1],
+                           out["pred"][..., 1], pseudo[..., 1])
 
 
 def _sliding_window_eval(cfg: TargetConfig, n_class: int, val_ds, device,
@@ -272,12 +397,14 @@ class SourceReplay:
 
 def _train_epoch(cfg: TargetConfig, epoch: int, loader: TrainLoader, step,
                  ingest, model, teacher, optimizer, generator,
-                 lambda_vae: float,
+                 lambda_vae: float, runner, timer: StepTimer,
                  replay: Optional[SourceReplay] = None, mesh=None) -> float:
     """One outer epoch of adaptation steps (each followed by a replay step
     with --pseudo_list); returns lambda_vae after the --tag decay.
     `generator` draws the warps and the MC dropout masks; the steps run on
-    this rank's slice of `mesh`."""
+    this rank's slice of `mesh`. Each step's scalars, ``steps_per_sec``
+    and its display panel go to the runner's saver (cli/target_main.py:
+    252-260 of the JAX package)."""
     if epoch == 0:
         common.skip_epoch(loader)  # epoch-0 skip (main_target.py:506)
         return lambda_vae
@@ -309,12 +436,21 @@ def _train_epoch(cfg: TargetConfig, epoch: int, loader: TrainLoader, step,
                 lambda_vae = cfg.alpha * lambda_vae
                 sched = _epoch_sched(cfg, epoch, lambda_vae)
         image, label = ingest(batch, generator)
-        with sharding.active(mesh):
-            metrics = step(model, teacher, optimizer, image, label,
-                           generator, sched)
-        if replay is not None:
-            metrics = dict(metrics, dice_loss_pseudo=replay(model))
+        where = f"epoch {(epoch + 1) * cfg.eval_epoch}, iteration {idx + 1}"
+        with common.nan_guard(cfg, where):
+            with sharding.active(mesh):
+                metrics = step(model, teacher, optimizer, image, label,
+                               generator, sched)
+            if replay is not None:
+                metrics = dict(metrics, dice_loss_pseudo=replay(model))
+        timer.tick()
         _print_line(epoch, cfg.eval_epoch, idx, metrics)
+        display = metrics.pop("display", None)
+        runner.saver.write_display(
+            idx + epoch * len(loader),
+            list(metrics.items()) + [("steps_per_sec", timer.rate)],
+            image=None if display is None
+            else {LABEL_KEY + "_display": display})
     return lambda_vae
 
 
@@ -326,12 +462,19 @@ def run(cfg: TargetConfig) -> float:
     _check_supported(cfg)
     world, mesh, device = common.start(cfg)
     try:
-        return 0.0 if device is None else _run(cfg, device, mesh)
+        if device is None:
+            return 0.0
+        runner = common.EpochRunner(cfg, writes=common.writes(mesh))
+        try:
+            with common.profile(cfg):
+                return _run(cfg, device, mesh, runner)
+        finally:
+            runner.saver.close()
     finally:
         common.stop(world)
 
 
-def _run(cfg: TargetConfig, device: torch.device, mesh) -> float:
+def _run(cfg: TargetConfig, device: torch.device, mesh, runner) -> float:
     np.random.seed(cfg.seed)
     torch.manual_seed(cfg.seed)
     n_class = common.n_classes(cfg)
@@ -343,12 +486,8 @@ def _run(cfg: TargetConfig, device: torch.device, mesh) -> float:
         sharding.replicate(mesh, teacher)
     val_ds = common.build_val_dataset(cfg, data_root=cfg.val_data_root,
                                       list_key=cfg.val_list)
-    eval_step = make_joint_eval_step(model, n_class)
-    finetune = ft_model = ft_eval_step = None
-    if cfg.val_finetune != 0:
-        finetune, ft_model = _make_finetune(cfg, n_class, device)
-        ft_eval_step = make_joint_eval_step(ft_model, n_class)
-    runner = common.EpochRunner(cfg, writes=common.writes(mesh))
+    steps = EvalSteps(cfg, n_class, device, model, teacher)
+    finetune, ft_model = steps.finetune, steps.ft_model
     # params, epoch and best of the latest periodic checkpoint; the teacher
     # stays the copy made from the load flags, as in the JAX package
     start_epoch = common.resume(cfg, runner, lambda ck: load_state(model, ck))
@@ -375,31 +514,48 @@ def _run(cfg: TargetConfig, device: torch.device, mesh) -> float:
         print("Start training")
 
     lambda_vae = cfg.lambda_vae  # host-mutable (--tag decay)
+    timer = StepTimer()
+    iters = common.iterations_per_epoch(cfg)
     for epoch in range(start_epoch, cfg.outer_epochs):
         if not cfg.test_only:
             lambda_vae = _train_epoch(cfg, epoch, loader, step, ingest,
                                       model, teacher, optimizer, generator,
-                                      lambda_vae, replay, mesh)
+                                      lambda_vae, runner, timer, replay,
+                                      mesh)
         print("Start evaluation")
         t0 = time.time()
         # ft1 from the first outer epoch that trained (main_target.py:807)
         ft = finetune if epoch != 0 or cfg.test_only else None
         sched = _epoch_sched(cfg, epoch, lambda_vae)
-        scores, scores_noft = {}, {}
+        scores, scores_noft, display, figs = {}, {}, {}, ()
         if common.writes(mesh):  # the other ranks wait in share()
             if cfg.eval_mode == "sliding_window":
                 scores, scores_noft = _sliding_window_eval(
                     cfg, n_class, val_ds, device, ft, ft_model, model,
                     teacher, sched)
             else:
-                scores, scores_noft = _crop_eval(
-                    cfg, val_ds, device, eval_step, ft, ft_eval_step, model,
-                    teacher, sched)
+                scores, scores_noft, display, figs = _crop_eval(
+                    cfg, n_class, val_ds, device, steps, ft, epoch, runner,
+                    model, teacher, sched)
+            where = f"epoch {(epoch + 1) * cfg.eval_epoch} (eval)"
+            common.check_scores(cfg, scores, where)
+            common.check_scores(cfg, scores_noft, where, "score_noft")
+            if cfg.analysis_figure_name is not None and figs and figs[0]:
+                _draw_figures(cfg.analysis_figure_name, figs)
+            if cfg.save_more_reference and not cfg.test_only:
+                display[LABEL_KEY + "_display_train"] = \
+                    _train_display_panel(cfg, n_class, steps.eval, teacher,
+                                         epoch)
         dsc = common.share(mesh, mean_score(scores))
         runner.dump_scores(epoch, scores)
+        results = [("val_result", dsc)]
         if scores_noft:
             runner.dump_scores(epoch, scores_noft, name="score_noft")
             print("val_result_no_finetune: %f" % mean_score(scores_noft))
+            results.append(("val_result_no_finetune",
+                            mean_score(scores_noft)))
+        runner.saver.write_display((epoch + 1) * iters, results,
+                                   display or None, force_write=True)
         print("Time: {}".format(time.time() - t0))
         if cfg.test_only:
             print("epoch 1 validation result: %f over %d cases."

@@ -1,6 +1,7 @@
 """Whole-crop evaluation (counterpart of vae_segmentation_tpu/eval/
 evaluate.py::make_vae_eval_step, ::make_seg_eval_step,
-::make_joint_eval_step and ::run_eval; reference main_source.py:685-774 and
+::make_joint_eval_step, ::make_analysis_metrics_step and ::run_eval;
+reference main_source.py:685-774 and
 main_target.py:796-995): one ROI crop per case, binary Dice over classes
 [1, n_class), per sample, so any --val_batch keeps the per-case score
 contract. The VAE's step scores the reconstruction of the ground-truth
@@ -54,9 +55,12 @@ def make_seg_eval_step(model: torch.nn.Module, n_class: int) -> Callable:
     return step
 
 
-def make_joint_eval_step(model: torch.nn.Module, n_class: int) -> Callable:
+def make_joint_eval_step(model: torch.nn.Module, n_class: int, *,
+                         with_gt_recon: bool = False) -> Callable:
     """(image_norm [B, D, H, W], label [B, D, H, W]) -> {'pred', 'recon',
-    'score' [B]}, on the model's device."""
+    'score' [B]}, on the model's device (evaluate.py:49-67 of the JAX
+    package). with_gt_recon adds 'gt_recon': the VAE's reconstruction of
+    the GT one-hot with the mean latent."""
     device = next(model.parameters()).device
 
     @torch.no_grad()
@@ -65,8 +69,48 @@ def make_joint_eval_step(model: torch.nn.Module, n_class: int) -> Callable:
         onehot = L.one_hot_label(torch.as_tensor(label, device=device),
                                  n_class)
         pred, recon, _, _ = model(image[..., None])
-        return {"pred": pred, "recon": recon,
-                "score": _binary_dice(pred, onehot, n_class)}
+        out = {"pred": pred, "recon": recon,
+               "score": _binary_dice(pred, onehot, n_class)}
+        if with_gt_recon:
+            out["gt_recon"] = model.vae_forward(onehot)[0]
+        return out
+
+    return step
+
+
+def make_analysis_metrics_step(model: torch.nn.Module,
+                               teacher: torch.nn.Module,
+                               n_class: int) -> Callable:
+    """The --analysis_figure_name metric set (main_target.py:956-976;
+    evaluate.py:88-114 of the JAX package): (image_norm, label) -> seven
+    per-sample [B] values, the pseudo-loss / recon-loss pairs of the
+    student's prediction, of the GT and of the teacher's pseudo label
+    (``fake``, the teacher Joint's prediction; its reconstruction
+    ``fake_recon``). 'score', 'gt_recon_loss' and 'recon_loss' are binary
+    Dices, the rest soft."""
+    device = next(model.parameters()).device
+
+    def dsc(a, b, binary=False):
+        return L.avg_dsc(a, b, binary=binary, botindex=1, topindex=n_class,
+                         return_mean=False)
+
+    @torch.no_grad()
+    def step(image, label) -> Dict[str, torch.Tensor]:
+        img = torch.as_tensor(image, device=device)[..., None]
+        onehot = L.one_hot_label(torch.as_tensor(label, device=device),
+                                 n_class)
+        pred, recon, _, _ = model(img)
+        gt_recon = model.vae_forward(onehot)[0]
+        fake, fake_recon, _, _ = teacher(img)
+        return {
+            "score": dsc(pred, onehot, True),
+            "gt_recon_loss": 1 - dsc(gt_recon, onehot, True),
+            "gt_dsc_loss_fake": 1 - dsc(fake, onehot),
+            "recon_loss": 1 - dsc(pred, recon, True),
+            "dsc_loss_fake": 1 - dsc(pred, fake),
+            "pseudo_recon_loss": 1 - dsc(fake, fake_recon),
+            "pseudo_dsc_loss_fake": 1 - dsc(fake, fake),
+        }
 
     return step
 

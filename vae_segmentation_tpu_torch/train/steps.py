@@ -1,9 +1,12 @@
 """The train steps (counterparts of vae_segmentation_tpu/train/steps.py):
-the two source-domain steps, ``make_vae_train_step`` (the shape-prior VAE
-on ground-truth masks, main_source.py:389-413) and ``make_seg_train_step``
-(the supervised SegUNet, main_source.py:415-446), the adaptation step
-``make_adapt_step`` with what it calls (main_target.py:505-613), and the
-source replay of --pseudo_list runs, ``make_seg_replay_step``.
+the source-domain steps, ``make_vae_train_step`` (the shape-prior VAE on
+ground-truth masks, main_source.py:389-413), ``make_seg_train_step`` (the
+supervised SegUNet, main_source.py:415-446) and the Joint's
+``make_joint_train_step`` (joint_train), ``make_cached_pseudo_adapt_step``
+(the source domain_adaptation) and ``make_sep_joint_train_step``
+(sep_joint_train), the adaptation step ``make_adapt_step`` with what it
+calls (main_target.py:505-613), and the source replay of --pseudo_list
+runs, ``make_seg_replay_step``.
 
 One adaptation step: the teacher's Seg forward without gradients (plus its
 VAE encode for the KL term), a binarized pseudo-label, the student Joint
@@ -28,10 +31,17 @@ the gradient convention of ``parallel/collectives.py``), so every rank
 applies the same update and the parameters stay equal bit for bit. What
 is frozen has no gradient and is never reduced. The detached loss terms
 a step returns are already the global batch's.
+
+Within ``checking_terms(check)`` (the CLIs' --debug_nans) every step hands
+its scalar loss terms to ``check`` before its backward; outside it nothing
+is checked and nothing waits for the card. A step asked for a display
+panel (``return_display``) returns it detached, on the device: the
+``Saver`` copies it to the host on a display step only.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
@@ -53,6 +63,43 @@ class AdaptConfig:
     vae_mont_number: int = 1           # --vae_mont_number
     turn_enabled: bool = False         # --turn_epoch != -1
     kl_weight: float = 2e-5
+    # a [4, D, H] mid-W panel (recon, gt, pred, pseudo; class 1 of sample
+    # 0) in the aux dict for the TensorBoard grid (main_target.py:538-541)
+    return_display: bool = False
+
+
+_CHECK_TERMS: Optional[Callable[[Dict[str, torch.Tensor]], None]] = None
+
+
+@contextlib.contextmanager
+def checking_terms(check: Callable[[Dict[str, torch.Tensor]], None]):
+    """Within: every step calls ``check({name: scalar loss term})`` before
+    its backward (the --debug_nans check of ``cli/common.py::nan_guard``)."""
+    global _CHECK_TERMS
+    prev, _CHECK_TERMS = _CHECK_TERMS, check
+    try:
+        yield
+    finally:
+        _CHECK_TERMS = prev
+
+
+def _check_terms(**terms) -> None:
+    if _CHECK_TERMS is not None:
+        _CHECK_TERMS(terms)
+
+
+def _panel(*views: torch.Tensor) -> torch.Tensor:
+    """[N, D, H] f32 display panel of sample 0's mid-W slices of `views`
+    (each [B, D, H, W], one class), detached. Under a 'spatial' mesh the
+    rank's planes are gathered over its row, so rank 0's panel is the
+    whole volume's."""
+    with torch.no_grad():
+        w2 = views[0].shape[3] // 2
+        panel = torch.stack([v[0, :, :, w2].float() for v in views])
+        mesh = sharding.spatial_mesh(views[0])
+        if mesh is not None:
+            panel = collectives.gather_spatial(panel, mesh)
+    return panel
 
 
 def _update(optimizer: torch.optim.Optimizer) -> None:
@@ -77,8 +124,8 @@ def _global_mean(x: torch.Tensor) -> torch.Tensor:
 
 
 def make_vae_train_step(n_class: int, *, scale: float = 0.35,
-                        kl_weight: float = 2e-5,
-                        eps: float = L.SOURCE_EPS) -> Callable:
+                        kl_weight: float = 2e-5, eps: float = L.SOURCE_EPS,
+                        return_display: bool = False) -> Callable:
     """The VAE shape-prior step (main_source.py:389-413; steps.py:142-188 of
     the JAX package with its fused reparam path):
 
@@ -90,7 +137,9 @@ def make_vae_train_step(n_class: int, *, scale: float = 0.35,
     seed drawn from ``generator``, which lives on the label's device).
     label [B, D, H, W] holds class values; the optimizer updates the
     ShapeVAE `model` in place; aux holds the detached 'dice_loss' and
-    'kl_loss'."""
+    'kl_loss', and with return_display the reference's train panel
+    'display' [gt class 0, gt class 1, recon class 1] (main_source.py:
+    394-396)."""
 
     def step(model, optimizer, label, generator):
         onehot = L.one_hot_label(label, n_class)
@@ -100,9 +149,14 @@ def make_vae_train_step(n_class: int, *, scale: float = 0.35,
         recon = model.decode(latent)
         dsc_loss = 1.0 - L.avg_dsc(recon, onehot, botindex=1,
                                    topindex=n_class, eps=eps)
+        _check_terms(dice_loss=dsc_loss, kl_loss=klv)
         (dsc_loss + kl_weight * klv).backward()
         _update(optimizer)
-        return {"dice_loss": dsc_loss.detach(), "kl_loss": klv.detach()}
+        aux = {"dice_loss": dsc_loss.detach(), "kl_loss": klv.detach()}
+        if return_display:
+            aux["display"] = _panel(onehot[..., 0], onehot[..., 1],
+                                    recon[..., 1])
+        return aux
 
     return step
 
@@ -126,6 +180,7 @@ def make_seg_train_step(n_class: int, *, eps: float = L.SOURCE_EPS
         pred = model(img)
         dsc_loss = 1.0 - L.avg_dsc(pred, onehot, botindex=1,
                                    topindex=n_class, eps=eps)
+        _check_terms(dice_loss=dsc_loss)
         dsc_loss.backward()
         _update(optimizer)
         return {"dice_loss": dsc_loss.detach()}
@@ -154,6 +209,7 @@ def make_seg_replay_step(n_class: int, *, eps: float = L.SOURCE_EPS
         pred = student.segment(img)
         dsc = L.multi_soft_dice(pred, (onehot,), eps=eps)[0]
         dsc_loss = 1.0 - dsc[:, 1:n_class].mean()
+        _check_terms(dice_loss=dsc_loss)
         dsc_loss.backward()
         _update(optimizer)
         return {"dice_loss": dsc_loss.detach()}
@@ -273,6 +329,7 @@ def _student_mc_losses(model, img, onehot, pseudo, klv, cfg: AdaptConfig,
     ``generator``."""
     n = cfg.n_class
     tot_recon = tot_fake = tot_dsc = tot_final = 0.0
+    display = None
     for _ in range(cfg.vae_mont_number):
         pred, recon, _, _ = model(img, dropout=True, generator=generator)
         d_pr, d_ps, d_po = L.multi_soft_dice(
@@ -288,9 +345,14 @@ def _student_mc_losses(model, img, onehot, pseudo, klv, cfg: AdaptConfig,
         tot_fake = tot_fake + fake_loss
         tot_dsc = tot_dsc + dsc_loss
         tot_final = tot_final + final
+        if cfg.return_display:   # the last MC draw's, as the JAX package
+            display = _panel(recon[..., 1], onehot[..., 1], pred[..., 1],
+                             pseudo[..., 1])
     m = cfg.vae_mont_number
     aux = {"recon_loss": tot_recon / m, "dice_loss_fake": tot_fake / m,
            "dice_loss": tot_dsc / m}
+    if display is not None:
+        aux["display"] = display
     return tot_final / m, aux
 
 
@@ -305,8 +367,9 @@ def make_adapt_step(cfg: AdaptConfig, *, variant: str = "train") -> Callable:
     image's device; ``sched`` as ``default_sched``. The student's trainable
     parameters are updated in place by ``optimizer``; ``aux`` holds the
     detached scalars 'recon_loss', 'dice_loss_fake', 'dice_loss',
-    'final_loss' and 'kl_loss'. Gradients flow through the frozen student
-    VAE into the student Seg; the teacher runs without gradients."""
+    'final_loss' and 'kl_loss' (and 'display' with ``cfg.return_display``).
+    Gradients flow through the frozen student VAE into the student Seg; the
+    teacher runs without gradients."""
 
     def step(student, teacher, optimizer, image, label, generator, sched):
         img = image if image.dim() == 5 else image[..., None]
@@ -324,11 +387,136 @@ def make_adapt_step(cfg: AdaptConfig, *, variant: str = "train") -> Callable:
         final, aux = _student_mc_losses(student, img, onehot, pseudo, klv,
                                         cfg, sched, generator,
                                         variant=variant)
+        _check_terms(**{k: v for k, v in aux.items() if k != "display"},
+                     final_loss=final, kl_loss=klv)
         final.backward()
         _update(optimizer)
         aux = {k: v.detach() for k, v in aux.items()}
         aux["final_loss"] = final.detach()
         aux["kl_loss"] = klv
         return aux
+
+    return step
+
+
+def _class_mean(dsc: torch.Tensor, n_class: int) -> torch.Tensor:
+    """Per-sample mean [B] of a [B, C] Dice over classes [1, n_class)."""
+    return dsc[:, 1:n_class].mean(dim=1)
+
+
+def make_joint_train_step(n_class: int, *, eps: float = L.SOURCE_EPS
+                          ) -> Callable:
+    """joint_train (main_source.py:448-478; steps.py:247-276 of the JAX
+    package):
+
+        step(model, optimizer, image, label, sched) -> aux
+
+    loss = lambda_vae * (1 - dsc(pred, recon)) + (1 - dsc(pred, onehot))
+    over classes [1, n_class) of the Joint `model`'s forward (no dropout),
+    both Dices from one ``dice_sums`` pass; the gradient reaches the Seg
+    directly and through the VAE (frozen by the optimizer's parameters).
+    aux holds the detached 'recon_loss' and 'dice_loss'."""
+
+    def step(model, optimizer, image, label, sched):
+        img = image if image.dim() == 5 else image[..., None]
+        onehot = L.one_hot_label(label, n_class)
+        optimizer.zero_grad(set_to_none=True)
+        pred, recon, _, _ = model(img)
+        d_pr, d_po = L.multi_soft_dice(pred, (recon, onehot), eps=eps)
+        recon_loss = 1.0 - d_pr[:, 1:n_class].mean()
+        dsc_loss = 1.0 - d_po[:, 1:n_class].mean()
+        _check_terms(recon_loss=recon_loss, dice_loss=dsc_loss)
+        (sched["lambda_vae"] * recon_loss + dsc_loss).backward()
+        _update(optimizer)
+        return {"recon_loss": recon_loss.detach(),
+                "dice_loss": dsc_loss.detach()}
+
+    return step
+
+
+def make_cached_pseudo_adapt_step(cfg: AdaptConfig, *,
+                                  eps: float = L.SOURCE_EPS) -> Callable:
+    """The source CLI's domain_adaptation (main_source.py:480-544;
+    steps.py:507-546 of the JAX package): the pseudo-label is a cached
+    prediction, passed in, and the loss takes only the turn / warmup
+    schedule (no dh types):
+
+        step(model, optimizer, image, label, pseudo, sched) -> aux
+
+    pseudo [B, D, H, W, n_class] (the cache's f32 holds bf16 values: cast
+    to the prediction's dtype without loss); the three Dices of the Joint's
+    prediction (against its reconstruction, the pseudo-label and the
+    one-hot label) from one ``dice_sums`` pass; with ``cfg.turn_enabled``
+    phase 0 trains on 2 lambda recon alone, else warmup * lambda * recon +
+    fake. aux holds the detached 'recon_loss', 'dice_loss_fake',
+    'dice_loss', 'final_loss' and 'pred' (this rank's slice; the CLI's
+    --mode refresh writes it to the cache)."""
+    n = cfg.n_class
+
+    def step(model, optimizer, image, label, pseudo, sched):
+        img = image if image.dim() == 5 else image[..., None]
+        onehot = L.one_hot_label(label, n)
+        optimizer.zero_grad(set_to_none=True)
+        pred, recon, _, _ = model(img)
+        d_pr, d_ps, d_po = L.multi_soft_dice(
+            pred, (recon, pseudo.to(pred.dtype), onehot), eps=eps)
+        recon_loss = 1.0 - d_pr[:, 1:n].mean()
+        fake_loss = 1.0 - d_ps[:, 1:n].mean()
+        dsc_loss = 1.0 - d_po[:, 1:n].mean()
+        lam = sched["lambda_vae"]
+        if cfg.turn_enabled and sched["turn_phase"] == 0:
+            final = 2.0 * lam * recon_loss      # main_source.py:527-531
+        elif cfg.turn_enabled:
+            final = lam * recon_loss + fake_loss
+        else:                                   # main_source.py:532-535
+            final = sched["warmup_scale"] * lam * recon_loss + fake_loss
+        _check_terms(recon_loss=recon_loss, dice_loss_fake=fake_loss,
+                     dice_loss=dsc_loss, final_loss=final)
+        final.backward()
+        _update(optimizer)
+        return {"recon_loss": recon_loss.detach(),
+                "dice_loss_fake": fake_loss.detach(),
+                "dice_loss": dsc_loss.detach(), "final_loss": final.detach(),
+                "pred": pred.detach()}
+
+    return step
+
+
+def make_sep_joint_train_step(n_class: int) -> Callable:
+    """sep_joint_train (main_source.py:631-658; steps.py:661-690 of the JAX
+    package): a student Joint and a frozen teacher Joint, per-sample Dice
+    over classes [1, n_class):
+
+        step(model, teacher, optimizer, image) -> aux
+
+    final = 0.1 (1 - mean recon_dsc) + 1 - mean(dsc * recon_tea^2), with
+    recon_dsc = dsc(pred, recon) and dsc = dsc(pred, pred_tea) from one
+    ``dice_sums`` pass over the student's prediction, and recon_tea =
+    dsc(pred_tea, recon_tea) of the teacher's forward, without gradient.
+    The means run over the global batch (the Dices of ``multi_soft_dice``
+    are the global batch's under a mesh). aux holds the detached
+    'recon_loss' (1 - mean recon_dsc), 'dice_loss' (1 - mean dsc) and
+    'final_loss'."""
+
+    def step(model, teacher, optimizer, image):
+        img = image if image.dim() == 5 else image[..., None]
+        with torch.no_grad():
+            t_pred, t_recon, _, _ = teacher(img)
+            recon_tea = _class_mean(L.multi_soft_dice(t_pred, (t_recon,))[0],
+                                    n_class)
+        optimizer.zero_grad(set_to_none=True)
+        pred, recon, _, _ = model(img)
+        d_pr, d_pt = L.multi_soft_dice(pred, (recon, t_pred))
+        recon_dsc = _class_mean(d_pr, n_class)
+        dsc = _class_mean(d_pt, n_class)
+        recon_loss = 1.0 - recon_dsc.mean()
+        final = 0.1 * recon_loss + 1.0 - (dsc * recon_tea.square()).mean()
+        _check_terms(recon_loss=recon_loss, dice_loss=1.0 - dsc.mean(),
+                     final_loss=final)
+        final.backward()
+        _update(optimizer)
+        return {"recon_loss": recon_loss.detach(),
+                "dice_loss": 1.0 - dsc.detach().mean(),
+                "final_loss": final.detach()}
 
     return step
