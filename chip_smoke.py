@@ -179,11 +179,9 @@ Phases, each printed as JSON records:
      the student); (b) one ft1 step at batch 1 on case 0 through the CLI's
      finetune (``target_main._make_finetune``): every kernel call held
      against its plain version under phase 5's rules, untimed
-     (``check_untimed``), launches derived from the model, the loss terms
-     and the Seg update within ``DRIFT_MULTIPLE`` times the plain path's
-     own drift under reordered f32 sums (phase 6's rule), the finetune
-     copy's VAE and the student's weights and requires_grad flags bit for
-     bit as before, and the host-clock time ft1 adds to a case; (c) two
+     (``check_untimed``), launches derived from the model, the loss terms,
+     the Seg update and the finetune copy's VAE by ``gate_step``'s rule,
+     the student's weights and requires_grad flags bit for bit as before, and the host-clock time ft1 adds to a case; (c) two
      synthetic 160^3 cases (padded to 192^3: 8 windows of 128^3 at overlap
      0.5, 2 chunks at batch 4) through the target CLI ``--eval_mode
      sliding_window -b 4``: plain, with ``--postprocess
@@ -205,9 +203,9 @@ Phases, each printed as JSON records:
      from the models, each checkpoint's size and save / load seconds;
      (b) the source replay: every kernel call of one replay step
      (``make_seg_replay_step``, batch 2) against its plain version,
-     untimed and repeated bit for bit (``check_untimed``), its loss and
-     Seg update within ``DRIFT_MULTIPLE`` times the plain path's reordered
-     drift (phase 6's rule), the VAE unmoved; ``step_ms``, ``enqueue_ms``,
+     untimed and repeated bit for bit (``check_untimed``), its loss, Seg
+     update and unmoved VAE by ``gate_step``'s rule; ``step_ms``,
+     ``enqueue_ms``,
      device ms and busy share of the replay step and of one adaptation
      ('pseudo' variant) + replay iteration; the target CLI with
      ``--pseudo_list`` (two outer epochs, one replay step after each
@@ -285,20 +283,40 @@ Phases, each printed as JSON records:
      batch 2 from phase 3's weights (the VAE frozen; the teacher Joint a
      copy): every kernel call against its plain version (untimed,
      ``check_untimed``), launches derived from the model
-     (``expected_joint_step_launches``), the loss terms within
-     ``DRIFT_MULTIPLE`` times the plain path's reordered drift (1e-3 at
-     least) and the Seg update by phase 6's rule, the VAE unmoved;
+     (``expected_joint_step_launches``), the loss terms, the Seg update
+     and the unmoved VAE by ``gate_step``'s rule;
      ``step_ms``, ``enqueue_ms``, peak memory and launches of 3 steps;
      (c) ``source_main`` with each method from phase 3's checkpoint on
      phase 5's train cases (the warp on): joint_train and sep_joint_train
      one outer epoch, domain_adaptation two with ``--mode 1`` (epoch 0
      fills the pseudo cache, epoch 1 trains and refreshes it): launches,
      loss lines, scores in [0, 1], the cache's files.
- 19. the ``kernels`` line (sixteen kernels; those of an opt-in route
+ 19. the Joint's last models and methods (ROADMAP items 11d, 11e, 11f,
+     11h; ``remaining_methods``): (a) a soft-ReLU vae_train step at batch
+     4 on the default route and on the norm route; (b) a
+     discriminator_train step at batch 4 and a domain_adaptation_dis step
+     at batch 2 (the Dis frozen, a teacher SegUNet); (c) an embed_train
+     step (enc_on 1, the VAE frozen) and a refine_vae step (the VAE's
+     encoder half frozen) at batch 2; each from seeded full-width weights
+     on phase 5's train cases: every kernel call against its plain version
+     (untimed), launches derived from the model, and ``gate_step``'s rule:
+     each loss term within ``DRIFT_MULTIPLE`` times its largest drift over
+     the plain path's other orders (phase 9's four for the default route's
+     steps with a reparam KL), every trained tensor's update by phase 6's rule and
+     moved, the frozen weights unmoved; ``step_ms``, ``enqueue_ms``, peak
+     memory of 3 steps and the profiler's device time of 2; (d) the
+     target CLI's vae_train --softrelu 1, discriminator_train and
+     domain_adaptation_dis, the source CLI's embed_train (crop and
+     sliding-window eval) and refine_vae, at 128^3 on phase 5's train
+     cases and phase 3's phantoms: launches derived from the model, a
+     loss line a step with the method's terms, scores in [0, 1],
+     checkpoints.
+ 20. the ``kernels`` line (sixteen kernels; those of an opt-in route
      carry its switch in ``path`` and count their launches on its runs;
      the others count phase 14's CLI runs in ``launches_test_time_path``,
-     phase 15's in ``launches_later_flags_path`` and phase 18's in
-     ``launches_serving_and_methods_path`` too; then the three K1 kernels
+     phase 15's in ``launches_later_flags_path``, phase 18's in
+     ``launches_serving_and_methods_path`` and phase 19's in
+     ``launches_remaining_methods_path`` too; then the three K1 kernels
      with a range, their slab calls' totals and their launches on phase
      17(b)'s steps), then the last line ``{"ok": true, "device":
      {...}}``.
@@ -2030,6 +2048,65 @@ def drift_ratios(kernel: dict, plain: dict, reordered: dict) -> tuple:
     return err, drift, {k: err[k] / max(drift[k], median) for k in err}
 
 
+def gate_step(ops, record_checked, name: str, step1, want: dict,
+              shuffled: bool = False) -> tuple:
+    """The rule of phases 15, 18 and 19 on one train step from seeded
+    weights. ``step1(lr=the step's)`` takes the step on fresh weights and
+    returns (its loss terms {term: float}, the update of every tensor it
+    trains {key: tensor}, whether every tensor it freezes is unchanged).
+    - Every kernel call of the step, at lr 0, against its plain version
+      (``record_checked``: untimed, bit for bit on repeat).
+    - The step on the kernel path launches `want`.
+    - Each loss term within DRIFT_MULTIPLE times its largest drift over the
+      plain path's other summation orders: the convs' sums split by
+      channels and, with `shuffled` (phase 19's default-route steps with a
+      reparam KL), also K1's norm statistics summed in three shuffled
+      orders, phase 9's orders. The floor is phase 9's: 1e-3 of the term, or 1e-3 where the
+      term is below 1.
+    - Every trained tensor's update within DRIFT_MULTIPLE times the plain
+      path's drift (``drift_ratios``, the split-channel order), every
+      trained weight moved, every frozen tensor unchanged.
+    Returns (record, ok, the kernel calls' totals)."""
+    _, totals, calls = record_checked(
+        lambda: step1(0.0), want, f"{name}_step_kernel", f"{name} step",
+        timed=False)
+    del calls
+    with plain_ops(reordered=True):
+        loss_r, upd_r, _ = step1()
+    with plain_ops():
+        loss_p, upd_p, _ = step1()
+    orders = [loss_r]
+    for seed in (1, 2, 3) if shuffled else ():
+        with plain_ops(reordered=True, stats_seed=seed):
+            orders.append(step1()[0])
+    ops.reset_launch_counts()
+    loss_k, upd_k, still = step1()
+    got = ops.launch_counts()
+    err, _, worst = drift_ratios(upd_k, upd_p, upd_r)
+    moved = all(bool(v.any()) for k, v in upd_k.items()
+                if k.endswith(".weight"))
+    del upd_k, upd_p, upd_r
+    loss_drift = {t: max(abs(o[t] - loss_p[t]) for o in orders)
+                  for t in loss_p}
+    loss_gate = {t: max(DRIFT_MULTIPLE * loss_drift[t],
+                        1e-3 * max(1.0, abs(loss_p[t]))) for t in loss_p}
+    loss_err = {t: abs(loss_k[t] - loss_p[t]) for t in loss_p}
+    ok = (got == want and still and moved
+          and all(loss_err[t] <= loss_gate[t] for t in loss_p)
+          and all(v <= DRIFT_MULTIPLE for v in worst.values()))
+    rec = {"launches": got, "launches_expected": want,
+           "losses_kernels": loss_k, "losses_plain": loss_p,
+           "losses_other_orders": orders, "loss_drift": loss_drift,
+           "loss_err": loss_err, "loss_gate": loss_gate,
+           "update_tensors": len(err),
+           "update_worst_ratio": max(worst.values()),
+           "update_worst_tensor": max(worst, key=worst.get),
+           "update_median_ratio": sorted(worst.values())[len(worst) // 2],
+           "frozen_unchanged": still, "trained_moved": moved,
+           "drift_multiple": DRIFT_MULTIPLE, "gate_ok": ok}
+    return rec, ok, totals
+
+
 def _mean_abs(a, b) -> float:
     return (a.float() - b.float()).abs().mean().item()
 
@@ -2516,10 +2593,12 @@ def test_time(torch, ops, run_cli, record_checked, model, image, label,
     for p_ in teacher.parameters():
         p_.requires_grad_(False)
 
+    keys = ("recon_loss", "dice_loss_fake", "dice_loss", "final_loss")
+
     def ft1_step(lr=ft_cfg.lr_finetune):
-        """(loss terms, Seg update, VAE unchanged, ft model) of one
-        finetune from the student: at lr 0 the weights a recorded call
-        holds stay the ones it ran with."""
+        """(loss terms, Seg update, VAE unchanged) of one finetune from the
+        student: at lr 0 the weights a recorded call holds stay the ones
+        it ran with."""
         finetune, ft_model = target_main._make_finetune(
             dataclasses.replace(ft_cfg, lr_finetune=lr), 2, dev)
         aux = finetune(model, teacher, image[..., 0], label, sched)
@@ -2529,21 +2608,10 @@ def test_time(torch, ops, run_cli, record_checked, model, image, label,
                   if k.startswith("Seg.")}
         vae_still = all(torch.equal(v, student0[k]) for k, v in now.items()
                         if k.startswith("Vae."))
-        return {k: v.item() for k, v in aux.items()}, update, vae_still, \
-            ft_model
+        return {k: aux[k].item() for k in keys}, update, vae_still
 
-    _, ft_totals, calls = record_checked(lambda: ft1_step(0.0)[:3],
-                                         ft_step, "ft1_step_kernel",
-                                         "ft1 step", timed=False)
-    del calls
-    with plain_ops(reordered=True):
-        aux_r, upd_r = ft1_step()[:2]
-    with plain_ops():
-        aux_p, upd_p = ft1_step()[:2]
-    ops.reset_launch_counts()
-    aux_k, upd_k, vae_still, ft_model = ft1_step()
-    b_launches = ops.launch_counts()
-    del ft_model
+    gate, gate_ok, ft_totals = gate_step(ops, record_checked, "ft1",
+                                         ft1_step, ft_step)
     # what ft1 adds to a case: the copy, the freeze, the optimizer and one
     # step (host clock, synchronised)
     finetune = target_main._make_finetune(ft_cfg, 2, dev)[0]
@@ -2555,37 +2623,18 @@ def test_time(torch, ops, run_cli, record_checked, model, image, label,
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0))
     del finetune
-    keys = ("recon_loss", "dice_loss_fake", "dice_loss", "final_loss")
-    loss_err = {k: abs(aux_k[k] - aux_p[k]) for k in keys}
-    loss_drift = {k: abs(aux_r[k] - aux_p[k]) for k in keys}
-    loss_gate = max(DRIFT_MULTIPLE * max(loss_drift.values()), 1e-3)
-    err, drift, worst = drift_ratios(upd_k, upd_p, upd_r)
-    moved = all(bool(v.any()) for k, v in upd_k.items()
-                if k.endswith(".weight"))
-    b_ok = (b_launches == ft_step and vae_still and moved
-            and all(v <= loss_gate for v in loss_err.values())
-            and all(v <= DRIFT_MULTIPLE for v in worst.values())
+    b_ok = (gate_ok and student_unchanged()
             and all(v == v and abs(v) != float("inf")
-                    for v in aux_k.values())
-            and student_unchanged())
+                    for v in gate["losses_kernels"].values()))
     if not b_ok:
         failures.append("test_time_ft1_step: the ft1 step with kernels "
                         "disagrees with the plain path, or it touched the "
                         "student or the VAE")
     emit({"phase": "test_time_ft1_step", "batch": 1,
-          "lr": ft_cfg.lr_finetune, "launches": b_launches,
-          "launches_expected": ft_step, "losses_kernels": aux_k,
-          "losses_plain": aux_p, "losses_reordered": aux_r,
-          "loss_err": loss_err, "loss_drift": loss_drift,
-          "loss_gate": loss_gate, "update_tensors": len(err),
-          "update_rel_l2_kernel_vs_plain": err,
-          "update_rel_l2_plain_vs_reordered": drift,
-          "worst_ratio": max(worst.values()),
-          "median_ratio": sorted(worst.values())[len(worst) // 2],
-          "seg_moved": moved, "vae_unchanged": vae_still,
+          "lr": ft_cfg.lr_finetune, **gate,
           "student_unchanged": student_unchanged(),
           "step_ms": sorted(step_ms)[1], "step_ms_all": step_ms,
-          "drift_multiple": DRIFT_MULTIPLE, "ok": b_ok}, log)
+          "ok": b_ok}, log)
     del teacher
     torch.cuda.empty_cache()
 
@@ -2897,27 +2946,11 @@ def later_flags(torch, ops, run_cli, record_checked, model, batches, src,
                   if k.startswith("Seg.")}
         vae_still = all(torch.equal(v, state0[k]) for k, v in now.items()
                         if k.startswith("Vae."))
-        return aux["dice_loss"].item(), update, vae_still
+        return {"dice_loss": aux["dice_loss"].item()}, update, vae_still
 
-    _, replay_totals, calls = record_checked(
-        lambda: replay1(0.0), replay_want, "replay_step_kernel",
-        "replay step", timed=False)
-    del calls
-    with plain_ops(reordered=True):
-        loss_r, upd_r, _ = replay1()
-    with plain_ops():
-        loss_p, upd_p, _ = replay1()
-    ops.reset_launch_counts()
-    loss_k, upd_k, vae_still = replay1()
-    step_launches = ops.launch_counts()
-    err, drift, worst = drift_ratios(upd_k, upd_p, upd_r)
-    loss_gate = max(DRIFT_MULTIPLE * abs(loss_r - loss_p), 1e-3)
-    moved = all(bool(v.any()) for k, v in upd_k.items()
-                if k.endswith(".weight"))
-    gate_ok = (step_launches == replay_want and vae_still and moved
-               and abs(loss_k - loss_p) <= loss_gate
-               and all(v <= DRIFT_MULTIPLE for v in worst.values()))
-    del upd_k, upd_p, upd_r
+    gate, gate_ok, replay_totals = gate_step(
+        ops, record_checked, "replay", replay1, replay_want)
+    torch.cuda.empty_cache()
     # timing: the replay step alone, then one adaptation + replay
     # iteration ('pseudo' variant, the teacher a copy of the student)
     student, opt = fresh(TRAIN_LR)
@@ -2974,27 +3007,17 @@ def later_flags(torch, ops, run_cli, record_checked, model, batches, src,
               and 0.0 <= best <= 1.0)
     b_ok = gate_ok and timing_ok and cli_ok
     if not b_ok:
-        failures.append(f"replay: gate {gate_ok} (launches {step_launches}, "
-                        f"loss {loss_k} vs {loss_p}, worst "
-                        f"{max(worst.values())}), timing {timing_ok}, CLI "
+        failures.append(f"replay: gate {gate}, timing {timing_ok}, CLI "
                         f"{cli_ok} (launches {got} want {cli_want}, lines "
                         f"{lines})")
-    emit({"phase": "replay", "batch": TRAIN_BATCH, "launches": step_launches,
-          "launches_expected": replay_want, "loss_kernels": loss_k,
-          "loss_plain": loss_p, "loss_reordered": loss_r,
-          "loss_gate": loss_gate, "update_tensors": len(err),
-          "update_rel_l2_kernel_vs_plain": err,
-          "update_rel_l2_plain_vs_reordered": drift,
-          "worst_ratio": max(worst.values()),
-          "median_ratio": sorted(worst.values())[len(worst) // 2],
-          "seg_moved": moved, "vae_unchanged": vae_still,
+    emit({"phase": "replay", "batch": TRAIN_BATCH, **gate,
           "replay_step_ms": rec_r["step_ms"],
           "replay_enqueue_ms": rec_r["enqueue_ms"],
           "iteration_step_ms": rec_i["step_ms"],
           "iteration_enqueue_ms": rec_i["enqueue_ms"],
           "cli_s": secs, "cli_launches": got, "cli_launches_expected":
           cli_want, "cli_loss_lines": lines, "cli_best": best,
-          "drift_multiple": DRIFT_MULTIPLE, "ok": b_ok}, log)
+          "ok": b_ok}, log)
 
     # ---- (c) the cubic warp at [4, 128^3]: one draw on the card in f32
     # against the same sampling grid on the CPU in f64; warp_ms at order 3
@@ -3511,7 +3534,7 @@ def serving_and_methods(torch, ops, run_cli, record_checked, model, work,
         student.load_state_dict(state0)
         return student, T.optim.sgd(T.optim.freeze_vae(student), lr)
 
-    def step1(run, lr=TRAIN_LR):
+    def step1(run, lr):
         student, opt = fresh(lr)
         aux = run(student, opt)
         torch.cuda.synchronize()
@@ -3525,42 +3548,21 @@ def serving_and_methods(torch, ops, run_cli, record_checked, model, work,
 
     b_recs, b_ok, totals = {}, True, {}
     for name, (run, want) in methods.items():
-        _, totals[name], calls = record_checked(
-            lambda: step1(run, 0.0), want, f"{name}_step_kernel",
-            f"{name} step", timed=False)
-        del calls
-        with plain_ops(reordered=True):
-            loss_r, upd_r, _ = step1(run)
-        with plain_ops():
-            loss_p, upd_p, _ = step1(run)
-        ops.reset_launch_counts()
-        loss_k, upd_k, vae_still = step1(run)
-        got = ops.launch_counts()
-        err, drift, worst = drift_ratios(upd_k, upd_p, upd_r)
-        loss_gate = max(DRIFT_MULTIPLE * max(abs(loss_r[k] - loss_p[k])
-                                             for k in loss_p), 1e-3)
-        loss_err = {k: abs(loss_k[k] - loss_p[k]) for k in loss_p}
-        moved = all(bool(v.any()) for k, v in upd_k.items()
-                    if k.endswith(".weight"))
+        gate, ok, totals[name] = gate_step(
+            ops, record_checked, name,
+            lambda lr=TRAIN_LR: step1(run, lr), want)
+        torch.cuda.empty_cache()
         student, opt = fresh(TRAIN_LR)
         timing = timed_steps(torch, ops, lambda i: {
             k: v for k, v in run(student, opt).items() if k != "pred"})
-        del student, opt, upd_k, upd_p, upd_r
+        del student, opt
         torch.cuda.empty_cache()
-        ok = (got == want and vae_still and moved and timing["finite"]
-              and all(c == want for c in timing["launches"])
-              and all(v <= loss_gate for v in loss_err.values())
-              and all(v <= DRIFT_MULTIPLE for v in worst.values()))
+        ok = (ok and timing["finite"]
+              and all(c == want for c in timing["launches"]))
         b_ok = b_ok and ok
         b_recs[name] = {
-            "launches": got, "launches_expected": want,
-            "losses_kernels": loss_k, "losses_plain": loss_p,
-            "losses_reordered": loss_r, "loss_err": loss_err,
-            "loss_gate": loss_gate, "update_tensors": len(err),
-            "update_worst_ratio": max(worst.values()),
-            "update_median_ratio": sorted(worst.values())[len(worst) // 2],
-            "vae_unchanged": vae_still, "seg_moved": moved,
-            "step_ms": timing["step_ms"], "step_ms_all": timing["step_ms_all"],
+            **gate, "step_ms": timing["step_ms"],
+            "step_ms_all": timing["step_ms_all"],
             "enqueue_ms": timing["enqueue_ms"],
             "peak_memory_bytes": timing["peak_memory_bytes"], "ok": ok}
         if not ok:
@@ -3568,8 +3570,7 @@ def serving_and_methods(torch, ops, run_cli, record_checked, model, work,
     del teacher, pseudo
     torch.cuda.empty_cache()
     emit({"phase": "joint_source_steps", "batch": TRAIN_BATCH,
-          "lr": TRAIN_LR, "steps": b_recs,
-          "drift_multiple": DRIFT_MULTIPLE, "ok": b_ok}, log)
+          "lr": TRAIN_LR, "steps": b_recs, "ok": b_ok}, log)
 
     # ---- (c) the source CLI: one trained epoch of each method (the cached
     # pseudo label: outer epoch 0 fills the cache, epoch 1 trains and
@@ -3623,6 +3624,348 @@ def serving_and_methods(torch, ops, run_cli, record_checked, model, work,
             failures.append(f"{name} was never launched on the runs of "
                             "phase 18")
     emit({"phase": "serving_and_methods_seconds",
+          "seconds": time.time() - t_phase}, log)
+    return {"launches": launches, "step_totals": totals}
+
+
+# ------------------------------------------------------------ phase 19: the
+# Joint's last models and methods (ROADMAP items 11d, 11e, 11f, 11h): the
+# soft-ReLU VAE, ShapeEncoder, Joint2, FusionNet, Embed
+
+REMAINING_KERNELS = TEST_TIME_KERNELS + ("reparam_kl", "dice_sums",
+                                         "dice_sums_vjp", "softmax_vjp")
+
+
+def _convs_of(net, names) -> int:
+    from vae_segmentation_tpu_torch.models.blocks import Conv3
+
+    return sum(_count(getattr(net, n), Conv3) for n in names)
+
+
+VAE_ENCODER = ("in_block", "down1", "down2", "down3", "down4", "down5")
+
+
+def expected_encoder_step_launches(enc) -> dict:
+    """Kernel launches of one discriminator_train step, derived from the
+    model: the ShapeEncoder's forward, a dx conv for every conv but the
+    entry (the mask needs no gradient), a weight gradient for every conv
+    and bridge; the sigmoid head and the MSE are plain torch."""
+    step = expected_source_step_launches(enc, False)
+    return {**step, "softmax_vjp": 0}
+
+
+def expected_adapt_dis_launches(joint2) -> dict:
+    """Kernel launches of one domain_adaptation_dis step: the teacher
+    SegUNet's forward, the student's Seg and Dis forwards, a dx conv for
+    every conv of the Dis (its input, the prediction, takes the gradient
+    into the Seg) and of the Seg but its entry, weight gradients for the
+    Seg only (the Dis is frozen; its bridges' backwards skip dk and db),
+    the Seg head's softmax VJP, one Dice-sums pass (2 targets) and its
+    VJP."""
+    seg, dis = forward_launches(joint2.Seg), forward_launches(joint2.Dis)
+    return {**{k: 0 for k in KERNEL_NAMES},
+            "conv3": 2 * seg["conv3"] + 2 * dis["conv3"] + seg["conv3"] - 1,
+            "down_k2s2": 2 * seg["down_k2s2"] + dis["down_k2s2"],
+            "up_k2s2": 2 * seg["up_k2s2"], "conv3_dk": seg["conv3"],
+            "down_k2s2_bwd": seg["down_k2s2"] + dis["down_k2s2"],
+            "up_k2s2_bwd": seg["up_k2s2"], "softmax_vjp": 1,
+            "dice_sums": 1, "dice_sums_vjp": 1}
+
+
+def embed_forward_launches(embed, dice: int = 0) -> dict:
+    """Kernel launches of one test-mode Embed forward: the Encoder, the
+    VAE of the ground truth (its latent drawn by one reparam_kl), the VAE
+    decode of the Encoder's latent, the FusionNet and the VAE of the
+    detached decode; `dice` Dice-sums passes."""
+    enc, vae = forward_launches(embed.Encoder), forward_launches(embed.Vae)
+    fus = forward_launches(embed.Fusion)
+    dec = vae["conv3"] - _convs_of(embed.Vae, VAE_ENCODER)
+    return {**{k: 0 for k in KERNEL_NAMES},
+            "conv3": enc["conv3"] + 2 * vae["conv3"] + dec + fus["conv3"],
+            "down_k2s2": enc["down_k2s2"] + 2 * vae["down_k2s2"]
+            + fus["down_k2s2"],
+            "up_k2s2": 3 * vae["up_k2s2"] + fus["up_k2s2"],
+            "reparam_kl": 1, "dice_sums": dice}
+
+
+def embed_segment_launches(embed) -> dict:
+    """Kernel launches of ``Embed.segment``: the Encoder, the VAE decode
+    of its latent, the FusionNet."""
+    enc, vae = forward_launches(embed.Encoder), forward_launches(embed.Vae)
+    fus = forward_launches(embed.Fusion)
+    dec = vae["conv3"] - _convs_of(embed.Vae, VAE_ENCODER)
+    return {**{k: 0 for k in KERNEL_NAMES},
+            "conv3": enc["conv3"] + dec + fus["conv3"],
+            "down_k2s2": enc["down_k2s2"] + fus["down_k2s2"],
+            "up_k2s2": vae["up_k2s2"] + fus["up_k2s2"]}
+
+
+def expected_embed_step_launches(embed, refine: bool) -> dict:
+    """Kernel launches of one embed_train step (refine=False) or refine_vae
+    step, derived from the model. embed_train's gradient reaches the
+    Fusion (every conv but the image entry's takes a dx, every conv and
+    bridge a weight gradient), the frozen VAE's decode of the Encoder's
+    latent (dx only; its head's softmax VJP) and the Encoder (dx but the
+    entry's, weight gradients); the pred and init_seg Dices take a VJP.
+    refine_vae's reaches the VAE's decoder on its two passes that a loss
+    reads (the ground truth's and the detached decode's: dx and weight
+    gradients of every decoder conv and bridge, two head softmax VJPs) and
+    nothing else; the recon and inpaint Dices take a VJP, the init_seg
+    Dice (reported only) none."""
+    fwd = embed_forward_launches(embed, 3 if refine else 4)
+    enc, vae = forward_launches(embed.Encoder), forward_launches(embed.Vae)
+    fus = forward_launches(embed.Fusion)
+    dec = vae["conv3"] - _convs_of(embed.Vae, VAE_ENCODER)
+    if refine:
+        bwd = {"conv3": 2 * dec, "conv3_dk": 2 * dec,
+               "up_k2s2_bwd": 2 * vae["up_k2s2"], "softmax_vjp": 2,
+               "dice_sums_vjp": 2}
+    else:
+        bwd = {"conv3": fus["conv3"] - 1 + dec + enc["conv3"] - 1,
+               "conv3_dk": fus["conv3"] + enc["conv3"],
+               "down_k2s2_bwd": fus["down_k2s2"] + enc["down_k2s2"],
+               "up_k2s2_bwd": fus["up_k2s2"] + vae["up_k2s2"],
+               "softmax_vjp": 2, "dice_sums_vjp": 2}
+    return {k: fwd[k] + bwd.get(k, 0) for k in KERNEL_NAMES}
+
+
+def remaining_methods(torch, ops, run_cli, record_checked, work, data,
+                      manifest, train_data, lists, args, log,
+                      failures) -> dict:
+    """Phase 19 on the default route (the soft step also on the norm
+    route): (a) a soft-ReLU vae_train step at batch 4; (b) a
+    discriminator_train step at batch 4 and a domain_adaptation_dis step
+    at batch 2; (c) an embed_train step (enc_on 1) and a refine_vae step
+    at batch 2; each from seeded full-width weights on phase 5's train
+    cases, held by ``gate_step`` (the default route's steps with a reparam
+    KL over phase 9's four plain orders); ``step_ms``, ``enqueue_ms``, peak memory of 3
+    steps and the profiler's device time; (d) each method through its CLI
+    at 128^3 (target vae_train --softrelu 1, discriminator_train,
+    domain_adaptation_dis; source embed_train with the crop and the
+    sliding-window eval, refine_vae from a seeded Embed checkpoint):
+    launches derived from the model, a loss line a step, scores in [0, 1],
+    checkpoints. Returns the launches of its runs."""
+    import contextlib
+    import io
+
+    from vae_segmentation_tpu_torch import train as T
+    from vae_segmentation_tpu_torch.cli import source_main, target_main
+    from vae_segmentation_tpu_torch.core.checkpoint import save_checkpoint
+    from vae_segmentation_tpu_torch.data.pipeline import (
+        CaseDataset, intensity_normalize)
+    from vae_segmentation_tpu_torch.data.transforms import parse_pan_index
+    from vae_segmentation_tpu_torch.models import (
+        Embed, Joint2, SegUNet, ShapeEncoder, ShapeVAE)
+    t_phase = time.time()
+    launches = {k: 0 for k in KERNEL_NAMES}
+
+    with open(lists) as f:
+        train_entries = json.load(f)["NIH_train"]
+    tds = CaseDataset(train_entries, train_data, parse_pan_index("1"))
+    tcases = [tds[i] for i in range(VAE_BATCH)]
+    img4 = intensity_normalize(torch.stack(
+        [torch.from_numpy(c["image"]) for c in tcases]).cuda()).contiguous()
+    lab4 = torch.stack([torch.from_numpy(c["label"])
+                        for c in tcases]).cuda().contiguous()
+    img2, lab2 = img4[:TRAIN_BATCH], lab4[:TRAIN_BATCH]
+    seed = torch.Generator().manual_seed(args.seed + 19)
+
+    def build(cls, **kw):
+        return cls(generator=seed, **kw).cuda()
+
+    nets = {"vae": build(ShapeVAE, soft=True),
+            "enc": build(ShapeEncoder, dim=1),
+            "joint2": build(Joint2), "embed": build(Embed)}
+    teacher = build(SegUNet)
+    for p_ in teacher.parameters():
+        p_.requires_grad_(False)
+    states = {n: {k: v.detach().clone() for k, v in m.state_dict().items()}
+              for n, m in nets.items()}
+    target = torch.linspace(0.2, 1.0, VAE_BATCH, device="cuda")
+    sched = T.default_sched(TRAIN_LAMBDA)
+    vae_step = T.make_vae_train_step(2, scale=VAE_SCALE)
+    disc_step = T.make_discriminator_step()
+    dis_step = T.make_adapt_dis_step(T.AdaptConfig(n_class=2))
+    embed_step = T.make_embed_train_step(2)
+    refine_step = T.make_refine_vae_step(2)
+    # name: (network, trainable parameters, run(model, opt, gen), expected
+    # launches, frozen prefixes, lr, the route's switches)
+    steps = {
+        "soft_vae_train": (
+            "vae", lambda m: m.parameters(),
+            lambda m, o, g: vae_step(m, o, lab4, g),
+            expected_source_step_launches(nets["vae"], True), (), VAE_LR,
+            ()),
+        "soft_vae_train_norm_route": (
+            "vae", lambda m: m.parameters(),
+            lambda m, o, g: vae_step(m, o, lab4, g),
+            expected_norm_source_step_launches(nets["vae"], True), (),
+            VAE_LR, ("VAESEG_PALLAS",)),
+        "discriminator_train": (
+            "enc", lambda m: m.parameters(),
+            lambda m, o, g: disc_step(m, o, lab4, target),
+            expected_encoder_step_launches(nets["enc"]), (), TRAIN_LR,
+            ()),
+        "domain_adaptation_dis": (
+            "joint2", T.optim.freeze_dis,
+            lambda m, o, g: dis_step(m, teacher, o, img2, lab2, g, sched),
+            expected_adapt_dis_launches(nets["joint2"]), ("Dis.",),
+            TRAIN_LR, ()),
+        "embed_train": (
+            "embed", T.optim.freeze_vae,
+            lambda m, o, g: embed_step(m, o, img2, lab2, g, 1.0),
+            expected_embed_step_launches(nets["embed"], False), ("Vae.",),
+            TRAIN_LR, ()),
+        "refine_vae": (
+            "embed", T.optim.freeze_vae_encoder,
+            lambda m, o, g: refine_step(m, o, img2, lab2, g),
+            expected_embed_step_launches(nets["embed"], True),
+            tuple(f"Vae.{n}." for n in VAE_ENCODER + ("fc_mean", "fc_std"))
+            + ("Encoder.", "Fusion."), TRAIN_LR, ()),
+    }
+
+    def fresh(net, trainable, lr):
+        model = nets[net]
+        model.load_state_dict(states[net])
+        for p_ in model.parameters():
+            p_.requires_grad_(True)
+        return model, T.optim.sgd(trainable(model), lr)
+
+    def step1(name, lr):
+        net, trainable, run, _, frozen, _, _ = steps[name]
+        model, opt = fresh(net, trainable, lr)
+        aux = run(model, opt, torch.Generator(device="cuda").manual_seed(
+            args.seed))
+        torch.cuda.synchronize()
+        now = model.state_dict()
+        update = {k: (now[k] - states[net][k]).float() for k in now
+                  if not k.startswith(frozen) and now[k].is_floating_point()}
+        still = all(torch.equal(v, states[net][k]) for k, v in now.items()
+                    if k.startswith(frozen))
+        return {k: v.item() for k, v in aux.items() if v.dim() == 0}, \
+            update, still
+
+    recs, ok_all, totals = {}, True, {}
+    for name, (net, trainable, run, want, frozen, lr, switches) in \
+            steps.items():
+        with route(*switches):
+            gate, ok, totals[name] = gate_step(
+                ops, record_checked, name,
+                lambda lr=lr: step1(name, lr), want,
+                # the shuffle reorders K1's stats, which the norm route
+                # does not take
+                shuffled=net in ("vae", "embed") and not switches)
+            torch.cuda.empty_cache()
+            model, opt = fresh(net, trainable, lr)
+            gen = torch.Generator(device="cuda").manual_seed(args.seed)
+            timing = timed_steps(torch, ops, lambda i: {
+                k: v for k, v in run(model, opt, gen).items()
+                if v.dim() == 0})
+            profile_step(torch, lambda: run(model, opt, gen),
+                         timing["step_ms"], f"{name}_step_profile", log,
+                         failures)
+            del model, opt
+            torch.cuda.empty_cache()
+        ok = (ok and timing["finite"]
+              and all(c == want for c in timing["launches"]))
+        ok_all = ok_all and ok
+        recs[name] = {
+            **gate, "step_ms": timing["step_ms"],
+            "step_ms_all": timing["step_ms_all"],
+            "enqueue_ms": timing["enqueue_ms"],
+            "peak_memory_bytes": timing["peak_memory_bytes"], "ok": ok}
+        if not ok:
+            failures.append(f"{name} step: {recs[name]}")
+    del nets, teacher, states
+    torch.cuda.empty_cache()
+    emit({"phase": "remaining_steps", "steps": recs, "ok": ok_all}, log)
+
+    # ---- (d) the CLIs: each method at 128^3, one trained epoch (two outer
+    # epochs for domain_adaptation_dis: it takes no step in the first)
+    def cli(fn, argv):
+        nonlocal launches
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            best, secs, got = run_cli(fn, argv)
+        print(out.getvalue(), end="")
+        launches = added(launches, got)
+        return best, secs, got, out.getvalue()
+
+    save_root = os.path.join(work, "3dmodel")
+    for name, m in (("smoke19_enc", ShapeEncoder(dim=1)),
+                    ("smoke19_seg", SegUNet()), ("smoke19_embed", Embed())):
+        save_checkpoint(os.path.join(save_root, name, "best_model.ckpt"),
+                        epoch=0, model=m)
+    argv = ["--save_root", save_root, "--train_list", "NIH_train",
+            "--val_list", "NIH_val", "--data_root", train_data,
+            "--val_data_root", data, "--data_path", lists,
+            "-b", str(TRAIN_BATCH), "--val_batch", "1", "--eval_epoch", "1",
+            "--save_epoch", "1", "--num_workers", "2", "--lr_seg",
+            str(TRAIN_LR), "--device", "cuda"]
+    n_steps = len(train_entries) // TRAIN_BATCH
+    vae, enc = ShapeVAE(soft=True), ShapeEncoder(dim=1)
+    joint2, embed = Joint2(), Embed()
+    vae_step_n = expected_source_step_launches(vae, True)
+    # the crop eval's and the sliding window's forward: Embed.segment
+    emb_eval = embed_segment_launches(embed)
+    runs = {
+        "smoke19_tv": (target_main.main, [
+            "--method", "vae_train", "--softrelu", "1", "--max_epoch", "1",
+            "--lr_seg", str(VAE_LR)], 1,
+            added(scaled(vae_step_n, n_steps),
+                  scaled(forward_launches(vae), args.cases)), 2),
+        "smoke19_dt": (target_main.main, [
+            "--method", "discriminator_train", "--max_epoch", "1"], 1,
+            added(scaled(expected_encoder_step_launches(enc), n_steps),
+                  scaled(forward_launches(enc), args.cases)), 1),
+        "smoke19_dd": (target_main.main, [
+            "--method", "domain_adaptation_dis", "--max_epoch", "2",
+            "--load_prefix", "smoke19_seg", "--load_prefix_encoder",
+            "smoke19_enc", "--lambda_vae", str(TRAIN_LAMBDA)], 2,
+            added(scaled(expected_adapt_dis_launches(joint2), n_steps),
+                  scaled(forward_launches(joint2.Seg), 2 * args.cases)), 3),
+        "smoke19_em": (source_main.main, [
+            "--method", "embed_train", "--max_epoch", "1"], 1,
+            added(scaled(expected_embed_step_launches(embed, False),
+                         n_steps), scaled(emb_eval, args.cases)), 5),
+        "smoke19_emsw": (source_main.main, [
+            "--method", "embed_train", "--max_epoch", "1", "--eval_mode",
+            "sliding_window"], 1,
+            added(scaled(expected_embed_step_launches(embed, False),
+                         n_steps),
+                  scaled(emb_eval, args.cases)), 5),
+        "smoke19_rv": (source_main.main, [
+            "--method", "refine_vae", "--max_epoch", "1",
+            "--load_prefix_joint", "smoke19_embed"], 1,
+            added(scaled(expected_embed_step_launches(embed, True),
+                         n_steps), scaled(emb_eval, args.cases)), 3),
+    }
+    del vae, enc, joint2, embed
+    c_recs, c_ok = {}, True
+    for prefix, (fn, extra, epochs, want, terms) in runs.items():
+        best, secs, got, out = cli(fn, [prefix, *extra, *argv])
+        lines = re.findall(r"^\[\s*\d+,\s*\d+\] loss: (.*)$", out, re.M)
+        scores = read_scores(work, prefix, range(epochs))
+        ok = (got == want and len(lines) == n_steps
+              and all(len(ln.split(", ")) == terms for ln in lines)
+              and len(scores) == epochs
+              and all(len(sc) == args.cases
+                      and all(0.0 <= v <= 1.0 for v in sc.values())
+                      for sc in scores)
+              and 0.0 <= best <= 1.0
+              and len(saved_checkpoints(work, prefix)) >= 2)
+        c_ok = c_ok and ok
+        c_recs[prefix] = {"seconds": secs, "best": best, "scores": scores,
+                          "loss_lines": lines, "launches": got,
+                          "launches_expected": want, "ok": ok}
+    if not c_ok:
+        failures.append(f"the CLIs' remaining methods: {c_recs}")
+    emit({"phase": "remaining_cli", "runs": c_recs, "ok": c_ok}, log)
+    for name in REMAINING_KERNELS:
+        if launches[name] == 0:
+            failures.append(f"{name} was never launched on the CLI runs of "
+                            "phase 19")
+    emit({"phase": "remaining_methods_seconds",
           "seconds": time.time() - t_phase}, log)
     return {"launches": launches, "step_totals": totals}
 
@@ -5051,10 +5394,17 @@ def main() -> int:
                                  work, data, manifest, train_data, lists,
                                  args, log, failures)
         serving_launches = sm["launches"]
+
+        # ---- 19. the Joint's last models and methods: the soft-ReLU VAE,
+        # the discriminator methods and Embed's, their steps and CLIs
+        rm = remaining_methods(torch, ops, run_cli, record_checked, work,
+                               data, manifest, train_data, lists, args, log,
+                               failures)
+        remaining_launches = rm["launches"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 19. summary lines: K1-K3 per eval forward (phase 2), the backward
+    # ---- 20. summary lines: K1-K3 per eval forward (phase 2), the backward
     # and loss kernels per adaptation step (phase 5), reparam_kl per
     # vae_train step (phase 7); the kernels of an opt-in route per pass of
     # that route, and their launches counted on its runs: norm_stats and
@@ -5119,12 +5469,15 @@ def main() -> int:
         else:
             rec.update(launches=eval_launches[name] + train_launches[name]
                        + test_time_launches[name] + later_launches[name]
-                       + serving_launches[name],
+                       + serving_launches[name]
+                       + remaining_launches[name],
                        launches_eval_path=eval_launches[name],
                        launches_train_path=train_launches[name],
                        launches_test_time_path=test_time_launches[name],
                        launches_later_flags_path=later_launches[name],
                        launches_serving_and_methods_path=serving_launches[
+                           name],
+                       launches_remaining_methods_path=remaining_launches[
                            name])
             if train_launches[name] == 0 or \
                     (name in PER_FORWARD and eval_launches[name] == 0):
@@ -5187,6 +5540,8 @@ def main() -> int:
           "per_replay_step": lf["replay_totals"]}, log)
     emit({"phase": "joint_source_step_totals",
           "per_step": sm["step_totals"]}, log)
+    emit({"phase": "remaining_step_totals",
+          "per_step": rm["step_totals"]}, log)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump({"records": log, "kernels": kernels, "failures": failures,

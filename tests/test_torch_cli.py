@@ -1,6 +1,6 @@
 """The port's eval entry point and its host side: the target CLI end to end
 on the CPU (``--device cpu``, synthetic cases at 32^3, full width), the
-device rule, flag combinations not ported yet, import hygiene, and the
+device rule, the eval of its other methods, import hygiene, and the
 losses / data copies against the JAX package's."""
 
 import json
@@ -25,7 +25,7 @@ from vae_segmentation_tpu_torch.data import pipeline as pp
 from vae_segmentation_tpu_torch.data.synthetic import write_synthetic_dataset
 from vae_segmentation_tpu_torch.eval.evaluate import (
     make_joint_eval_step, run_eval)
-from vae_segmentation_tpu_torch.models import Joint, load_state
+from vae_segmentation_tpu_torch.models import Joint, ShapeEncoder, load_state
 from vae_segmentation_tpu_torch.ops import losses as PL
 from vae_segmentation_tpu_torch.ops.kernels import build
 
@@ -89,16 +89,38 @@ def test_cli_without_gpu_or_cpu_request_raises(workdir):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-# what stays refused (item 11e), alone and beside the eval outputs ported
-# since (tests/test_torch_eval_outputs.py)
+def _method_argv(root, method, *extra):
+    """The eval of `method` (--test_only) on the workdir's val cases."""
+    return ["ev_" + method, "--method", method, "--test_only",
+            "--val_list", "NIH_val", "--val_data_root", str(root / "data"),
+            "--data_path", str(root / "data" / "Multi_all.json"),
+            "--patch_size", "32", "32", "32", "--device", "cpu", *extra]
+
+
+def _scores_of(prefix):
+    with open(f"tensorboard/{prefix}/score_0.json") as f:
+        return {int(k): v for k, v in json.load(f).items()}
+
+
+# what was refused until ROADMAP item 11e landed, alone and beside the
+# eval outputs ported before (tests/test_torch_eval_outputs.py): each runs
+# the eval of the method that has an encoder
 @pytest.mark.parametrize("extra", [
     ["--load_prefix_encoder", "enc"],
     ["--method", "domain_adaptation_dis", "--profile_dir", "prof"],
     ["--method", "discriminator_train", "--save_eval_result"],
 ])
 def test_cli_unported_flags_raise(workdir, extra):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        target_main.main(_argv(workdir, "--device", "cpu", *extra))
+    if extra[0] != "--method":
+        save_checkpoint("3dmodel/enc/best_model.ckpt", epoch=0,
+                        model=ShapeEncoder(bottleneck=256))
+        extra = ["--method", "domain_adaptation_dis", *extra]
+    target_main.main(_method_argv(workdir, *extra[1:]))
+    scores = _scores_of("ev_" + extra[1])
+    assert sorted(scores) == [0, 1, 2]
+    assert all(0.0 <= v <= 1.0 for v in scores.values())
+    if "--profile_dir" in extra:
+        assert os.path.exists(os.path.join("prof", "trace.json"))
 
 
 def test_cli_spatial_shards_needs_a_world_of_ranks(workdir):
@@ -147,14 +169,18 @@ def test_cli_eval_from_separate_checkpoints_and_resume(workdir):
 
 
 def test_cli_unported_methods_raise(workdir):
-    argv = _argv(workdir, "--device", "cpu")
-    argv[2] = "vae_train"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        target_main.main(argv)
-    argv = [a for a in _argv(workdir, "--device", "cpu") if a != "--test_only"]
-    argv[2] = "discriminator_train"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        target_main.main(argv)
+    """The target CLI's vae_train (ROADMAP item 11h) and
+    discriminator_train (11e), once refused, run: vae_train's eval from the
+    Joint checkpoint's VAE (--load_prefix_joint of a composite loads its
+    part into a bare network), discriminator_train's from the seed
+    weights; a score per case in [0, 1]."""
+    for method, extra in (("vae_train", ("--load_prefix_joint", "jp")),
+                          ("discriminator_train", ())):
+        dsc = target_main.main(_method_argv(workdir, method, *extra))
+        scores = _scores_of("ev_" + method)
+        assert sorted(scores) == [0, 1, 2]
+        assert all(0.0 <= v <= 1.0 for v in scores.values())
+        assert dsc == pytest.approx(np.mean(list(scores.values())))
 
 
 @pytest.mark.parametrize("extra,item", [
@@ -164,12 +190,22 @@ def test_cli_unported_methods_raise(workdir):
     (["--method", "vae_train"], "item 11h"),
 ])
 def test_cli_refusals_name_their_item_letter(workdir, extra, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}$"):
-        target_main.main(_argv(workdir, "--device", "cpu", *extra))
-    if extra[0] == "--method":
-        with pytest.raises(ValueError, match="valid method"):
-            target_main.main(_argv(workdir, "--device", "cpu", "--method",
-                                   "no_such_method"))
+    """Each method and flag the CLI refused until its ROADMAP item landed
+    (`item`) now runs: the method's eval, --load_prefix_encoder with the
+    method that has an encoder (domain_adaptation_dis, its Dis from a
+    ShapeEncoder checkpoint). An unknown method still raises."""
+    method = extra[1] if extra[0] == "--method" else "domain_adaptation_dis"
+    if extra[0] == "--load_prefix_encoder":
+        save_checkpoint("3dmodel/enc/best_model.ckpt", epoch=0,
+                        model=ShapeEncoder(bottleneck=256))
+        extra = ["--method", method, *extra]
+    target_main.main(_method_argv(workdir, method, *extra[2:]))
+    scores = _scores_of("ev_" + method)
+    assert sorted(scores) == [0, 1, 2]
+    assert all(0.0 <= v <= 1.0 for v in scores.values())
+    with pytest.raises(ValueError, match="valid method"):
+        target_main.main(_argv(workdir, "--device", "cpu", "--method",
+                               "no_such_method"))
 
 
 def test_port_imports_no_jax_and_no_jax_package():

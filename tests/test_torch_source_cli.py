@@ -3,15 +3,16 @@ and the chain it starts, on the CPU (``--device cpu``) at 32^3, full width,
 with the augmentation warp on: ``vae_train`` then ``seg_train`` train two
 outer epochs each (seg_train takes no step in the first, as the reference),
 then the target CLI adapts from their two checkpoints. Also: the flags and
-methods not ported yet raise NotImplementedError naming their ROADMAP
-item (11d, 11f), and the target CLI's ``--vae_forward_scale`` is accepted and
-changes nothing (the JAX package's Joint always encodes with the mean
-latent)."""
+methods ported by ROADMAP items 11d and 11f (``--softrelu 1``,
+``embed_train``, ``refine_vae``) run beside the flags ported before, and
+the target CLI's ``--vae_forward_scale`` is accepted and changes nothing
+(the JAX package's Joint always encodes with the mean latent)."""
 
 import contextlib
 import io
 import json
 import os
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -19,8 +20,10 @@ import torch
 
 from vae_segmentation_tpu.core.config import parse_source_args as jparse
 from vae_segmentation_tpu_torch.cli import source_main, target_main
+from vae_segmentation_tpu_torch.core.checkpoint import save_checkpoint
 from vae_segmentation_tpu_torch.core.config import parse_source_args
 from vae_segmentation_tpu_torch.data.synthetic import write_synthetic_dataset
+from vae_segmentation_tpu_torch.models import Embed, ShapeVAE
 from vae_segmentation_tpu_torch.ops import reparam
 
 torch.set_num_threads(2)
@@ -173,9 +176,21 @@ def test_the_warp_changes_the_step(workdir):
     assert losses[0] != losses[1]
 
 
-# what stays refused (items 11d and 11f; the letters are checked by
-# test_refusals_name_their_item_letter), alone and beside the flags ported
-# since (the Joint methods, --load_prefix_joint, the eval outputs)
+def _checkpoints_for(extra):
+    """The checkpoints a case loads: an Embed's ('j'), a VAE's ('vae')."""
+    if "--load_prefix_joint" in extra and \
+            not os.path.exists("3dmodel/j/best_model.ckpt"):
+        save_checkpoint("3dmodel/j/best_model.ckpt", epoch=0,
+                        model=Embed(bottleneck=256))
+    if "--load_prefix_vae" in extra and \
+            not os.path.exists("3dmodel/vae/best_model.ckpt"):
+        save_checkpoint("3dmodel/vae/best_model.ckpt", epoch=0,
+                        model=ShapeVAE(bottleneck=256))
+
+
+# what was refused until ROADMAP items 11d and 11f landed, alone and beside
+# the flags ported before (the Joint methods' --load_prefix_joint, the eval
+# outputs, the profiler): each now trains one outer epoch and evaluates
 @pytest.mark.parametrize("extra,item", [
     (["--method", "embed_train"], "item 11"),
     (["--method", "vae_train", "--softrelu", "1"], "item 11"),
@@ -187,8 +202,17 @@ def test_the_warp_changes_the_step(workdir):
      "item 11"),
 ])
 def test_unported_flags_and_methods_raise(workdir, extra, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        source_main.main(["x", *_common(workdir), *extra])
+    _checkpoints_for(extra)
+    prefix = "u" + "_".join(a.strip("-") for a in extra)
+    best = source_main.main([prefix, *_common(workdir), *extra,
+                             "--max_epoch", "1"])
+    scores = _scores(prefix, 0)
+    assert sorted(scores) == ["0", "1"]
+    assert all(0.0 <= v <= 1.0 for v in scores.values())
+    assert best == pytest.approx(np.mean(list(scores.values())))
+    assert "model_epoch1.ckpt" in _checkpoints(prefix)
+    if "--profile_dir" in extra:
+        assert os.path.exists(os.path.join("prof", "trace.json"))
 
 
 @pytest.mark.parametrize("extra,item", [
@@ -198,8 +222,24 @@ def test_unported_flags_and_methods_raise(workdir, extra, item):
     (["--method", "joint_train", "--softrelu", "1"], "item 11d"),
 ])
 def test_refusals_name_their_item_letter(workdir, extra, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}$"):
-        source_main.main(["x", *_common(workdir), *extra])
+    """Each method and flag refused until its ROADMAP item (`item`) landed
+    now runs (its eval, --test_only); --softrelu 1 changes only
+    vae_train's model (its VAE's blocks soft), as in the JAX package."""
+    built = []
+    real = source_main._build_model
+
+    def spy(cfg, n_class):
+        built.append(real(cfg, n_class))
+        return built[-1]
+
+    prefix = "l" + "_".join(a.strip("-") for a in extra)
+    with mock.patch.object(source_main, "_build_model", spy):
+        source_main.main([prefix, *_common(workdir), *extra, "--test_only"])
+    scores = _scores(prefix, 0)
+    assert sorted(scores) == ["0", "1"]
+    assert all(0.0 <= v <= 1.0 for v in scores.values())
+    softs = {m.soft for m in built[0].modules() if hasattr(m, "soft")}
+    assert softs == {extra[1] == "vae_train"}
 
 
 @pytest.mark.parametrize("extra,match", [

@@ -298,15 +298,44 @@ def test_cli_trains_two_outer_epochs(workdir, capsys, monkeypatch):
         assert dsc == pytest.approx(np.mean(list(json.load(f).values())))
 
 
-# what stays refused (items 11e, 11h), beside --save_more_reference,
-# ported since
+def _without(argv, *flags):
+    """argv less each of `flags` and its value."""
+    out = []
+    for a in argv:
+        if out and out[-1] in flags:
+            out.pop()
+            continue
+        out.append(a)
+    return out
+
+
+# what was refused until ROADMAP items 11e and 11h landed, beside
+# --save_more_reference, ported before: --load_prefix_encoder trains
+# domain_adaptation_dis (the Dis from a ShapeEncoder checkpoint, the Seg
+# from --load_prefix; it has no VAE), vae_train trains a VAE from its seed
+# weights (it has no SegUNet): two outer epochs each, scored and saved
 @pytest.mark.parametrize("extra,item", [
     (["--load_prefix_encoder", "enc"], "item 11"),
     (["--method", "vae_train", "--save_more_reference"], "item 11"),
 ])
 def test_cli_training_flags_of_later_slices_raise(workdir, extra, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        target_main.main(_train_argv(workdir, *extra))
+    argv = _train_argv(workdir, *extra)
+    if extra[0] == "--load_prefix_encoder":
+        save_checkpoint("3dmodel/enc/best_model.ckpt", epoch=0,
+                        model=pm.ShapeEncoder(bottleneck=256))
+        argv = _without(argv, "--load_prefix_vae", "--method") \
+            + ["--method", "domain_adaptation_dis"]
+    else:
+        argv = _without(argv, "--load_prefix", "--load_prefix_vae")
+    argv[0] = "later_" + extra[0].strip("-")
+    best = target_main.main(argv)
+    for epoch in (0, 1):
+        with open(f"tensorboard/{argv[0]}/score_{epoch}.json") as f:
+            scores = json.load(f)
+        assert sorted(scores) == ["0", "1"]
+        assert all(0.0 <= v <= 1.0 for v in scores.values())
+    assert 0.0 <= best <= 1.0
+    assert os.path.exists(f"3dmodel/{argv[0]}/model_epoch2.ckpt")
 
 
 def test_cli_training_spatial_shards_needs_a_world_of_ranks(workdir):

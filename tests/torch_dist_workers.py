@@ -225,3 +225,54 @@ def cli(rank, world, which, argv, cwds):
     with contextlib.redirect_stdout(out):
         res = (source_main if which == "source" else target_main).main(argv)
     return res, out.getvalue()
+
+
+def adapt_dis_step(rank, world, n_data, n_spatial, spec):
+    """One domain_adaptation_dis step of a Joint2 from spec['state'] with a
+    teacher SegUNet from spec['teacher'], SGD with the Dis frozen, on this
+    rank's slice: loss terms, the gradients (rank 0's) and their digests,
+    whether the Dis moved."""
+    mesh = _mesh(world, n_data, n_spatial)
+    model = pm.Joint2(n_class=2, fmaps=spec["fmaps"],
+                      bottleneck=spec["bottleneck"], dtype=torch.float32)
+    pm.load_state(model, {k: torch.from_numpy(v)
+                          for k, v in spec["state"].items()})
+    teacher = pm.SegUNet(n_class=2, fmaps=spec["fmaps"], dtype=torch.float32)
+    pm.load_state(teacher, {k: torch.from_numpy(v)
+                            for k, v in spec["teacher"].items()})
+    dis0 = {k: v.clone() for k, v in model.Dis.state_dict().items()}
+    opt = pt.optim.sgd(pt.optim.freeze_dis(model), spec["lr"])
+    img = torch.from_numpy(spec["image"])
+    lab = torch.from_numpy(spec["label"])
+    if mesh is not None:
+        img, lab = S.batch_shard(mesh, img), S.batch_shard(mesh, lab)
+    with S.active(mesh):
+        aux = pt.make_adapt_dis_step(pt.AdaptConfig(n_class=2))(
+            model, teacher, opt, img, lab, torch.Generator().manual_seed(0),
+            pt.default_sched(spec.get("lambda_vae", 1.0)))
+    grads = {k: p.grad for k, p in model.named_parameters()
+             if p.grad is not None}
+    return {"aux": {k: float(v) for k, v in aux.items()},
+            "grads": grads if rank == 0 else None,
+            "grad_digest": {k: _digest(g) for k, g in grads.items()},
+            "dis_unmoved": all(torch.equal(v, dis0[k]) for k, v in
+                               model.Dis.state_dict().items())}
+
+
+def dis_input_grad(rank, world, n_data, n_spatial, spec):
+    """1 - the batch mean of a ShapeEncoder's scores of this rank's slice of
+    spec['x'], and its gradient in that slice."""
+    from vae_segmentation_tpu_torch.train import steps as ST
+
+    mesh = _mesh(world, n_data, n_spatial)
+    enc = pm.ShapeEncoder(dim=1, fmaps=spec["fmaps"],
+                          bottleneck=spec["bottleneck"], dtype=torch.float32,
+                          generator=torch.Generator().manual_seed(1))
+    x = torch.from_numpy(spec["x"])
+    if mesh is not None:
+        x = S.batch_shard(mesh, x)
+    x.requires_grad_(True)
+    with S.active(mesh):
+        loss = 1.0 - ST._batch_mean(enc(x))
+    loss.backward()
+    return {"loss": float(loss.detach()), "grad": x.grad}

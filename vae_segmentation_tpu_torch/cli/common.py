@@ -62,12 +62,6 @@ from vae_segmentation_tpu_torch.parallel import launch, sharding
 from vae_segmentation_tpu_torch.parallel.sharding import Mesh
 
 
-def todo(what: str, item: str) -> None:
-    """Refuse a flag or method a later slice of the port brings."""
-    raise NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md queue 1, {item}")
-
-
 def start(cfg: CommonConfig):
     """(world, mesh, device) of the run: torchrun's world
     (``launch.init_distributed``) and its mesh, or (None, None, the

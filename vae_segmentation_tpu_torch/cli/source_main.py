@@ -54,9 +54,17 @@ package's mesh (``cli/common.py::start``; ``--spatial_shards`` splits the
 volume's D axis): each step on a rank's slice, the gradients averaged over
 the mesh, the eval on rank 0, which alone prints and writes.
 
-The other methods (``embed_train``, ``refine_vae``) and ``--softrelu 1``
-raise NotImplementedError naming their ROADMAP item. It runs on
-``--device cuda`` unless told otherwise.
+Embed's methods (main_source.py:546-635): ``embed_train`` (the image
+Encoder, the Fusion and the frozen VAE of the latent-space segmentation;
+the Encoder's gradient counts on odd outer epochs only) and
+``refine_vae`` (the VAE's decoder refined on the ground truth's and the
+decoded latent's reconstructions, its encoder frozen); ``--load_prefix_vae``
+loads the Embed's VAE, ``--load_prefix_joint`` the whole Embed; the eval
+scores the Fusion's test-mode prediction (``Embed.segment`` through
+``eval/evaluate.py::make_seg_eval_step``), as the sliding window does.
+``--softrelu 1`` makes vae_train's VAE the soft-ReLU one (softplus after
+each norm) and changes no other method's model, as in the JAX package.
+It runs on ``--device cuda`` unless told otherwise.
 """
 
 from __future__ import annotations
@@ -68,7 +76,6 @@ import numpy as np
 import torch
 
 from vae_segmentation_tpu_torch.cli import common
-from vae_segmentation_tpu_torch.cli.common import todo
 from vae_segmentation_tpu_torch.core.config import (
     SourceConfig, parse_source_args)
 from vae_segmentation_tpu_torch.data.pipeline import intensity_normalize
@@ -76,17 +83,20 @@ from vae_segmentation_tpu_torch.eval.evaluate import (
     make_joint_eval_step, make_seg_eval_step, make_vae_eval_step,
     mean_score, record_scores)
 from vae_segmentation_tpu_torch.models import (
-    Joint, SegUNet, ShapeVAE, load_component, load_network, load_state)
+    Embed, Joint, SegUNet, ShapeVAE, load_component, load_network,
+    load_state)
 from vae_segmentation_tpu_torch.obs.saver import mid_slice_panel, to_numpy
 from vae_segmentation_tpu_torch.ops import losses as L
 from vae_segmentation_tpu_torch.parallel import collectives, sharding
 from vae_segmentation_tpu_torch.train import (
     AdaptConfig, copy_params, default_sched, make_cached_pseudo_adapt_step,
-    make_joint_train_step, make_seg_train_step, make_sep_joint_train_step,
-    make_vae_train_step, optim)
+    make_embed_train_step, make_joint_train_step, make_refine_vae_step,
+    make_seg_train_step, make_sep_joint_train_step, make_vae_train_step,
+    optim)
 
 JOINT_METHODS = ("joint_train", "domain_adaptation", "sep_joint_train")
-METHODS = ("vae_train", "seg_train") + JOINT_METHODS
+EMBED_METHODS = ("embed_train", "refine_vae")
+METHODS = ("vae_train", "seg_train") + JOINT_METHODS + EMBED_METHODS
 # the loss terms of a method's train line (source_main.py:469-478 of the JAX
 # package)
 PRINT_KEYS = {"vae_train": ("dice_loss", "kl_loss"),
@@ -94,22 +104,26 @@ PRINT_KEYS = {"vae_train": ("dice_loss", "kl_loss"),
               "joint_train": ("recon_loss", "dice_loss"),
               "domain_adaptation": ("recon_loss", "dice_loss_fake",
                                     "dice_loss"),
-              "sep_joint_train": ("recon_loss", "dice_loss")}
+              "sep_joint_train": ("recon_loss", "dice_loss"),
+              "embed_train": ("dice_loss1", "dice_loss2", "mse_loss",
+                              "inpaint_loss", "recon_loss"),
+              "refine_vae": ("recon_loss", "inpaint_loss", "init_loss")}
 # the reference's fixed dict key of every display panel (main_source.py:115)
 LABEL_KEY = "venous_pancreas"
 
 
 def _check_supported(cfg: SourceConfig) -> None:
-    if cfg.method in ("embed_train", "refine_vae"):
-        todo(f"--method {cfg.method} (FusionNet, Embed)", "item 11f")
     if cfg.method not in METHODS:
         raise ValueError(f"--method {cfg.method}: try a valid method")
-    if cfg.softrelu == 1:
-        todo("--softrelu 1 (the soft-ReLU VAE)", "item 11d")
     if cfg.method == "vae_train" and cfg.load_prefix:
         raise ValueError("--load_prefix loads a SegUNet; vae_train trains a "
                          "ShapeVAE (start it with --load_prefix_vae)")
-    if cfg.load_prefix_joint and cfg.method not in JOINT_METHODS:
+    if cfg.method in EMBED_METHODS and cfg.load_prefix:
+        raise ValueError(f"--load_prefix loads a SegUNet; {cfg.method} "
+                         "trains an Embed, which has none (give "
+                         "--load_prefix_vae or --load_prefix_joint)")
+    if cfg.load_prefix_joint and cfg.method not in JOINT_METHODS \
+            + EMBED_METHODS:
         raise ValueError(f"--load_prefix_joint loads a Joint; {cfg.method} "
                          "trains a " + ("ShapeVAE" if cfg.method ==
                                         "vae_train" else "SegUNet"))
@@ -127,9 +141,12 @@ def _build_model(cfg: SourceConfig, n_class: int) -> torch.nn.Module:
     bott = common.bottleneck_for(cfg.patch_size)
     if cfg.method == "vae_train":
         return ShapeVAE(n_class=n_class, dim=128, bottleneck=bott,
-                        generator=gen)
+                        generator=gen, soft=cfg.softrelu == 1)
     if cfg.method == "seg_train":
         return SegUNet(n_class=n_class, generator=gen)
+    if cfg.method in EMBED_METHODS:
+        return Embed(n_class=n_class, dim=128, bottleneck=bott,
+                     generator=gen)
     return Joint(n_class=n_class, dim=128, bottleneck=bott, generator=gen)
 
 
@@ -140,8 +157,10 @@ def _load_prefix(cfg: SourceConfig, model: torch.nn.Module
     --load_prefix, and --load_prefix_vae as the reference VAE of its eval
     panels and dumps (returned, mean latent, no gradient); a Joint method:
     --load_prefix into its Seg, --load_prefix_vae into its Vae, then
-    --load_prefix_joint into the whole. Each checkpoint is of that network
-    alone or of a Joint (its Seg.* / Vae.*)."""
+    --load_prefix_joint into the whole; an Embed method: --load_prefix_vae
+    into its Vae, then --load_prefix_joint into the whole. Each
+    checkpoint is of that network alone or of a composite (its Seg.* /
+    Vae.*)."""
     ref_vae = None
     if cfg.method == "vae_train":
         if cfg.load_prefix_vae:
@@ -166,8 +185,9 @@ def _load_prefix(cfg: SourceConfig, model: torch.nn.Module
     return None
 
 
-def _load_joint_parts(cfg: SourceConfig, joint: Joint) -> None:
-    """--load_prefix into the Joint's Seg, --load_prefix_vae into its Vae."""
+def _load_joint_parts(cfg: SourceConfig, joint: torch.nn.Module) -> None:
+    """--load_prefix into the Joint's Seg, --load_prefix_vae into its Vae
+    (an Embed's: its Vae)."""
     if cfg.load_prefix:
         load_component(joint, common.load(cfg, cfg.load_prefix,
                                           cfg.checkpoint_name), "Seg")
@@ -287,7 +307,7 @@ def _seg_fn(method: str):
     package)."""
     if method == "seg_train":
         return lambda net, x: net(x)
-    return lambda net, x: net.segment(x)
+    return lambda net, x: net.segment(x)   # Joint's and Embed's
 
 
 def run(cfg: SourceConfig) -> float:
@@ -319,6 +339,10 @@ def _train_step(cfg: SourceConfig, n_class: int):
         return make_seg_train_step(n_class)
     if m == "joint_train":
         return make_joint_train_step(n_class)
+    if m == "embed_train":
+        return make_embed_train_step(n_class)
+    if m == "refine_vae":
+        return make_refine_vae_step(n_class)
     if m == "domain_adaptation":
         return make_cached_pseudo_adapt_step(_adapt_cfg(cfg, n_class))
     return make_sep_joint_train_step(n_class)
@@ -353,7 +377,12 @@ def _run(cfg: SourceConfig, device: torch.device, mesh, runner) -> float:
         sharding.replicate(mesh, model)
         if teacher is not None:
             sharding.replicate(mesh, teacher)
-    trainable = optim.freeze_vae(model) if m in JOINT_METHODS \
+    # embed_train: the VAE frozen, the Encoder's gradient switched by the
+    # step; refine_vae: the VAE's encoder half (cli/source_main.py:91-103
+    # of the JAX package)
+    trainable = optim.freeze_vae(model) \
+        if m in JOINT_METHODS + ("embed_train",) \
+        else optim.freeze_vae_encoder(model) if m == "refine_vae" \
         else model.parameters()
     optimizer = optim.build(trainable, cfg.adam, cfg.lr_seg,
                             weight_decay=cfg.weight_decay)
@@ -362,16 +391,19 @@ def _run(cfg: SourceConfig, device: torch.device, mesh, runner) -> float:
         eval_step = make_vae_eval_step(model, n_class)
     elif m == "seg_train":
         eval_step = make_seg_eval_step(model, n_class)
+    elif m in EMBED_METHODS:
+        eval_step = make_seg_eval_step(model.segment, n_class)
     else:
         eval_step = make_joint_eval_step(model, n_class)
     def restore(ck):
-        if m in JOINT_METHODS:
+        if m in JOINT_METHODS + EMBED_METHODS:
             load_state(model, ck)
         else:
             load_network(model, ck, "Vae" if m == "vae_train" else "Seg")
 
     start_epoch = common.resume(cfg, runner, restore)
-    # draws the warp and, for vae_train, the reparam seeds
+    # draws the warp and, for vae_train and the Embed methods, the reparam
+    # seeds
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
     cache = PseudoCache(cfg, mesh) if m == "domain_adaptation" else None
     iters = common.iterations_per_epoch(cfg)
@@ -404,7 +436,7 @@ def _run(cfg: SourceConfig, device: torch.device, mesh, runner) -> float:
                                 f"epoch {(epoch + 1) * cfg.eval_epoch} "
                                 "(eval)")
             if cfg.save_more_reference and not cfg.test_only and \
-                    m != "vae_train":
+                    m not in ("vae_train",) + EMBED_METHODS:
                 display[LABEL_KEY + "_display_train"] = \
                     _train_display_panel(cfg, n_class, eval_step, ref_vae,
                                          epoch)
@@ -441,6 +473,13 @@ def _train_epoch(cfg: SourceConfig, epoch: int, loader, step, ingest, model,
                 metrics = step(model, optimizer, image, label)
             elif m == "joint_train":
                 metrics = step(model, optimizer, image, label, sched)
+            elif m == "embed_train":
+                # the Encoder learns on odd outer epochs (main_source.py:
+                # 551-555)
+                metrics = step(model, optimizer, image, label, generator,
+                               float(epoch % 2))
+            elif m == "refine_vae":
+                metrics = step(model, optimizer, image, label, generator)
             elif m == "domain_adaptation":
                 metrics = step(model, optimizer, image, label, pseudo, sched)
             else:
@@ -468,7 +507,8 @@ def _crop_eval(cfg: SourceConfig, m: str, n_class: int, val_ds, device,
     the one-hot label (``_gt_recon.npy``)."""
     scores: Dict[int, float] = {}
     display: Dict[str, np.ndarray] = {}
-    dump = cfg.save_eval_result and epoch % 10 == 0 and m != "vae_train"
+    dump = cfg.save_eval_result and epoch % 10 == 0 and \
+        m not in ("vae_train",) + EMBED_METHODS
     for batch in common.val_batches(val_ds, cfg.val_batch, device):
         image, label, index = batch["image_norm"], batch["label"], \
             batch["index"]

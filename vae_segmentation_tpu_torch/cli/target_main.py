@@ -1,5 +1,5 @@
 """Target-domain CLI of the port (counterpart of vae_segmentation_tpu/cli/
-target_main.py), ``--method domain_adaptation``:
+target_main.py), its flagship ``--method domain_adaptation``:
 
     python -m vae_segmentation_tpu_torch.cli.target_main <prefix> \\
         --method domain_adaptation \\
@@ -60,9 +60,26 @@ stops the run with FloatingPointError at the first loss term or score
 that is not finite (``cli/common.py::nan_guard``).
 
 ``--vae_forward_scale`` is accepted and changes nothing, as in the JAX
-package (its Joint always encodes with the mean latent). Every other
-method, and the flags of later slices, raise NotImplementedError naming
-the ROADMAP item that will port them.
+package (its Joint always encodes with the mean latent).
+
+The other methods (main_target.py:316-344): ``vae_train`` trains a
+ShapeVAE on the target's ground-truth masks (``make_vae_train_step``,
+the soft-ReLU VAE with ``--softrelu 1``; ``--load_prefix_joint`` starts
+it from a VAE checkpoint), scored by its
+reconstruction's Dice; ``discriminator_train`` trains a ShapeEncoder
+(``--load_prefix_encoder`` or ``--load_prefix_joint`` start it) to
+score the warped masks against each case's realism score, read from
+``<data_root>/score.json`` (case id -> score, 1.0 where absent), and
+scores each val case 1 - its squared error; ``domain_adaptation_dis``
+adapts a Joint2 (Seg + the frozen discriminator, ``--load_prefix_encoder``
+its Dis, ``--load_prefix`` its Seg) with the discriminator's score in place
+of the VAE's reconstruction loss, against a teacher SegUNet (the EMA, the
+epoch-0 skip and ``--pseudo_list``'s teacher copies as
+domain_adaptation's, with no replay step). ft1, the analysis figures,
+the source replay and ``--load_prefix_vae`` are domain_adaptation's; the
+other methods ignore them, as the JAX package's do. ``--load_prefix`` or
+``--load_prefix_encoder`` for a network the method has not raises
+ValueError (the JAX package's load fails on the missing subtree).
 
 Under ``torchrun --nproc_per_node N`` the ranks train as the JAX package's
 mesh (``cli/common.py::start``; ``--spatial_shards S`` splits the volume's
@@ -75,6 +92,8 @@ in one process, which alone prints and writes.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
 from typing import Dict, List, Optional
 
@@ -82,40 +101,51 @@ import numpy as np
 import torch
 
 from vae_segmentation_tpu_torch.cli import common
-from vae_segmentation_tpu_torch.cli.common import todo
 from vae_segmentation_tpu_torch.core.config import (
     TargetConfig, parse_target_args)
+from vae_segmentation_tpu_torch.data.manifest import (
+    case_id, filedict_from_json)
 from vae_segmentation_tpu_torch.data.pipeline import (
     TrainLoader, intensity_normalize)
 from vae_segmentation_tpu_torch.eval.evaluate import (
-    make_analysis_metrics_step, make_joint_eval_step, mean_score,
-    record_scores)
+    make_analysis_metrics_step, make_discriminator_eval_step,
+    make_joint_eval_step, make_seg_eval_step, make_vae_eval_step,
+    mean_score, record_scores)
 from vae_segmentation_tpu_torch.models import (
-    Joint, load_component, load_state)
+    Joint, Joint2, SegUNet, ShapeEncoder, ShapeVAE, load_component,
+    load_network, load_state)
 from vae_segmentation_tpu_torch.obs import draw
 from vae_segmentation_tpu_torch.obs.saver import mid_slice_panel, to_numpy
 from vae_segmentation_tpu_torch.obs.timing import StepTimer
 from vae_segmentation_tpu_torch.ops import losses as L
 from vae_segmentation_tpu_torch.parallel import sharding
 from vae_segmentation_tpu_torch.train import (
-    AdaptConfig, copy_params, default_sched, ema_update_seg, make_adapt_step,
-    make_seg_replay_step, optim)
+    AdaptConfig, copy_params, default_sched, ema_update_seg,
+    make_adapt_dis_step, make_adapt_step, make_discriminator_step,
+    make_seg_replay_step, make_vae_train_step, optim)
 
 
 # the reference's fixed dict key of every display panel
 LABEL_KEY = "venous_pancreas"
+ADAPT_METHODS = ("domain_adaptation", "domain_adaptation_dis")
+METHODS = ("vae_train", "discriminator_train") + ADAPT_METHODS
+# the network each of these load flags loads, and the methods that have
+# one (--load_prefix_vae is read by domain_adaptation, ignored otherwise)
+LOADS = {"load_prefix": ("a SegUNet", ADAPT_METHODS),
+         "load_prefix_encoder": ("a ShapeEncoder", (
+             "discriminator_train", "domain_adaptation_dis"))}
+# the bare network of a method and its name in a composite
+BARE = {"vae_train": "Vae", "discriminator_train": "Dis"}
 
 
 def _check_supported(cfg: TargetConfig) -> None:
-    if cfg.method in ("discriminator_train", "domain_adaptation_dis"):
-        todo(f"--method {cfg.method} (ShapeEncoder, Joint2)", "item 11e")
-    if cfg.method == "vae_train":
-        todo("--method vae_train of the target CLI", "item 11h")
-    if cfg.method != "domain_adaptation":
-        raise ValueError(f"--method {cfg.method}: try a valid method")
-    if cfg.load_prefix_encoder:
-        todo("--load_prefix_encoder (ShapeEncoder)", "item 11e")
-    if cfg.analysis_figure_name is not None:
+    m = cfg.method
+    if m not in METHODS:
+        raise ValueError(f"--method {m}: try a valid method")
+    for flag, (net, methods) in LOADS.items():
+        if getattr(cfg, flag) and m not in methods:
+            raise ValueError(f"--{flag} loads {net}; --method {m} has none")
+    if cfg.analysis_figure_name is not None and m == "domain_adaptation":
         draw.require_matplotlib()
 
 
@@ -139,17 +169,78 @@ def _epoch_sched(cfg: TargetConfig, epoch: int, lambda_vae: float) -> Dict:
     return sched
 
 
+def _score_lookup(cfg: TargetConfig, list_key: str) -> np.ndarray:
+    """discriminator_train's realism targets, one a case of the list
+    (cli/target_main.py:71-86 of the JAX package): <data_root>/score.json
+    maps case id -> score; 1.0 where a case or the file is absent."""
+    entries = filedict_from_json(cfg.data_path, list_key, 1)
+    path = os.path.join(cfg.data_root, "score.json")
+    raw = {}
+    if os.path.exists(path):
+        with open(path) as f:
+            raw = json.load(f)
+    return np.array([float(raw.get(case_id(e), 1.0)) for e in entries],
+                    np.float32)
+
+
 def _build_models(cfg: TargetConfig, n_class: int, device: torch.device):
     """(student, teacher) after the load matrix of main_target.py:355-394
-    and the teacher <- student copy (:383-384, 427-433)."""
-    kw = dict(n_class=n_class, dim=128,
-              bottleneck=common.bottleneck_for(cfg.patch_size))
+    (cli/target_main.py:133-200 of the JAX package); the teacher is None
+    where the method has none."""
+    m = cfg.method
+    gen = torch.Generator().manual_seed(cfg.seed)
+    bott = common.bottleneck_for(cfg.patch_size)
+    teacher = None
+    print("Loading prefix.")
+    if m == "vae_train":
+        model = ShapeVAE(n_class=n_class, dim=128, bottleneck=bott,
+                         generator=gen, soft=cfg.softrelu == 1)
+    elif m == "discriminator_train":
+        model = ShapeEncoder(dim=1, bottleneck=bott, generator=gen)
+        if cfg.load_prefix_encoder:
+            load_network(model, common.load(cfg, cfg.load_prefix_encoder),
+                         "Dis")
+    elif m == "domain_adaptation_dis":
+        model = Joint2(n_class=n_class, bottleneck=bott, generator=gen,
+                       seg_dropout=cfg.seg_dropout)
+        teacher = SegUNet(n_class=n_class)
+        copy_params(teacher, model.Seg)
+        if cfg.load_prefix:
+            ck = common.load(cfg, cfg.load_prefix, cfg.checkpoint_name)
+            load_network(teacher if cfg.from_scratch else model.Seg, ck,
+                         "Seg")
+            if not cfg.from_scratch:
+                copy_params(teacher, model.Seg)
+        if cfg.load_prefix_encoder:
+            load_component(model, common.load(cfg, cfg.load_prefix_encoder),
+                           "Dis")
+    else:
+        model, teacher = _build_joints(cfg, n_class, gen, bott)
+    if cfg.load_prefix_joint:
+        # the whole model; a bare network's from a composite's part too
+        ck = common.load(cfg, cfg.load_prefix_joint)
+        if m in BARE:
+            load_network(model, ck, BARE[m])
+        else:
+            load_state(model, ck)
+    if m == "domain_adaptation" and (cfg.test_only or not cfg.from_scratch):
+        copy_params(teacher, model)
+    if teacher is not None:
+        for p in teacher.parameters():
+            p.requires_grad_(False)
+        teacher = teacher.to(device)
+    return model.to(device), teacher
+
+
+def _build_joints(cfg: TargetConfig, n_class: int, gen, bott: int):
+    """domain_adaptation's student and teacher Joints: the seed weights,
+    then --load_prefix's Seg (into the teacher with --from_scratch) and
+    --load_prefix_vae's Vae."""
+    kw = dict(n_class=n_class, dim=128, bottleneck=bott)
     model = Joint(vae_decoder_dropout=cfg.vae_decoder_dropout,
-                  seg_dropout=cfg.seg_dropout,
-                  generator=torch.Generator().manual_seed(cfg.seed), **kw)
+                  seg_dropout=cfg.seg_dropout, generator=gen, **kw)
     teacher = Joint(**kw)
     copy_params(teacher, model)
-    print("Loading prefix.")
     if cfg.load_prefix:
         load_component(teacher if cfg.from_scratch else model,
                        common.load(cfg, cfg.load_prefix, cfg.checkpoint_name),
@@ -159,13 +250,7 @@ def _build_models(cfg: TargetConfig, n_class: int, device: torch.device):
         if cfg.from_scratch:
             load_component(teacher, ck, "Vae")
         load_component(model, ck, "Vae")
-    if cfg.load_prefix_joint:
-        load_state(model, common.load(cfg, cfg.load_prefix_joint))
-    if cfg.test_only or not cfg.from_scratch:
-        copy_params(teacher, model)
-    for p in teacher.parameters():
-        p.requires_grad_(False)
-    return model.to(device), teacher.to(device)
+    return model, teacher
 
 
 def _make_finetune(cfg: TargetConfig, n_class: int, device: torch.device):
@@ -211,14 +296,19 @@ def _make_finetune(cfg: TargetConfig, n_class: int, device: torch.device):
 
 
 class EvalSteps:
-    """The crop eval's steps: the student's eval and analysis steps and,
-    with ft1, the finetune and the ft copy's (None where not asked)."""
+    """The crop eval's steps: the student's eval and, for
+    domain_adaptation, its analysis steps and, with ft1, the finetune and
+    the ft copy's (None where not asked, and for domain_adaptation_dis,
+    which ignores those flags as the JAX package's does)."""
 
     def __init__(self, cfg: TargetConfig, n_class: int, device, model,
                  teacher):
-        self.eval = make_joint_eval_step(model, n_class)
         self.analysis = self.ft_eval = self.ft_analysis = None
         self.finetune = self.ft_model = None
+        if cfg.method == "domain_adaptation_dis":
+            self.eval = make_seg_eval_step(model.Seg, n_class)
+            return
+        self.eval = make_joint_eval_step(model, n_class)
         if cfg.val_finetune != 0:
             self.finetune, self.ft_model = _make_finetune(cfg, n_class,
                                                           device)
@@ -271,7 +361,7 @@ def _crop_eval(cfg: TargetConfig, n_class: int, val_ds, device,
         out = step(image, label)
         record_scores(scores, out["score"], index)
         j = common.panel_sample(index, epoch, len(val_ds))
-        if cfg.save_more_reference and j is not None:
+        if cfg.save_more_reference and j is not None and "recon" in out:
             onehot = L.one_hot_label(label, n_class)
             display[LABEL_KEY + "_display_val"] = mid_slice_panel(
                 out["recon"][j:j + 1][..., 1], onehot[j:j + 1][..., 1],
@@ -320,12 +410,12 @@ def _train_display_panel(cfg: TargetConfig, n_class: int, eval_step,
 def _sliding_window_eval(cfg: TargetConfig, n_class: int, val_ds, device,
                          finetune, ft_model, model, teacher, sched):
     """The full-volume eval (cli/target_main.py:406-455 of the JAX
-    package) with ``Joint.segment``. With ft1 each case first finetunes
+    package) with the student's Seg. With ft1 each case first finetunes
     the ft copy on its ROI crop (the crop path's case, `val_ds`) and the
     sweep uses it; a second sweep with the student fills score_noft."""
     def sweep(model_for_case=None):
         return common.run_sliding_window_eval(
-            cfg, lambda net, x: net.segment(x), model, n_class=n_class,
+            cfg, lambda net, x: net.Seg(x), model, n_class=n_class,
             data_root=cfg.val_data_root, list_key=cfg.val_list,
             pan_index=cfg.pan_index, model_for_case=model_for_case)[1]
 
@@ -345,12 +435,19 @@ def _sliding_window_eval(cfg: TargetConfig, n_class: int, val_ds, device,
     return sweep(model_for_case), scores_noft
 
 
-PRINT_KEYS = ("recon_loss", "dice_loss_fake", "dice_loss",
-              "dice_loss_pseudo")
+# the loss terms of a method's train line (cli/target_main.py:609-615 of
+# the JAX package), and the replay's
+PRINT_KEYS = {"vae_train": ("dice_loss", "kl_loss"),
+              "discriminator_train": ("final_loss",),
+              "domain_adaptation": ("recon_loss", "dice_loss_fake",
+                                    "dice_loss", "dice_loss_pseudo"),
+              "domain_adaptation_dis": ("discriminator_loss",
+                                        "dice_loss_fake", "dice_loss")}
 
 
-def _print_line(epoch: int, eval_epoch: int, idx: int, metrics: Dict) -> None:
-    vals = ", ".join("%.4f" % float(metrics[k]) for k in PRINT_KEYS
+def _print_line(method: str, epoch: int, eval_epoch: int, idx: int,
+                metrics: Dict) -> None:
+    vals = ", ".join("%.4f" % float(metrics[k]) for k in PRINT_KEYS[method]
                      if k in metrics)
     print("[%3d, %3d] loss: %s" % ((epoch + 1) * eval_epoch, idx + 1, vals))
 
@@ -398,31 +495,37 @@ class SourceReplay:
 def _train_epoch(cfg: TargetConfig, epoch: int, loader: TrainLoader, step,
                  ingest, model, teacher, optimizer, generator,
                  lambda_vae: float, runner, timer: StepTimer,
-                 replay: Optional[SourceReplay] = None, mesh=None) -> float:
-    """One outer epoch of adaptation steps (each followed by a replay step
-    with --pseudo_list); returns lambda_vae after the --tag decay.
-    `generator` draws the warps and the MC dropout masks; the steps run on
-    this rank's slice of `mesh`. Each step's scalars, ``steps_per_sec``
-    and its display panel go to the runner's saver (cli/target_main.py:
-    252-260 of the JAX package)."""
-    if epoch == 0:
-        common.skip_epoch(loader)  # epoch-0 skip (main_target.py:506)
+                 replay: Optional[SourceReplay] = None, mesh=None,
+                 train_scores: Optional[np.ndarray] = None) -> float:
+    """One outer epoch of the method's steps (an adaptation step followed by
+    a replay step with --pseudo_list); returns lambda_vae after the --tag
+    decay. `generator` draws the warps, the MC dropout masks and
+    vae_train's reparam seeds; the steps run on this rank's slice of
+    `mesh`; discriminator_train's targets are `train_scores` of the batch's
+    cases. Each step's scalars, ``steps_per_sec`` and its display panel go
+    to the runner's saver (cli/target_main.py:252-260 of the JAX
+    package)."""
+    m = cfg.method
+    adapt = m in ADAPT_METHODS
+    if epoch == 0 and adapt:
+        common.skip_epoch(loader)  # epoch-0 skip (main_target.py:506, 694)
         return lambda_vae
     sched = _epoch_sched(cfg, epoch, lambda_vae)
     # EMA cadence (main_target.py:508-509): once per inner dataset pass (the
     # list is replicated eval_epoch x), or every iteration
     ema_interval = max(len(loader) // cfg.eval_epoch, 1) \
-        if cfg.pseudo_save_epoch != 0 else None
+        if cfg.pseudo_save_epoch != 0 and adapt else None
     if replay is not None:
         replay.new_pass()
     for idx, batch in enumerate(loader):
-        if replay is not None:
-            # the replay runs' teacher: a full copy of the student on every
-            # iteration of a qualifying epoch, --tag dividing lambda by 10
-            # (main_target.py:633-635)
+        if adapt and cfg.pseudo_list is not None:
+            # the replay runs' teacher: a full copy of the student (of its
+            # Seg for a SegUNet teacher) on every iteration of a qualifying
+            # epoch, --tag dividing lambda by 10 (main_target.py:633-635)
             if cfg.pseudo_save_epoch != 0 and \
                     epoch % cfg.pseudo_save_epoch == 0:
-                copy_params(teacher, model)
+                copy_params(teacher, model.Seg
+                            if isinstance(teacher, SegUNet) else model)
                 if cfg.tag:
                     lambda_vae = lambda_vae / 10.0
                     sched = _epoch_sched(cfg, epoch, lambda_vae)
@@ -439,12 +542,24 @@ def _train_epoch(cfg: TargetConfig, epoch: int, loader: TrainLoader, step,
         where = f"epoch {(epoch + 1) * cfg.eval_epoch}, iteration {idx + 1}"
         with common.nan_guard(cfg, where):
             with sharding.active(mesh):
-                metrics = step(model, teacher, optimizer, image, label,
-                               generator, sched)
+                if m == "vae_train":
+                    metrics = step(model, optimizer, label, generator)
+                elif m == "discriminator_train":
+                    score = torch.from_numpy(train_scores[
+                        np.asarray(batch["index"]) % len(train_scores)])
+                    score = score.to(label.device)
+                    if mesh is not None:
+                        score = sharding.batch_shard(mesh, score,
+                                                     spatial=False)
+                    metrics = step(model, optimizer, label, score)
+                else:
+                    metrics = step(model, teacher, optimizer, image, label,
+                                   generator, sched)
             if replay is not None:
                 metrics = dict(metrics, dice_loss_pseudo=replay(model))
         timer.tick()
-        _print_line(epoch, cfg.eval_epoch, idx, metrics)
+        metrics.pop("score_out", None)
+        _print_line(m, epoch, cfg.eval_epoch, idx, metrics)
         display = metrics.pop("display", None)
         runner.saver.write_display(
             idx + epoch * len(loader),
@@ -454,9 +569,59 @@ def _train_epoch(cfg: TargetConfig, epoch: int, loader: TrainLoader, step,
     return lambda_vae
 
 
+def _label_eval(cfg: TargetConfig, n_class: int, val_ds, device,
+                model) -> Dict[int, float]:
+    """vae_train's and discriminator_train's eval (cli/target_main.py:
+    389-405 of the JAX package): {case: the reconstruction's binary Dice},
+    or {case: 1 - (target - the discriminator's score of its label)^2}."""
+    scores: Dict[int, float] = {}
+    if cfg.method == "vae_train":
+        step = make_vae_eval_step(model, n_class)
+        for batch in common.val_batches(val_ds, cfg.val_batch, device):
+            record_scores(scores, step(batch["label"])["score"],
+                          batch["index"])
+        return scores
+    step = make_discriminator_eval_step(model)
+    targets = _score_lookup(cfg, cfg.val_list)
+    for batch in common.val_batches(val_ds, cfg.val_batch, device):
+        t = targets[np.asarray(batch["index"]) % len(targets)]
+        record_scores(scores, step(batch["label"], t)["score"],
+                      batch["index"])
+    return scores
+
+
+def _train_step(cfg: TargetConfig, n_class: int):
+    """The method's train step (cli/target_main.py:256-275 of the JAX
+    package); --pseudo_list runs of domain_adaptation take the restricted
+    loss of main_target.py:642-653."""
+    m = cfg.method
+    if m == "vae_train":
+        return make_vae_train_step(n_class)
+    if m == "discriminator_train":
+        return make_discriminator_step()
+    if m == "domain_adaptation_dis":
+        return make_adapt_dis_step(_adapt_cfg(cfg, n_class))
+    return make_adapt_step(
+        _adapt_cfg(cfg, n_class),
+        variant="pseudo" if cfg.pseudo_list is not None else "train")
+
+
+def _trainable(cfg: TargetConfig, model: torch.nn.Module):
+    """The optimizer's parameters (cli/target_main.py:209-218 of the JAX
+    package): the Seg (its head with --fix_layer) of the adaptation
+    methods, everything of the others."""
+    if cfg.method == "domain_adaptation":
+        return optim.freeze_all_but_seg_head(model) if cfg.fix_layer \
+            else optim.freeze_vae(model)
+    if cfg.method == "domain_adaptation_dis":
+        return optim.freeze_dis(model)
+    return list(model.parameters())
+
+
 def run(cfg: TargetConfig) -> float:
-    """Train (or with --test_only just evaluate) the Joint; returns the
-    best mean validation Dice (the mean Dice with --test_only). Under
+    """Train (or with --test_only just evaluate) the method's model;
+    returns the best mean validation score (the mean with --test_only).
+    Under
     torchrun: rank 0's, on every rank of the mesh (0.0 on a rank outside
     it)."""
     _check_supported(cfg)
@@ -478,39 +643,40 @@ def _run(cfg: TargetConfig, device: torch.device, mesh, runner) -> float:
     np.random.seed(cfg.seed)
     torch.manual_seed(cfg.seed)
     n_class = common.n_classes(cfg)
+    m = cfg.method
 
     print("Building model.")
     model, teacher = _build_models(cfg, n_class, device)
     if mesh is not None:
         sharding.replicate(mesh, model)
-        sharding.replicate(mesh, teacher)
+        if teacher is not None:
+            sharding.replicate(mesh, teacher)
     val_ds = common.build_val_dataset(cfg, data_root=cfg.val_data_root,
                                       list_key=cfg.val_list)
-    steps = EvalSteps(cfg, n_class, device, model, teacher)
-    finetune, ft_model = steps.finetune, steps.ft_model
+    steps = EvalSteps(cfg, n_class, device, model, teacher) \
+        if m in ADAPT_METHODS else None
+    finetune, ft_model = (steps.finetune, steps.ft_model) if steps \
+        else (None, None)
     # params, epoch and best of the latest periodic checkpoint; the teacher
     # stays the copy made from the load flags, as in the JAX package
     start_epoch = common.resume(cfg, runner, lambda ck: load_state(model, ck))
 
     loader = step = ingest = optimizer = generator = replay = None
+    train_scores = None
     if not cfg.test_only:
         print("Loading data.")
         loader = common.build_train_loader(cfg, data_root=cfg.data_root,
                                            list_key=cfg.train_list)
         ingest = common.make_train_ingest(cfg, device, mesh)
-        trainable = optim.freeze_all_but_seg_head(model) if cfg.fix_layer \
-            else optim.freeze_vae(model)
-        optimizer = optim.build(trainable, cfg.adam, cfg.lr_seg,
+        optimizer = optim.build(_trainable(cfg, model), cfg.adam, cfg.lr_seg,
                                 weight_decay=cfg.weight_decay)
-        # --pseudo_list runs take the restricted loss of
-        # main_target.py:642-653
-        step = make_adapt_step(
-            _adapt_cfg(cfg, n_class),
-            variant="pseudo" if cfg.pseudo_list is not None else "train")
+        step = _train_step(cfg, n_class)
         generator = torch.Generator(device=device).manual_seed(cfg.seed)
-        if cfg.pseudo_list is not None:
+        if cfg.pseudo_list is not None and m == "domain_adaptation":
             replay = SourceReplay(cfg, n_class, ingest, optimizer, generator,
                                   mesh)
+        if m == "discriminator_train":
+            train_scores = _score_lookup(cfg, cfg.train_list)
         print("Start training")
 
     lambda_vae = cfg.lambda_vae  # host-mutable (--tag decay)
@@ -521,7 +687,7 @@ def _run(cfg: TargetConfig, device: torch.device, mesh, runner) -> float:
             lambda_vae = _train_epoch(cfg, epoch, loader, step, ingest,
                                       model, teacher, optimizer, generator,
                                       lambda_vae, runner, timer, replay,
-                                      mesh)
+                                      mesh, train_scores)
         print("Start evaluation")
         t0 = time.time()
         # ft1 from the first outer epoch that trained (main_target.py:807)
@@ -529,7 +695,9 @@ def _run(cfg: TargetConfig, device: torch.device, mesh, runner) -> float:
         sched = _epoch_sched(cfg, epoch, lambda_vae)
         scores, scores_noft, display, figs = {}, {}, {}, ()
         if common.writes(mesh):  # the other ranks wait in share()
-            if cfg.eval_mode == "sliding_window":
+            if steps is None:
+                scores = _label_eval(cfg, n_class, val_ds, device, model)
+            elif cfg.eval_mode == "sliding_window":
                 scores, scores_noft = _sliding_window_eval(
                     cfg, n_class, val_ds, device, ft, ft_model, model,
                     teacher, sched)
@@ -542,7 +710,8 @@ def _run(cfg: TargetConfig, device: torch.device, mesh, runner) -> float:
             common.check_scores(cfg, scores_noft, where, "score_noft")
             if cfg.analysis_figure_name is not None and figs and figs[0]:
                 _draw_figures(cfg.analysis_figure_name, figs)
-            if cfg.save_more_reference and not cfg.test_only:
+            if cfg.save_more_reference and not cfg.test_only and \
+                    m == "domain_adaptation":
                 display[LABEL_KEY + "_display_train"] = \
                     _train_display_panel(cfg, n_class, steps.eval, teacher,
                                          epoch)

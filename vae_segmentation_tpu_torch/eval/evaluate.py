@@ -1,11 +1,15 @@
 """Whole-crop evaluation (counterpart of vae_segmentation_tpu/eval/
 evaluate.py::make_vae_eval_step, ::make_seg_eval_step,
-::make_joint_eval_step, ::make_analysis_metrics_step and ::run_eval;
-reference main_source.py:685-774 and
-main_target.py:796-995): one ROI crop per case, binary Dice over classes
-[1, n_class), per sample, so any --val_batch keeps the per-case score
-contract. The VAE's step scores the reconstruction of the ground-truth
-one-hot; the Seg's and the Joint's the Seg prediction."""
+::make_joint_eval_step, ::make_embed_eval_step (as make_seg_eval_step),
+::make_analysis_metrics_step and ::run_eval, and of cli/target_main.py::
+make_joint2_eval and the discriminator's val; reference
+main_source.py:685-774 and main_target.py:796-995): one ROI crop per
+case, binary Dice over classes [1, n_class), per sample, so any
+--val_batch keeps the per-case score contract. The VAE's step scores the
+reconstruction of the ground-truth one-hot; the Seg's, the Joint's and
+the Joint2's the Seg prediction, Embed's the Fusion's test-mode
+prediction; the discriminator's step scores 1 - the squared error of its
+score of the label against the case's target score."""
 
 from __future__ import annotations
 
@@ -39,17 +43,24 @@ def make_vae_eval_step(model: torch.nn.Module, n_class: int) -> Callable:
     return step
 
 
-def make_seg_eval_step(model: torch.nn.Module, n_class: int) -> Callable:
+def make_seg_eval_step(segment: Callable, n_class: int) -> Callable:
     """(image_norm [B, D, H, W], label [B, D, H, W]) -> {'pred', 'score'
-    [B]} of a SegUNet (evaluate.py:37-46 of the JAX package)."""
-    device = next(model.parameters()).device
+    [B]} of `segment`, a network or a bound method mapping an image
+    [B, D, H, W, 1] to class probabilities: a SegUNet (evaluate.py:37-46
+    of the JAX package), a Joint2's Seg (cli/target_main.py:597-607, whose
+    mean score is the per-case one at its --val_batch 1) or
+    ``Embed.segment``, the Fusion's test-mode prediction that
+    evaluate.py:70-85 scores (the gt branch it also runs does not reach
+    that score)."""
+    owner = getattr(segment, "__self__", segment)
+    device = next(owner.parameters()).device
 
     @torch.no_grad()
     def step(image, label) -> Dict[str, torch.Tensor]:
         image = torch.as_tensor(image, device=device)
         onehot = L.one_hot_label(torch.as_tensor(label, device=device),
                                  n_class)
-        pred = model(image[..., None])
+        pred = segment(image[..., None])
         return {"pred": pred, "score": _binary_dice(pred, onehot, n_class)}
 
     return step
@@ -74,6 +85,22 @@ def make_joint_eval_step(model: torch.nn.Module, n_class: int, *,
         if with_gt_recon:
             out["gt_recon"] = model.vae_forward(onehot)[0]
         return out
+
+    return step
+
+
+def make_discriminator_eval_step(model: torch.nn.Module) -> Callable:
+    """(label, target score [B]) -> {'score' [B]}: 1 - (target - the
+    ShapeEncoder's score of the label)^2 per case (cli/target_main.py:
+    395-405 of the JAX package)."""
+    device = next(model.parameters()).device
+
+    @torch.no_grad()
+    def step(label, target) -> Dict[str, torch.Tensor]:
+        label = torch.as_tensor(label, device=device)
+        out = model(label[..., None].float())[:, 0]
+        target = torch.as_tensor(target, device=device)
+        return {"score": 1.0 - (target.float() - out).square()}
 
     return step
 

@@ -15,6 +15,13 @@ the next conv's prologue, and a deferred stage-final norm (``defer=True``)
 rides into the consumer's prologue. Norms that feed a skip-add or a stage
 boundary are applied here as plain elementwise ops.
 
+A soft stage (``soft=True``: the soft-ReLU ShapeVAE of --softrelu 1,
+blocks.py:514-534, 867-989 of the JAX package) keeps K1's stats epilogue
+but applies softplus in place of ReLU, so no norm rides into a prologue:
+each of its norms is applied where it is made (``apply_affine_relu`` with
+``soft``) and its blocks hand their consumers ``None``; on the norm route
+it runs ``instance_norm_act`` without the ReLU, then softplus.
+
 The norm route (``use_pallas_norm``, VAESEG_PALLAS=1, the JAX package's
 switch) is the JAX package's logical route with that switch on
 (blocks.py:518-534, 886-921, 954-989 with no stats and no fold): every conv
@@ -56,6 +63,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from vae_segmentation_tpu_torch.ops import bridges, conv3 as conv3_ops
 from vae_segmentation_tpu_torch.ops.instance_norm import (
@@ -82,13 +90,19 @@ def use_pallas_norm() -> bool:
     return os.environ.get("VAESEG_PALLAS") == "1"
 
 
-def apply_affine_relu(x: torch.Tensor, aff: Affine) -> torch.Tensor:
-    """relu(x * s + t) in f32, stored in x.dtype: a norm applied where no
-    kernel prologue can take it."""
+def _act(soft: bool):
+    return F.softplus if soft else torch.relu
+
+
+def apply_affine_relu(x: torch.Tensor, aff: Affine,
+                      soft: bool = False) -> torch.Tensor:
+    """relu(x * s + t) in f32 (softplus with `soft`), stored in x.dtype: a
+    norm applied where no kernel prologue can take it."""
     s, t = aff
-    y = torch.relu(x.float() * s[:, None, None, None, :]
+    y = _act(soft)(x.float() * s[:, None, None, None, :]
                    + t[:, None, None, None, :])
     return sharding.like(y.to(x.dtype), x)
+
 
 
 class _KernelConv(nn.Module):
@@ -245,30 +259,40 @@ def _n_spatial(x: torch.Tensor) -> int:
     return sharding.global_voxels(x)
 
 
-def _norm(y: torch.Tensor) -> torch.Tensor:
-    """The norm route's InstanceNorm+ReLU of a conv output: the volume's
-    norm when y is a slab of it."""
-    return sharding.like(instance_norm_act(
-        y, mesh=sharding.spatial_mesh(y)), y)
+def _norm(y: torch.Tensor, soft: bool = False) -> torch.Tensor:
+    """The norm route's InstanceNorm+ReLU of a conv output (InstanceNorm
+    then softplus with `soft`): the volume's norm when y is a slab of
+    it."""
+    mesh = sharding.spatial_mesh(y)
+    if soft:
+        z = instance_norm_act(y, relu=False, mesh=mesh)
+        return sharding.like(F.softplus(z.float()).to(y.dtype), y)
+    return sharding.like(instance_norm_act(y, mesh=mesh), y)
 
 
 class ConvNormAct(nn.Module):
     """conv3^3 + InstanceNorm + ReLU (reference ``Conv``). Returns the raw
     conv output and its norm affine: the norm+ReLU is applied by the
     consumer (the down1 entry's K2 prologue), so the normalized tensor is
-    never stored. On the norm route: the normalized output and None."""
+    never stored. On the norm route, and for a soft stage (softplus in
+    place of ReLU): the normalized output and None."""
 
     def __init__(self, cin: int, cout: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 soft: bool = False):
         super().__init__()
+        self.soft = soft
         self.conv = nn.ModuleDict({"0": Conv3(cin, cout, generator)})
 
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, Optional[Affine]]:
         if use_pallas_norm():
-            return _norm(self.conv["0"](x)), None
+            return _norm(self.conv["0"](x), self.soft), None
         y, st = self.conv["0"](x, stats=True)
-        return y, affine_from_stats(st, _n_spatial(y))
+        aff = affine_from_stats(st, _n_spatial(y))
+        if self.soft:
+            return apply_affine_relu(y, aff, soft=True), None
+        return y, aff
 
 
 class DoubleConv(nn.Module):
@@ -277,13 +301,17 @@ class DoubleConv(nn.Module):
     epilogue and each norm+ReLU after the first two convs is the next
     conv's prologue. defer=True returns (raw, affine) for the chain-final
     norm instead of applying it. On the norm route every norm+ReLU is
-    ``instance_norm_act`` and defer=True returns (normalized, None)."""
+    ``instance_norm_act`` and defer=True returns (normalized, None). A soft
+    chain applies each norm with softplus after its conv (stats epilogue,
+    no prologue) and defer=True returns (normalized, None)."""
 
     _KEYS = ("0", "3", "6")  # reference indices (norm/ReLU at 1, 2, 4, ...)
 
     def __init__(self, cin: int, cout: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 soft: bool = False):
         super().__init__()
+        self.soft = soft
         self.conv = nn.ModuleDict({
             "0": Conv3(cin, cout, generator),
             "3": Conv3(cout, cout, generator),
@@ -292,7 +320,13 @@ class DoubleConv(nn.Module):
     def forward(self, x: torch.Tensor, defer: bool = False):
         if use_pallas_norm():
             for key in self._KEYS:
-                x = _norm(self.conv[key](x))
+                x = _norm(self.conv[key](x), self.soft)
+            return (x, None) if defer else x
+        if self.soft:
+            for key in self._KEYS:
+                x, st = self.conv[key](x, stats=True)
+                x = apply_affine_relu(x, affine_from_stats(
+                    st, _n_spatial(x)), soft=True)
             return (x, None) if defer else x
         pre = None
         for key in self._KEYS:
@@ -307,10 +341,12 @@ class Down(nn.Module):
     prologue."""
 
     def __init__(self, cin: int, cout: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 soft: bool = False):
         super().__init__()
         self.conv = nn.ModuleDict({"0": DownConv(cin, generator),
-                                   "1": DoubleConv(cin, cout, generator)})
+                                   "1": DoubleConv(cin, cout, generator,
+                                                   soft)})
 
     def forward(self, x: torch.Tensor, pre: Optional[Affine] = None):
         return self.conv["1"](self.conv["0"](x, pre=pre))
@@ -321,10 +357,12 @@ class Up(nn.Module):
     DoubleConv(cin -> cout)."""
 
     def __init__(self, cin: int, cout: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 soft: bool = False):
         super().__init__()
         self.conv = nn.ModuleDict({"0": TConv2(cin, generator),
-                                   "1": DoubleConv(cin, cout, generator)})
+                                   "1": DoubleConv(cin, cout, generator,
+                                                   soft)})
 
     def forward(self, x: torch.Tensor, defer: bool = False):
         return self.conv["1"](self.conv["0"](x), defer=defer)

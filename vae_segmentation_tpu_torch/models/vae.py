@@ -10,7 +10,10 @@ latent, mean + eps * std * scale, through ``ops.reparam`` (the hand-written
 kernel on the card, eps drawn inside it from a seed out of the caller's
 generator; vae.py:171-187 of the JAX package); ``reparameterize`` also
 returns the KL term that the same call computes (the ``vae_train`` step).
-The decoder's MC dropout is ported (joint_model.py:255-264). On the norm
+The decoder's MC dropout is ported (joint_model.py:255-264). ``soft=True``
+is the soft-ReLU VAE of --softrelu 1 (vae.py:58 of the JAX package): every
+norm of its blocks takes softplus in place of ReLU, so none rides into a
+kernel prologue (``models/blocks.py``). On the norm
 route (``blocks.use_pallas_norm``) the blocks return normalized tensors and
 no affine (vae.py:113-166 with ``fold`` false).
 
@@ -29,21 +32,14 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from vae_segmentation_tpu_torch.models.blocks import (
     DEFAULT_FMAPS, Conv3, ConvNormAct, Down, Up, apply_affine_relu,
-    mc_dropout, spread, torch_uniform_init)
+    mc_dropout, spread)
+from vae_segmentation_tpu_torch.models.encoder import (
+    bottleneck_side, dense, encode_trunk, flatten, linear)
 from vae_segmentation_tpu_torch.ops import reparam
 from vae_segmentation_tpu_torch.parallel import collectives, sharding
-
-
-def _linear(cin: int, cout: int, generator) -> nn.Linear:
-    lin = nn.Linear(cin, cout)
-    with torch.no_grad():
-        lin.weight.copy_(torch_uniform_init((cout, cin), cin, generator))
-        lin.bias.copy_(torch_uniform_init((cout,), cin, generator))
-    return lin
 
 
 class ShapeVAE(nn.Module):
@@ -52,41 +48,36 @@ class ShapeVAE(nn.Module):
     def __init__(self, n_class: int = 2, fmaps: Sequence[int] = DEFAULT_FMAPS,
                  dim: int = 128, bottleneck: int = 16384,
                  dtype: torch.dtype = torch.bfloat16,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 soft: bool = False):
         super().__init__()
         f = tuple(fmaps)
         self.fmaps = f
         self.n_class = n_class
         self.dtype = dtype
-        self.side = round((bottleneck // f[5]) ** (1.0 / 3.0))
-        if f[5] * self.side ** 3 != bottleneck:
-            raise ValueError(f"bottleneck {bottleneck} is not fmaps[5]={f[5]} "
-                             "times a cube")
+        self.soft = soft
+        self.side = bottleneck_side(bottleneck, f[5])
         g = generator
-        self.in_block = ConvNormAct(n_class, f[0], g)
-        self.down1 = Down(f[0], f[1], g)
-        self.down2 = Down(f[1], f[2], g)
-        self.down3 = Down(f[2], f[3], g)
-        self.down4 = Down(f[3], f[4], g)
-        self.down5 = Down(f[4], f[5], g)
-        self.fc_mean = _linear(bottleneck, dim, g)
-        self.fc_std = _linear(bottleneck, dim, g)
-        self.fc2 = _linear(dim, bottleneck, g)
-        self.up1 = Up(f[5], f[4], g)
-        self.up2 = Up(f[4], f[3], g)
-        self.up3 = Up(f[3], f[2], g)
-        self.up4 = Up(f[2], f[1], g)
-        self.up5 = Up(f[1], f[0], g)
+        self.in_block = ConvNormAct(n_class, f[0], g, soft)
+        self.down1 = Down(f[0], f[1], g, soft)
+        self.down2 = Down(f[1], f[2], g, soft)
+        self.down3 = Down(f[2], f[3], g, soft)
+        self.down4 = Down(f[3], f[4], g, soft)
+        self.down5 = Down(f[4], f[5], g, soft)
+        self.fc_mean = linear(bottleneck, dim, g)
+        self.fc_std = linear(bottleneck, dim, g)
+        self.fc2 = linear(dim, bottleneck, g)
+        self.up1 = Up(f[5], f[4], g, soft)
+        self.up2 = Up(f[4], f[3], g, soft)
+        self.up3 = Up(f[3], f[2], g, soft)
+        self.up4 = Up(f[2], f[1], g, soft)
+        self.up5 = Up(f[1], f[0], g, soft)
         self.out_block = Conv3(f[0], n_class, g)
 
     def _dense(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), layer.weight.to(self.dtype),
-                        layer.bias.to(self.dtype))
+        return dense(x, layer, self.dtype)
 
-    def flatten(self, h: torch.Tensor) -> torch.Tensor:
-        """[B, s, s, s, C] -> [B, C * s^3], channel-major like the
-        reference's view of NCDHW (the order fc_mean / fc_std expect)."""
-        return h.permute(0, 4, 1, 2, 3).reshape(h.shape[0], -1)
+    flatten = staticmethod(flatten)
 
     def unflatten(self, h: torch.Tensor) -> torch.Tensor:
         """Inverse of ``flatten``: fc2's output -> [B, s, s, s, C]."""
@@ -96,14 +87,7 @@ class ShapeVAE(nn.Module):
 
     def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Mask -> (mean, std), f32, std >= 0 (joint_model.py:235-243)."""
-        x1, aff = self.in_block(x.to(self.dtype))
-        h = self.down1(x1, pre=aff)
-        for down in (self.down2, self.down3, self.down4, self.down5):
-            h = down(h)
-        mesh = sharding.spatial_mesh(h)
-        if mesh is not None:
-            h = collectives.gather_spatial(h, mesh)
-        flat = self.flatten(h)
+        flat = encode_trunk(self, x)
         mean = self._dense(self.fc_mean, flat).float()
         std = torch.relu(self._dense(self.fc_std, flat).float())
         return mean, std

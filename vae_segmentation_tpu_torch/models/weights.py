@@ -2,9 +2,11 @@
 
 The port's modules use the reference's torch ``state_dict`` keys and
 shapes, so a reference ``.ckpt`` loads directly (``load_state``).
-``from_jax_params`` turns the JAX package's Joint / SegUNet / ShapeVAE
-param tree (nested dicts of numpy arrays) into such a state_dict: it is the
-inverse of vae_segmentation_tpu/models/torch_compat.py::convert_state_dict.
+``from_jax_params`` turns a JAX param tree of any of the JAX package's
+models (nested dicts of numpy arrays: SegUNet, ShapeVAE, ShapeEncoder,
+FusionNet, Joint, Joint2, Embed) into such a state_dict: it is the inverse
+of vae_segmentation_tpu/models/torch_compat.py::convert_state_dict for
+each of its kinds.
 """
 
 from __future__ import annotations
@@ -17,12 +19,22 @@ import torch
 
 _DOUBLECONV_IDX = {0: "0", 1: "3", 2: "6"}
 _TCONV = ("ConvTranspose_0", "TConv2_0")
+# each kind's dense layers whose 16384-wide side is the bottleneck's
+# flatten (torch_compat.py:171-172: VAE_FCS, ENCODER_FCS): fc2's output
+# side, the others' input side
+BOTTLENECK_FCS = {"vae": ("fc_mean", "fc_std", "fc2"), "encoder": ("fc1",),
+                  "seg": (), "fusion": ()}
+# the composites' submodules and their kinds (torch_compat.py:189-210)
+COMPOSITES = {"joint": {"Seg": "seg", "Vae": "vae"},
+              "joint2": {"Seg": "seg", "Dis": "encoder"},
+              "embed": {"Encoder": "encoder", "Vae": "vae",
+                        "Fusion": "fusion"}}
 
 
 def _torch_key(path: Tuple[str, ...]) -> str:
     """JAX module path -> torch key prefix (torch_compat.py:88-106)."""
     name = path[0]
-    if name in ("fc_mean", "fc_std", "fc2") or name == "out_block":
+    if name in ("fc_mean", "fc_std", "fc1", "fc2") or name == "out_block":
         return name
     if path[1] in _TCONV or (path[1] == "Conv3_0" and len(path) == 2):
         return f"{name}.conv.0"
@@ -41,21 +53,41 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()):
 
 
 def _bottleneck_geometry(params: Mapping, width: int) -> Tuple[int, int]:
-    """(channels, side) of the VAE bottleneck: channels = fmaps[5], read
-    from up1's channel-preserving ConvTranspose."""
-    ch = np.asarray(params["up1"]["TConv2_0"]["kernel"]).shape[-1]
+    """(channels, side) of the bottleneck: channels = fmaps[5], down5's
+    output channels (the last conv of its DoubleConv)."""
+    ch = np.asarray(
+        params["down5"]["DoubleConv_0"]["Conv3_2"]["kernel"]).shape[-1]
     side = round((width // ch) ** (1.0 / 3.0))
     if ch * side ** 3 != width:
         raise ValueError(f"bottleneck {width} is not {ch} x a cube")
     return ch, side
 
 
-def _component(params: Mapping) -> Dict[str, np.ndarray]:
+def kind_of(params: Mapping) -> str:
+    """The torch_compat kind of a JAX param tree: a composite by its
+    submodules, a single network by the layers only it has."""
+    for kind, parts in COMPOSITES.items():
+        if set(params) == set(parts):
+            return kind
+    if any(k in params for k in ("Seg", "Vae", "Dis", "Encoder", "Fusion")):
+        raise KeyError("a composite JAX tree holds submodules other than "
+                       "Seg and Vae (a Joint), Seg and Dis (a Joint2) or "
+                       f"Encoder, Vae and Fusion (an Embed): {sorted(params)}")
+    if "fc1" in params:
+        return "encoder"
+    if "fc_std" in params:
+        return "vae"
+    return "fusion" if "merge" in params else "seg"
+
+
+def _component(params: Mapping, kind: str) -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
+    fcs = BOTTLENECK_FCS[kind]
     for path, w in _leaves(params):
         key = _torch_key(path[:-1])
-        kind, base = path[-1], path[0]
-        if kind == "kernel":
+        leaf, base = path[-1], path[0]
+        bottleneck = base in fcs
+        if leaf == "kernel":
             if w.ndim == 5 and path[-2] in _TCONV:
                 # flax ConvTranspose taps are torch's flipped
                 w = np.transpose(w[::-1, ::-1, ::-1], (3, 4, 0, 1, 2))
@@ -63,18 +95,18 @@ def _component(params: Mapping) -> Dict[str, np.ndarray]:
                 w = np.transpose(w, (4, 3, 0, 1, 2))
             else:
                 w = w.T  # dense [in, out] -> Linear [out, in]
-                if base in ("fc_mean", "fc_std"):
+                if bottleneck and base != "fc2":
                     ch, s = _bottleneck_geometry(params, w.shape[1])
                     # JAX flattens (d, h, w, c); torch (c, d, h, w)
                     w = w.reshape(-1, s, s, s, ch).transpose(0, 4, 1, 2, 3) \
                         .reshape(w.shape[0], -1)
-                elif base == "fc2":
+                elif bottleneck:
                     ch, s = _bottleneck_geometry(params, w.shape[0])
                     w = w.reshape(s, s, s, ch, -1).transpose(3, 0, 1, 2, 4) \
                         .reshape(w.shape[0], -1)
             out[f"{key}.weight"] = np.array(w, np.float32)
         else:
-            if base == "fc2":
+            if bottleneck and base == "fc2":
                 ch, s = _bottleneck_geometry(params, w.shape[0])
                 w = w.reshape(s, s, s, ch).transpose(3, 0, 1, 2).reshape(-1)
             out[f"{key}.bias"] = np.array(w, np.float32)
@@ -82,18 +114,18 @@ def _component(params: Mapping) -> Dict[str, np.ndarray]:
 
 
 def from_jax_params(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX param tree -> port/reference torch state_dict. A tree with
-    top-level ``Seg``/``Vae`` is a Joint (keys ``Seg.*``, ``Vae.*``);
-    otherwise a single SegUNet or ShapeVAE."""
-    parts = {k: params_np[k] for k in ("Seg", "Vae") if k in params_np}
-    if parts and len(parts) != len(params_np):
-        raise KeyError("a composite JAX tree holds submodules other than "
-                       f"Seg and Vae: {sorted(params_np)}")
-    if parts:
-        flat = {f"{name}.{k}": v for name, sub in parts.items()
-                for k, v in _component(sub).items()}
+    """JAX param tree -> port/reference torch state_dict: the inverse of
+    ``torch_compat.convert_state_dict`` for the tree's kind ('vae', 'seg',
+    'encoder', 'fusion', 'joint', 'joint2', 'embed'; read from the tree,
+    ``kind_of``). A composite's keys carry its submodules' prefixes
+    (``Seg.*``, ``Vae.*``, ``Dis.*``, ``Encoder.*``, ``Fusion.*``)."""
+    kind = kind_of(params_np)
+    if kind in COMPOSITES:
+        parts = COMPOSITES[kind]
+        flat = {f"{name}.{k}": v for name, sub_kind in parts.items()
+                for k, v in _component(params_np[name], sub_kind).items()}
     else:
-        flat = _component(params_np)
+        flat = _component(params_np, kind)
     return {k: torch.from_numpy(v) for k, v in flat.items()}
 
 
@@ -119,9 +151,10 @@ def load_state(model: torch.nn.Module, state: Any) -> torch.nn.Module:
 
 def load_network(net: torch.nn.Module, state: Any,
                  name: str) -> torch.nn.Module:
-    """Load a bare network `net` (SegUNet or ShapeVAE), strictly: from a
-    composite checkpoint its ``<name>.*`` keys ('Seg' or 'Vae'), from a
-    checkpoint of that network alone every key."""
+    """Load a bare network `net` (SegUNet, ShapeVAE, ShapeEncoder),
+    strictly: from a composite checkpoint its ``<name>.*`` keys ('Seg',
+    'Vae', 'Dis', ...), from a checkpoint of that network alone every
+    key."""
     sd = _state_dict(state)
     prefix = name + "."
     if any(k.startswith(prefix) for k in sd):
@@ -133,8 +166,9 @@ def load_network(net: torch.nn.Module, state: Any,
 
 def load_component(model: torch.nn.Module, state: Any,
                    name: str) -> torch.nn.Module:
-    """Load only the submodule `name` ('Seg' or 'Vae') of a composite
-    `model` (--load_prefix / --load_prefix_vae, main_target.py:355-394),
-    as ``load_network`` does."""
+    """Load only the submodule `name` ('Seg', 'Vae' or 'Dis') of a
+    composite `model` (--load_prefix / --load_prefix_vae /
+    --load_prefix_encoder, main_target.py:355-394), as ``load_network``
+    does."""
     load_network(getattr(model, name), state, name)
     return model

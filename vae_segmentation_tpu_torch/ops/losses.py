@@ -3,7 +3,7 @@ in f32.
 
 Counterpart of vae_segmentation_tpu/ops/losses.py (dice, binarize,
 confident_binarize, onehot_argmax, soft_dice_per_class, avg_dsc, kl_loss,
-one_hot_label), which mirrors the reference's utils/evaluation.py:6-80 and
+bce, one_hot_label), which mirrors the reference's utils/evaluation.py:6-80 and
 main_source.py:150-182,390-392. The class axis is last; reductions run over
 every axis but batch and class.
 
@@ -122,6 +122,18 @@ def kl_loss(mean: torch.Tensor, std: torch.Tensor,
     per_sample = 0.5 * ((std ** 2).sum(dim=1) + (mean ** 2).sum(dim=1)
                         - 2.0 * torch.log(std + eps).sum(dim=1))
     return per_sample.mean()
+
+
+def bce(source: torch.Tensor, target: torch.Tensor,
+        eps: float = 1e-12) -> torch.Tensor:
+    """Binary cross-entropy of probabilities (utils/evaluation.py:29-39;
+    losses.py:122-128 of the JAX package): torch ``nn.BCELoss``'s mean over
+    every element, source clamped to [eps, 1 - eps], f32. No step calls
+    it, as in the JAX package."""
+    source = torch.clamp(source.float(), eps, 1.0 - eps)
+    target = target.float()
+    return -(target * torch.log(source)
+             + (1.0 - target) * torch.log1p(-source)).mean()
 
 
 # ---- softmax VJP (the cotangent of K1's softmax epilogue)

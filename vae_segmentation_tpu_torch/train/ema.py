@@ -11,8 +11,10 @@ import torch
 def ema_update_seg(teacher: torch.nn.Module, student: torch.nn.Module,
                    alpha: float = 0.995) -> None:
     """teacher.Seg <- alpha * teacher.Seg + (1 - alpha) * student.Seg, in
-    place; the teacher's VAE is left untouched (main_target.py:512-516)."""
-    for t, s in zip(teacher.Seg.parameters(), student.Seg.parameters()):
+    place; the teacher's VAE is left untouched (main_target.py:512-516).
+    A bare SegUNet teacher (domain_adaptation_dis's) is its own Seg."""
+    seg = getattr(teacher, "Seg", teacher)
+    for t, s in zip(seg.parameters(), student.Seg.parameters()):
         t.mul_(alpha).add_(s.detach(), alpha=1.0 - alpha)
 
 

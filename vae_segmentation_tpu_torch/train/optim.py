@@ -62,6 +62,29 @@ def freeze_all_but_seg_head(model: torch.nn.Module
                                                  "Seg.out_block.")))
 
 
+def freeze_dis(model: torch.nn.Module) -> List[torch.nn.Parameter]:
+    """domain_adaptation_dis: the Joint2's discriminator frozen, its Seg
+    trainable (cli/target_main.py:214-216 of the JAX package)."""
+    return freeze_by_name(model, lambda name: name.startswith("Dis."))
+
+
+VAE_ENCODER = ("in_block", "down1", "down2", "down3", "down4", "down5",
+               "fc_mean", "fc_std")
+
+
+def freeze_vae_encoder(model: torch.nn.Module) -> List[torch.nn.Parameter]:
+    """refine_vae: the VAE's encoder half (in_block, down1-5, fc_mean,
+    fc_std) frozen, the rest trainable (main_source.py:347-353;
+    optim.py:106-117 of the JAX package), in a bare ShapeVAE and under a
+    composite's ``Vae``."""
+    def is_frozen(name: str) -> bool:
+        parts = name.split(".")
+        sub = parts[1] if parts[0] == "Vae" else parts[0]
+        return sub in VAE_ENCODER
+
+    return freeze_by_name(model, is_frozen)
+
+
 def build(params: Iterable[torch.nn.Parameter], adam_flag: bool, lr: float,
           weight_decay: float = 0.0, momentum: float = 0.9
           ) -> torch.optim.Optimizer:

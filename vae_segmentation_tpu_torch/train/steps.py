@@ -5,8 +5,11 @@ supervised SegUNet, main_source.py:415-446) and the Joint's
 ``make_joint_train_step`` (joint_train), ``make_cached_pseudo_adapt_step``
 (the source domain_adaptation) and ``make_sep_joint_train_step``
 (sep_joint_train), the adaptation step ``make_adapt_step`` with what it
-calls (main_target.py:505-613), and the source replay of --pseudo_list
-runs, ``make_seg_replay_step``.
+calls (main_target.py:505-613), the source replay of --pseudo_list
+runs, ``make_seg_replay_step``, the discriminator methods'
+``make_discriminator_step`` and ``make_adapt_dis_step`` (main_target.py:
+494-503, 693-732) and Embed's ``make_embed_train_step`` and
+``make_refine_vae_step`` (main_source.py:546-635).
 
 One adaptation step: the teacher's Seg forward without gradients (plus its
 VAE encode for the KL term), a binarized pseudo-label, the student Joint
@@ -518,5 +521,175 @@ def make_sep_joint_train_step(n_class: int) -> Callable:
         return {"recon_loss": recon_loss.detach(),
                 "dice_loss": 1.0 - dsc.detach().mean(),
                 "final_loss": final.detach()}
+
+    return step
+
+
+def _batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean over the global batch of a per-sample tensor `x` [B, ...]
+    (a score or a latent, whole on every rank of a data row)."""
+    mesh = sharding.current()
+    return x.mean() if mesh is None else collectives.data_mean(x.mean(),
+                                                               mesh)
+
+
+def _dice_loss(x: torch.Tensor, onehot: torch.Tensor,
+               n_class: int) -> torch.Tensor:
+    """1 - the mean soft Dice of x against the one-hot label over classes
+    [1, n_class), its sums from one ``dice_sums`` pass."""
+    return 1.0 - L.multi_soft_dice(x, (onehot,))[0][:, 1:n_class].mean()
+
+
+def make_discriminator_step() -> Callable:
+    """discriminator_train (main_target.py:494-503; steps.py:693-707 of the
+    JAX package):
+
+        step(model, optimizer, mask, score) -> aux
+
+    loss = mean((score - model(mask)[:, 0])^2) in f32, the ShapeEncoder's
+    sigmoid score of the float mask [B, D, H, W] against the target score
+    [B] of each case. aux holds the detached 'final_loss' and
+    'score_out' [B]."""
+
+    def step(model, optimizer, mask, score):
+        optimizer.zero_grad(set_to_none=True)
+        out = model(mask[..., None].float())[:, 0]
+        final = _batch_mean((score.float() - out).square())
+        _check_terms(final_loss=final)
+        final.backward()
+        _update(optimizer)
+        return {"final_loss": final.detach(), "score_out": out.detach()}
+
+    return step
+
+
+def make_adapt_dis_step(cfg: AdaptConfig) -> Callable:
+    """domain_adaptation_dis (main_target.py:693-732; steps.py:710-743 of
+    the JAX package): the discriminator's realism score in place of the
+    VAE's reconstruction loss,
+
+        step(student, teacher_seg, optimizer, image, label, generator,
+             sched) -> aux
+
+    a frozen teacher SegUNet's binarized (confident with
+    ``cfg.use_confident_binarize``) pseudo-label, the Joint2 student's
+    forward with the Seg's MC dropout drawn from ``generator``, and loss =
+    warmup_scale * lambda_vae * (1 - mean score) + (1 - dsc(pred,
+    pseudo)); the two Dices from one ``dice_sums`` pass. The Dis is frozen
+    by the optimizer's parameters, its gradient flows through it into the
+    Seg. aux holds the detached 'discriminator_loss', 'dice_loss_fake',
+    'dice_loss' and 'final_loss'."""
+    n = cfg.n_class
+
+    def step(student, teacher_seg, optimizer, image, label, generator,
+             sched):
+        img = image if image.dim() == 5 else image[..., None]
+        onehot = L.one_hot_label(label, n)
+        with torch.no_grad():
+            t_pred = teacher_seg(img)
+        pseudo = L.confident_binarize(t_pred) if cfg.use_confident_binarize \
+            else L.binarize(t_pred)
+        optimizer.zero_grad(set_to_none=True)
+        pred, score = student(img, dropout=True, generator=generator)
+        d_ps, d_po = L.multi_soft_dice(pred, (pseudo, onehot))
+        fake_loss = 1.0 - d_ps[:, 1:n].mean()
+        dsc_loss = 1.0 - d_po[:, 1:n].mean()
+        dis_loss = 1.0 - _batch_mean(score)
+        final = sched["warmup_scale"] * sched["lambda_vae"] * dis_loss \
+            + fake_loss
+        _check_terms(discriminator_loss=dis_loss, dice_loss_fake=fake_loss,
+                     dice_loss=dsc_loss, final_loss=final)
+        final.backward()
+        _update(optimizer)
+        return {"discriminator_loss": dis_loss.detach(),
+                "dice_loss_fake": fake_loss.detach(),
+                "dice_loss": dsc_loss.detach(), "final_loss": final.detach()}
+
+    return step
+
+
+def make_embed_train_step(n_class: int) -> Callable:
+    """embed_train (main_source.py:546-589; steps.py:584-628 of the JAX
+    package):
+
+        step(model, optimizer, image, label, generator, enc_on) -> aux
+
+    the Embed `model`'s test-mode forward (the gt branch's latent drawn
+    from a seed out of ``generator``) and
+
+        final = (d1 + d2 + inpaint) / 3 + mse / 10 + 2e-5 KL + recon
+
+    with d1, d2, inpaint, recon the 1 - Dice losses of pred, init_seg,
+    seg_recon and gt_recon against the one-hot label (one ``dice_sums``
+    pass each), mse the mean squared distance of the Encoder's latent to
+    the gt branch's mean latent and KL that of the gt branch's (mean,
+    std). The Encoder's gradient is multiplied by `enc_on` (0 or 1: the
+    JAX package's traced epoch-parity switch, so on an off epoch the
+    Encoder's momentum still decays, where the reference skips it); the
+    VAE is frozen by the optimizer's parameters. aux holds the detached
+    terms 'dice_loss1', 'dice_loss2', 'mse_loss', 'inpaint_loss',
+    'recon_loss', 'kl_loss' and 'final_loss'."""
+
+    def step(model, optimizer, image, label, generator, enc_on):
+        img = image if image.dim() == 5 else image[..., None]
+        onehot = L.one_hot_label(label, n_class)
+        optimizer.zero_grad(set_to_none=True)
+        out = model(img, onehot, test_mode=True, generator=generator)
+        d1 = _dice_loss(out["pred"], onehot, n_class)
+        d2 = _dice_loss(out["init_seg"], onehot, n_class)
+        inpaint = _dice_loss(out["seg_recon"], onehot, n_class)
+        recon = _dice_loss(out["gt_recon"], onehot, n_class)
+        klv = out["kl"]
+        mse = _batch_mean((out["latent_code"]
+                           - out["latent_code_gt"]).square())
+        final = (d1 + d2 + inpaint) / 3.0 + mse / 10.0 + 2e-5 * klv + recon
+        terms = {"dice_loss1": d1, "dice_loss2": d2, "mse_loss": mse,
+                 "inpaint_loss": inpaint, "recon_loss": recon,
+                 "kl_loss": klv}
+        _check_terms(**terms, final_loss=final)
+        final.backward()
+        for p in model.Encoder.parameters():
+            if p.grad is not None:
+                p.grad.mul_(enc_on)
+        _update(optimizer)
+        aux = {k: v.detach() for k, v in terms.items()}
+        aux["final_loss"] = final.detach()
+        return aux
+
+    return step
+
+
+def make_refine_vae_step(n_class: int) -> Callable:
+    """refine_vae (main_source.py:592-635; steps.py:631-660 of the JAX
+    package):
+
+        step(model, optimizer, image, label, generator) -> aux
+
+    the Embed `model`'s test-mode forward and final = inpaint + 2e-5 KL +
+    recon (as ``make_embed_train_step``'s terms); 'init_loss', the
+    init_seg's, is reported only. The VAE's encoder half is frozen by
+    the optimizer's parameters (``optim.freeze_vae_encoder``). aux holds
+    the detached 'recon_loss', 'inpaint_loss', 'init_loss', 'kl_loss' and
+    'final_loss'."""
+
+    def step(model, optimizer, image, label, generator):
+        img = image if image.dim() == 5 else image[..., None]
+        onehot = L.one_hot_label(label, n_class)
+        optimizer.zero_grad(set_to_none=True)
+        out = model(img, onehot, test_mode=True, generator=generator)
+        recon = _dice_loss(out["gt_recon"], onehot, n_class)
+        inpaint = _dice_loss(out["seg_recon"], onehot, n_class)
+        with torch.no_grad():
+            init_loss = _dice_loss(out["init_seg"], onehot, n_class)
+        klv = out["kl"]
+        final = inpaint + 2e-5 * klv + recon
+        terms = {"recon_loss": recon, "inpaint_loss": inpaint,
+                 "init_loss": init_loss, "kl_loss": klv}
+        _check_terms(**terms, final_loss=final)
+        final.backward()
+        _update(optimizer)
+        aux = {k: v.detach() for k, v in terms.items()}
+        aux["final_loss"] = final.detach()
+        return aux
 
     return step
