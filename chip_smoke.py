@@ -311,12 +311,37 @@ Phases, each printed as JSON records:
      cases and phase 3's phantoms: launches derived from the model, a
      loss line a step with the method's terms, scores in [0, 1],
      checkpoints.
- 20. the ``kernels`` line (sixteen kernels; those of an opt-in route
+ 20. the library-only models (ROADMAP item 11g; ``library_models``),
+     default route, full width, seeded weights: (a) norm_type 3
+     (GSNorm): a Joint eval forward at batch 1 on phase 3's phantom, on
+     the default draw and on the conditioned draw (``condition_gsnorm``:
+     on the default draw a GSNorm's channel sums come near 0 and the pass
+     is chaotic), and a vae_train step at batch 4 on phase 5's train cases
+     on the conditioned draw; (b) a norm_type 2 (BatchNorm) SegUNet forward
+     at batch 2 on phase 5's train images; (c) a SegmentationGS forward at
+     batch 1, then GSConv3d (3^3; 2^3 stride 2), SConv3d and
+     GSConvTranspose3d (2^3 stride 2) once each on the card. Every kernel
+     call of each pass, forward and backward, against its plain version
+     under phases 2 and 5's rules, untimed, two more launches for the same
+     bits, and each K1 call (no prologue, no epilogue) also by the stored-y
+     bound of phase 2's stats calls, each element within one bf16 ulp of
+     the f64 conv beyond the f32 sum's error (``k1_y_checks``: its flips
+     reported), which a planted 1% fault in one call must fail; launches
+     derived from the model; each forward's outputs finite, its
+     probabilities summing to 1, a second kernel-path pass equal bit
+     for bit, and but on the default norm_type 3 draw the probabilities
+     within ``DRIFT_MULTIPLE`` times the plain path's reordered drift;
+     (b)'s running buffers within F32_TOL of their largest element or
+     ``DRIFT_MULTIPLE`` times their reordered drift; the step by
+     ``gate_step`` on its gradients; ``forward_ms`` / ``step_ms``, peak
+     memory and the profiler's device time of each.
+ 21. the ``kernels`` line (sixteen kernels; those of an opt-in route
      carry its switch in ``path`` and count their launches on its runs;
      the others count phase 14's CLI runs in ``launches_test_time_path``,
      phase 15's in ``launches_later_flags_path``, phase 18's in
-     ``launches_serving_and_methods_path`` and phase 19's in
-     ``launches_remaining_methods_path`` too; then the three K1 kernels
+     ``launches_serving_and_methods_path``, phase 19's in
+     ``launches_remaining_methods_path`` and phase 20's checked passes in
+     ``launches_library_models_path`` too; then the three K1 kernels
      with a range, their slab calls' totals and their launches on phase
      17(b)'s steps), then the last line ``{"ok": true, "device":
      {...}}``.
@@ -3970,6 +3995,379 @@ def remaining_methods(torch, ops, run_cli, record_checked, work, data,
     return {"launches": launches, "step_totals": totals}
 
 
+# ------------------------------------------------------------ phase 20: the
+# library-only models (ROADMAP item 11g): norm types 2 (BatchNorm) and 3
+# (GSNorm) and the GS family of models/gs.py
+
+LIBRARY_KERNELS = ("conv3", "down_k2s2", "up_k2s2", "conv3_dk",
+                   "down_k2s2_bwd", "up_k2s2_bwd", "softmax_vjp",
+                   "reparam_kl", "reparam_kl_vjp")
+# condition_gsnorm: the bound's share that a 3^3 kernel's output channels
+# share (P); the biases' share
+GS_COMMON, GS_BIAS = 0.1, 0.01
+
+
+def condition_gsnorm(torch, model, gen) -> None:
+    """Redraw `model`'s weights in place from `gen` so that a norm_type 3
+    pass is well conditioned. A GSNorm divides a conv output by its channel
+    sum + 1e-4; on the default draw those sums come near 0, a forward
+    drifts from itself by 1.0 max / 0.34 mean abs when only its f32
+    summation order changes, and a vae_train step's gradients reach 1e34
+    (CPU, 64^3, full width). Here each 3^3 kernel is V - mean_O(V) + P,
+    V ~ U(-b, b) and P ~ U(0, GS_COMMON b) shared by its output channels
+    (b = 1 / sqrt(fan_in)): the channels differ by signed weights, and
+    their sum, the GSNorm's denominator, is C_out P . x, never negative on
+    the non-negative inputs that a ReLU, a softmax or a one-hot mask gives.
+    The bridges and dense layers are U(0, b), every bias U(0, GS_BIAS b)."""
+    import math
+
+    from vae_segmentation_tpu_torch.models.blocks import (
+        Conv3, DownConv, TConv2)
+
+    def draw(shape, lo, hi):
+        return torch.empty(shape).uniform_(lo, hi, generator=gen)
+
+    with torch.no_grad():
+        for m in model.modules():
+            if not isinstance(m, (Conv3, DownConv, TConv2, torch.nn.Linear)):
+                continue
+            b = 1.0 / math.sqrt(m.weight[0].numel())
+            if isinstance(m, Conv3):
+                v = draw(m.weight.shape, -b, b)
+                p = draw((1, *m.weight.shape[1:]), 0.0, GS_COMMON * b)
+                m.weight.copy_(v - v.mean(dim=0, keepdim=True) + p)
+            else:
+                m.weight.copy_(draw(m.weight.shape, 0.0, b))
+            m.bias.copy_(draw(m.bias.shape, 0.0, GS_BIAS * b))
+
+
+def k1_y_checks(torch, calls, plant: bool = False) -> dict:
+    """Phase 20: every recorded K1 call with no prologue and no epilogue
+    (the norm_type 2 / 3 and GS convs, forward and dx) held by the first
+    part of K1's stored-y rule too (``k1_y_rule``): each element within one
+    bf16 ulp of the f64 conv beyond the f32 sum's own error. That bound is
+    tighter than ``compare_call``'s 1e-2 of max|y|, which a uniform 1%
+    error would meet at its limit; with `plant`, the first call's kernel
+    output times 1.01 (a planted 1% fault) must fail it. The flips (the
+    distinct values off the once-rounded one) are reported beside the
+    plain version's, not gated: on the conditioned draw's cancelling sums
+    K1's truncating MMA accumulation flipped 3.7x the plain version's
+    values in one call with every element inside the bound. Returns the
+    calls checked, the worst counts, the plant's result and ok."""
+    from vae_segmentation_tpu_torch.ops import conv3
+
+    rec = {"calls": 0, "y_beyond_ulp": 0, "worst_flips": 0,
+           "worst_flip_ratio": 0.0, "calls_over_twice_plain_flips": 0,
+           "ok": True}
+    for c in calls:
+        a = c["args"]
+        if c["kernel"] != "conv3" or a.get("pre") is not None \
+                or a.get("stats") or a.get("softmax") \
+                or a.get("post") is not None:
+            continue
+        with torch.no_grad():
+            y = conv3.conv3_op(**a)
+            ref, mag = k1_reference(torch, a["x"], a["weight"], a["bias"],
+                                    None)
+            far, _, flips = k1_y_rule(torch, y, ref, mag)
+            flips_p = k1_y_rule(torch, c["out"], ref, mag)[2]
+            if plant and rec["calls"] == 0:
+                bad = (y.float() * 1.01).to(y.dtype)
+                far_f, _, flips_f = k1_y_rule(torch, bad, ref, mag)
+                rec["planted_fault"] = {
+                    "shape": list(a["x"].shape), "y_beyond_ulp": far_f,
+                    "flips": flips_f,
+                    "max_rule_passes": (bad.float() - c["out"].float())
+                    .abs().max().item()
+                    <= 1e-2 * c["out"].float().abs().max().item(),
+                    "fails": far_f > 0}
+                rec["ok"] = rec["ok"] and far_f > 0
+            del ref, mag
+        rec["calls"] += 1
+        rec["y_beyond_ulp"] += far
+        rec["worst_flips"] = max(rec["worst_flips"], flips)
+        rec["worst_flip_ratio"] = max(rec["worst_flip_ratio"],
+                                      flips / max(flips_p, K1_FLIP_FLOOR))
+        rec["calls_over_twice_plain_flips"] += \
+            flips > max(2 * flips_p, K1_FLIP_FLOOR)
+        rec["ok"] = rec["ok"] and far == 0
+    rec["ok"] = rec["ok"] and rec["calls"] > 0
+    return rec
+
+
+def running_buffers(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def library_models(torch, ops, record_checked, image, train_data, lists,
+                   args, log, failures) -> dict:
+    """Phase 20 on the default route, full width (fmaps 8-256, 128^3),
+    seeded weights: (a) norm_type 3: a Joint eval forward (batch 1) on
+    phase 3's phantom, on the default draw and on the conditioned draw
+    (``condition_gsnorm``), and a vae_train step (batch 4) on phase 5's
+    train cases on the conditioned draw; (b) a norm_type 2 SegUNet forward
+    at batch 2 on phase 5's train images; (c) a SegmentationGS forward at
+    batch 1 on phase 3's phantom, then GSConv3d (3^3 and 2^3 stride 2),
+    SConv3d and GSConvTranspose3d (2^3 stride 2) once each. Every kernel
+    call of each pass against its plain version, untimed and repeated bit
+    for bit, each K1 call also by its stored-y bound (``k1_y_checks``; a
+    planted 1% fault in one must fail it): the authority; launches derived
+    from the model. Whole-pass
+    rules (``forward_part``): finite outputs, probabilities summing to 1,
+    the kernel path repeating its bits, and, but on the default norm_type 3
+    draw (chaotic: reported only), the mean abs difference from the plain
+    path within DRIFT_MULTIPLE times the plain path's own reordered drift;
+    (b)'s running buffers each within F32_TOL of their largest element or
+    DRIFT_MULTIPLE times the reordered drift; the step by ``gate_step`` on
+    its gradients (the conditioned net's fall ~10x a layer from the head:
+    below SGD's resolution of the deep weights on every path).
+    ``forward_ms`` / ``step_ms``, peak memory and the profiler's device
+    time of each. Returns the launches of its checked kernel-path passes
+    and the per-call totals."""
+    from vae_segmentation_tpu_torch import train as T
+    from vae_segmentation_tpu_torch.data.pipeline import (
+        CaseDataset, intensity_normalize)
+    from vae_segmentation_tpu_torch.data.transforms import parse_pan_index
+    from vae_segmentation_tpu_torch.models import (
+        GSConv3d, GSConvTranspose3d, Joint, SConv3d, SegmentationGS,
+        SegUNet, ShapeVAE)
+    t_phase = time.time()
+    launches = {k: 0 for k in KERNEL_NAMES}
+    totals, recs = {}, {}
+
+    with open(lists) as f:
+        train_entries = json.load(f)["NIH_train"]
+    tds = CaseDataset(train_entries, train_data, parse_pan_index("1"))
+    tcases = [tds[i] for i in range(VAE_BATCH)]
+    img2 = intensity_normalize(torch.stack(
+        [torch.from_numpy(c["image"]) for c in tcases[:TRAIN_BATCH]]
+    ).cuda())[..., None].contiguous()
+    lab4 = torch.stack([torch.from_numpy(c["label"])
+                        for c in tcases]).cuda().contiguous()
+    # the conditioned draw wants a non-negative image: [-1, 1] -> [0, 1]
+    image01 = ((image + 1.0) / 2.0).contiguous()
+
+    def seeded(k):
+        return torch.Generator().manual_seed(args.seed + 20 + k)
+
+    def forward_part(name, model, x, probs, drift_gate=True, plant=False):
+        """One forward of `model` on x: every kernel call recorded on the
+        plain path and held to its plain version (record_checked,
+        untimed); the kernel path's launches (derived from the model),
+        finite outputs on both paths, the probability outputs `probs`
+        summing to 1 within 1e-2 (bf16), a second kernel-path forward
+        equal bit for bit, each output's mean abs difference from the plain
+        path beside the plain path's reordered drift (gated for `probs`
+        with `drift_gate`: phase 3's rule), running buffers likewise,
+        forward_ms, peak memory and a profile. Each pass starts from the
+        same weights and buffers."""
+        nonlocal launches
+        state0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+        def run():
+            model.load_state_dict(state0)
+            with torch.no_grad():
+                out = model(x)
+            return [o for o in (out if isinstance(out, tuple) else (out,))], \
+                running_buffers(model)
+
+        want = forward_launches(model)
+        (out_p, buf_p), totals[name], calls = record_checked(
+            run, want, f"{name}_kernel", f"{name} forward", timed=False)
+        y_rule = k1_y_checks(torch, calls, plant=plant)
+        del calls
+        ops.reset_launch_counts()
+        out_k, buf_k = run()
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        launches = added(launches, got)
+        out_k2, _ = run()
+        with plain_ops(reordered=True):
+            out_r, buf_r = run()
+        drift = [{"kernel_vs_plain": _mean_abs(k_, p_),
+                  "plain_vs_reordered": _mean_abs(p_, r_),
+                  "max_kernel_vs_plain": (k_.float() - p_.float()).abs()
+                  .max().item()}
+                 for k_, p_, r_ in zip(out_k, out_p, out_r)]
+        finite = all(bool(torch.isfinite(o.float()).all())
+                     for o in out_k + out_p)
+        sum_err = max(((out_k[i].float().sum(-1) - 1.0).abs().max().item()
+                       for i in probs), default=0.0)
+        repeat = all(torch.equal(a, b) for a, b in zip(out_k, out_k2))
+        buffers = {}
+        for k in buf_p:
+            err = (buf_k[k] - buf_p[k]).abs().max().item()
+            own = (buf_r[k] - buf_p[k]).abs().max().item()
+            top = buf_p[k].abs().max().item()
+            buffers[k] = {"err": err, "reordered_drift": own, "max": top,
+                          "ok": err <= max(F32_TOL * top,
+                                           DRIFT_MULTIPLE * own)}
+        drift_ok = all(drift[i]["kernel_vs_plain"]
+                       <= DRIFT_MULTIPLE * drift[i]["plain_vs_reordered"]
+                       for i in probs)
+        ok = (got == want and finite and sum_err <= 1e-2 and repeat
+              and y_rule["ok"] and (drift_ok or not drift_gate)
+              and all(b_["ok"] for b_ in buffers.values()))
+        del out_k, out_k2, out_p, out_r, buf_k, buf_p, buf_r
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fms = forward_ms(torch, model, x, reps=3)
+        peak = torch.cuda.max_memory_allocated()
+        prof = profile_forward(torch, model, x, failures, reps=3,
+                               phase=f"{name}_profile")
+        emit(prof, log)
+        model.load_state_dict(state0)
+        rec = {"phase": name, "shape": list(x.shape),
+               "launches": got, "launches_expected": want,
+               "k1_y_rule": y_rule, "finite": finite,
+               "prob_sum_err": sum_err,
+               "repeat_bitwise": repeat, "mean_abs_drift": drift,
+               "drift_gated": drift_gate, "drift_ok": drift_ok,
+               "drift_multiple": DRIFT_MULTIPLE,
+               "running_buffers": len(buffers),
+               "buffers_worst": max(buffers.values(),
+                                    key=lambda b_: b_["err"],
+                                    default=None),
+               "forward_ms": fms, "peak_memory_bytes": peak,
+               "device_ms": prof["device_ms"],
+               "busy_share": prof["busy_share"], "ok": ok}
+        emit(rec, log)
+        if not ok:
+            failures.append(f"{name}: {rec}")
+        recs[name] = rec
+        return rec
+
+    # ---- (a) norm_type 3: the Joint forward on the default draw (every
+    # call's rule; the whole pass is chaotic) and on the conditioned draw
+    joint = Joint(n_class=2, dim=128, bottleneck=16384, generator=seeded(0),
+                  norm_type=3).cuda().eval()
+    forward_part("library_joint3_default", joint, image, (0, 1),
+                 drift_gate=False)
+    condition_gsnorm(torch, joint, seeded(1))
+    forward_part("library_joint3", joint, image01, (0, 1), plant=True)
+    del joint
+    torch.cuda.empty_cache()
+
+    # the norm_type 3 vae_train step on the conditioned draw
+    vae = ShapeVAE(n_class=2, dim=128, bottleneck=16384,
+                   generator=seeded(2), norm_type=3).cuda()
+    condition_gsnorm(torch, vae, seeded(3))
+    vstate = {k: v.detach().clone() for k, v in vae.state_dict().items()}
+    vstep = T.make_vae_train_step(2, scale=VAE_SCALE)
+
+    def step1(lr=VAE_LR):
+        """Step 1 from the seeded weights: its loss terms and gradients
+        (``gate_step`` holds them as the update)."""
+        vae.load_state_dict(vstate)
+        opt = T.optim.sgd(vae.parameters(), lr)
+        aux = vstep(vae, opt, lab4, torch.Generator(device="cuda")
+                    .manual_seed(args.seed))
+        grads = {k: p_.grad.detach().clone()
+                 for k, p_ in vae.named_parameters()}
+        torch.cuda.synchronize()
+        return {k: v.item() for k, v in aux.items() if v.dim() == 0}, \
+            grads, True
+
+    want = expected_source_step_launches(vae, True)
+    step_calls = []
+
+    def recorded(run, expected, phase, what, timed=True):
+        out, tot, calls = record_checked(run, expected, phase, what, timed)
+        step_calls.append(k1_y_checks(torch, calls))
+        return out, tot, calls
+    gate, ok, totals["library_vae3_step"] = gate_step(
+        ops, recorded, "library_vae3", step1, want)
+    gate["k1_y_rule"] = step_calls[0]
+    ok = ok and step_calls[0]["ok"]
+    launches = added(launches, gate["launches"])
+    torch.cuda.empty_cache()
+    vae.load_state_dict(vstate)
+    opt = T.optim.sgd(vae.parameters(), VAE_LR)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    timing = timed_steps(torch, ops, lambda i: {
+        k: v for k, v in vstep(vae, opt, lab4, gen).items() if v.dim() == 0})
+    prof = profile_run(torch, lambda: vstep(vae, opt, lab4, gen), 2,
+                       "library_vae3_step_profile", failures)
+    prof["busy_share_of_step_ms"] = prof["device_ms"] / timing["step_ms"]
+    emit(prof, log)
+    ok = ok and timing["finite"] and all(c == want
+                                         for c in timing["launches"])
+    recs["library_vae3_step"] = {
+        **gate, "step_ms": timing["step_ms"],
+        "step_ms_all": timing["step_ms_all"],
+        "enqueue_ms": timing["enqueue_ms"],
+        "peak_memory_bytes": timing["peak_memory_bytes"],
+        "device_ms": prof["device_ms"], "ok": ok}
+    emit({"phase": "library_vae3_step", **recs["library_vae3_step"]}, log)
+    if not ok:
+        failures.append(f"library_vae3 step: {recs['library_vae3_step']}")
+    del vae, opt, vstate
+    torch.cuda.empty_cache()
+
+    # ---- (b) norm_type 2: a SegUNet forward at batch 2, its running
+    # buffers held too
+    seg = SegUNet(n_class=2, generator=seeded(4), norm_type=2).cuda()
+    forward_part("library_seg2", seg, img2, (0,))
+    del seg
+    torch.cuda.empty_cache()
+
+    # ---- (c) SegmentationGS at DEFAULT_FMAPS, batch 1; then each
+    # reparametrised conv once at a kernel's shape
+    gs = SegmentationGS(n_class=2, generator=seeded(5)).cuda()
+    forward_part("library_segmentation_gs", gs, image, (0,))
+    del gs
+    v32 = torch.randn((1, 32, 32, 32, 64), generator=seeded(6)) \
+        .to("cuda", torch.bfloat16)
+    for name, m in (
+            ("library_gsconv3d", GSConv3d(64, 64, num_group=8,
+                                          generator=seeded(7))),
+            ("library_gsconv3d_k2", GSConv3d(64, 64, kernel=2, stride=2,
+                                             padding="VALID",
+                                             generator=seeded(8))),
+            ("library_sconv3d", SConv3d(64, 64, generator=seeded(9))),
+            ("library_gsconvtranspose3d", GSConvTranspose3d(
+                64, 32, num_group=4, generator=seeded(10)))):
+        m = m.cuda()
+        kernel = {"library_gsconv3d_k2": "down_k2s2",
+                  "library_gsconvtranspose3d": "up_k2s2"}.get(name, "conv3")
+
+        def run(m=m):
+            with torch.no_grad():
+                return m(v32)
+        want = {**{k: 0 for k in KERNEL_NAMES}, kernel: 1}
+        out_p, totals[name], calls = record_checked(
+            run, want, f"{name}_kernel", f"{name} forward", timed=False)
+        y_rule = k1_y_checks(torch, calls) if kernel == "conv3" \
+            else {"ok": True}
+        del calls
+        ops.reset_launch_counts()
+        out_k = run()
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        launches = added(launches, got)
+        ok = (got == want and bool(torch.isfinite(out_k.float()).all())
+              and tuple(out_k.shape) == tuple(out_p.shape)
+              and y_rule["ok"])
+        rec = {"phase": name, "launches": got, "launches_expected": want,
+               "k1_y_rule": y_rule,
+               "shape": list(out_k.shape),
+               "max_abs_err": (out_k.float() - out_p.float()).abs().max()
+               .item(), "ok": ok}
+        emit(rec, log)
+        if not ok:
+            failures.append(f"{name}: {rec}")
+        recs[name] = rec
+    for name in LIBRARY_KERNELS:
+        if launches[name] == 0:
+            failures.append(f"{name} was never launched on phase 20's "
+                            "passes")
+    emit({"phase": "library_models_seconds",
+          "seconds": time.time() - t_phase,
+          "ok": all(r["ok"] for r in recs.values())}, log)
+    return {"launches": launches, "totals": totals}
+
+
 # ------------------------------------------------------------ phase 17: the
 # mesh (ROADMAP item 9): the valid-plane range of rows 1-5 on the card, the
 # adaptation step on worlds of ranks sharing the one card, both CLIs under
@@ -5401,10 +5799,16 @@ def main() -> int:
                                data, manifest, train_data, lists, args, log,
                                failures)
         remaining_launches = rm["launches"]
+
+        # ---- 20. the library-only models: norm types 2 and 3 through the
+        # models, the GS family
+        lm = library_models(torch, ops, record_checked, image, train_data,
+                            lists, args, log, failures)
+        library_launches = lm["launches"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 20. summary lines: K1-K3 per eval forward (phase 2), the backward
+    # ---- 21. summary lines: K1-K3 per eval forward (phase 2), the backward
     # and loss kernels per adaptation step (phase 5), reparam_kl per
     # vae_train step (phase 7); the kernels of an opt-in route per pass of
     # that route, and their launches counted on its runs: norm_stats and
@@ -5470,7 +5874,7 @@ def main() -> int:
             rec.update(launches=eval_launches[name] + train_launches[name]
                        + test_time_launches[name] + later_launches[name]
                        + serving_launches[name]
-                       + remaining_launches[name],
+                       + remaining_launches[name] + library_launches[name],
                        launches_eval_path=eval_launches[name],
                        launches_train_path=train_launches[name],
                        launches_test_time_path=test_time_launches[name],
@@ -5478,7 +5882,8 @@ def main() -> int:
                        launches_serving_and_methods_path=serving_launches[
                            name],
                        launches_remaining_methods_path=remaining_launches[
-                           name])
+                           name],
+                       launches_library_models_path=library_launches[name])
             if train_launches[name] == 0 or \
                     (name in PER_FORWARD and eval_launches[name] == 0):
                 failures.append(f"{name} was never launched on its main "
@@ -5542,6 +5947,7 @@ def main() -> int:
           "per_step": sm["step_totals"]}, log)
     emit({"phase": "remaining_step_totals",
           "per_step": rm["step_totals"]}, log)
+    emit({"phase": "library_models_totals", "per_pass": lm["totals"]}, log)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump({"records": log, "kernels": kernels, "failures": failures,

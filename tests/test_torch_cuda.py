@@ -1266,3 +1266,71 @@ def test_dlim_kernels_refuse_a_range_outside_the_planes(gen):
             conv3.conv3_dk(x, x, aff, dlim)
         with pytest.raises(ValueError):
             conv3.conv3_bwd(x, x, w, kw, aff, dlim)
+
+
+def _launch_counts():
+    return (conv3.conv3.launches, bridges.down_k2s2.launches,
+            bridges.up_k2s2.launches)
+
+
+@pytest.mark.parametrize("kind", ["gsconv3d", "gsconv3d_k2", "sconv3d",
+                                  "gsconvtranspose3d"])
+def test_gs_convs_launch_their_kernel(gen, kind):
+    """A reparametrised conv of models/gs.py at a kernel's shape launches
+    that kernel on the card (K1, K2, K3) on its derived weight: the output
+    against the same module's plain path on the CPU, the weight gradient
+    through the reparametrisation too."""
+    from vae_segmentation_tpu_torch.models import gs
+
+    g = torch.Generator().manual_seed(1)
+    m, launched = {
+        "gsconv3d": (gs.GSConv3d(16, 24, num_group=4, generator=g), 0),
+        "gsconv3d_k2": (gs.GSConv3d(16, 24, kernel=2, stride=2,
+                                    padding="VALID", generator=g), 1),
+        "sconv3d": (gs.SConv3d(16, 24, generator=g), 0),
+        "gsconvtranspose3d": (gs.GSConvTranspose3d(16, 24, num_group=2,
+                                                   generator=g), 2)}[kind]
+    x = _rnd(gen, 2, 8, 12, 16, 16).bfloat16()
+    before = _launch_counts()
+    mc = m.cuda()
+    y = mc(x)
+    (y.float() * y.float()).sum().backward()
+    torch.cuda.synchronize()
+    after = _launch_counts()
+    assert [a - b for a, b in zip(after, before)] == \
+        [int(i == launched) for i in range(3)]
+    grad = mc.weight.grad.cpu()
+    m_cpu = mc.cpu()
+    m_cpu.weight.grad = None
+    y_cpu = m_cpu(x.cpu())
+    (y_cpu.float() * y_cpu.float()).sum().backward()
+    _close(y.cpu(), y_cpu, 1e-2)
+    assert _rel(grad, m_cpu.weight.grad) <= 2e-2
+
+
+@pytest.mark.parametrize("norm_type", [2, 3])
+def test_norm_type_models_launch_the_kernels(gen, norm_type):
+    """A norm_type 2 or 3 SegUNet and a SegmentationGS on the card: every
+    3^3 conv through K1 (no prologue, no stats epilogue), every Down entry
+    through K2 and Up entry through K3, finite probabilities summing to
+    1."""
+    from vae_segmentation_tpu_torch.models import SegmentationGS, SegUNet
+    from vae_segmentation_tpu_torch.models.blocks import (
+        Conv3, DownConv, TConv2)
+
+    g = torch.Generator().manual_seed(2)
+    nets = [SegUNet(fmaps=(8, 8, 16, 16, 32, 32), generator=g,
+                    norm_type=norm_type).cuda()]
+    if norm_type == 3:
+        nets.append(SegmentationGS(fmaps=(8, 8, 16, 16), generator=g).cuda())
+    x = _rnd(gen, 2, 32, 32, 32, 1)
+    for net in nets:
+        before = _launch_counts()
+        with torch.no_grad():
+            y = net(x)
+        torch.cuda.synchronize()
+        want = [sum(isinstance(m, c) for m in net.modules())
+                for c in (Conv3, DownConv, TConv2)]
+        assert [a - b for a, b in zip(_launch_counts(), before)] == want
+        assert torch.isfinite(y.float()).all()
+        assert (y.float().sum(-1) - 1).abs().max().item() <= 1e-2

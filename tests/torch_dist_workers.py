@@ -99,17 +99,21 @@ def adapt_step(rank, world, n_data, n_spatial, spec):
 
 def source_step(rank, world, n_data, n_spatial, spec):
     """One vae_train (reparam at spec['scale']) or seg_train step of a
-    ShapeVAE / SegUNet from spec['state'] on this rank's slice: the loss
+    ShapeVAE / SegUNet (spec['norm_type'], default 1) from spec['state']
+    on this rank's slice: the loss
     terms and the gradients (rank 0's), their digests, and the reparam
     seeds this rank drew."""
     mesh = _mesh(world, n_data, n_spatial)
     vae = spec["kind"] == "vae"
+    norm_type = spec.get("norm_type", 1)
     if vae:
         net = pm.ShapeVAE(n_class=2, fmaps=spec["fmaps"], dim=spec["dim"],
-                          bottleneck=spec["bottleneck"], dtype=torch.float32)
+                          bottleneck=spec["bottleneck"], dtype=torch.float32,
+                          norm_type=norm_type)
         step = pt.make_vae_train_step(2, scale=spec["scale"])
     else:
-        net = pm.SegUNet(n_class=2, fmaps=spec["fmaps"], dtype=torch.float32)
+        net = pm.SegUNet(n_class=2, fmaps=spec["fmaps"], dtype=torch.float32,
+                         norm_type=norm_type)
         step = pt.make_seg_train_step(2)
     net.load_state_dict({k: torch.from_numpy(v)
                          for k, v in spec["state"].items()})

@@ -18,6 +18,7 @@ from typing import Callable, Dict, Iterable, Tuple
 import numpy as np
 import torch
 
+from vae_segmentation_tpu_torch.models.blocks import refusing_batch_norm
 from vae_segmentation_tpu_torch.ops import losses as L
 
 
@@ -32,6 +33,7 @@ def make_vae_eval_step(model: torch.nn.Module, n_class: int) -> Callable:
     (evaluate.py:25-34 of the JAX package)."""
     device = next(model.parameters()).device
 
+    @refusing_batch_norm()
     @torch.no_grad()
     def step(label) -> Dict[str, torch.Tensor]:
         onehot = L.one_hot_label(torch.as_tensor(label, device=device),
@@ -55,6 +57,7 @@ def make_seg_eval_step(segment: Callable, n_class: int) -> Callable:
     owner = getattr(segment, "__self__", segment)
     device = next(owner.parameters()).device
 
+    @refusing_batch_norm()
     @torch.no_grad()
     def step(image, label) -> Dict[str, torch.Tensor]:
         image = torch.as_tensor(image, device=device)
@@ -74,6 +77,7 @@ def make_joint_eval_step(model: torch.nn.Module, n_class: int, *,
     the GT one-hot with the mean latent."""
     device = next(model.parameters()).device
 
+    @refusing_batch_norm()
     @torch.no_grad()
     def step(image, label) -> Dict[str, torch.Tensor]:
         image = torch.as_tensor(image, device=device)
@@ -95,6 +99,7 @@ def make_discriminator_eval_step(model: torch.nn.Module) -> Callable:
     395-405 of the JAX package)."""
     device = next(model.parameters()).device
 
+    @refusing_batch_norm()
     @torch.no_grad()
     def step(label, target) -> Dict[str, torch.Tensor]:
         label = torch.as_tensor(label, device=device)
@@ -121,6 +126,7 @@ def make_analysis_metrics_step(model: torch.nn.Module,
         return L.avg_dsc(a, b, binary=binary, botindex=1, topindex=n_class,
                          return_mean=False)
 
+    @refusing_batch_norm()
     @torch.no_grad()
     def step(image, label) -> Dict[str, torch.Tensor]:
         img = torch.as_tensor(image, device=device)[..., None]

@@ -27,6 +27,8 @@ from typing import Callable, Sequence, Tuple
 import numpy as np
 import torch
 
+from vae_segmentation_tpu_torch.models.blocks import refusing_batch_norm
+
 
 def window_starts(vol_size: Sequence[int], patch: Sequence[int],
                   overlap: float = 0.5) -> np.ndarray:
@@ -89,6 +91,7 @@ def stitch(seg_fn: Callable[[torch.Tensor], torch.Tensor],
     return acc / torch.clamp(acc_w, min=1e-8)[..., None]
 
 
+@refusing_batch_norm()
 def sliding_window_predict(seg_fn: Callable[[torch.Tensor], torch.Tensor],
                            volume: torch.Tensor,
                            patch: Tuple[int, int, int] = (128, 128, 128),

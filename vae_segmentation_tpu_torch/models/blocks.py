@@ -22,6 +22,17 @@ each of its norms is applied where it is made (``apply_affine_relu`` with
 ``soft``) and its blocks hand their consumers ``None``; on the norm route
 it runs ``instance_norm_act`` without the ReLU, then softplus.
 
+``norm_type`` (blocks.py:458-534, 867-1082 of the JAX package) picks the
+norm of every block: 1 InstanceNorm (everything above), 2 BatchNorm, 3
+GSNorm (``Norm``). For 2 and 3 each conv is K1 with no prologue and no
+stats epilogue, then ``Norm``, then ReLU (softplus when soft): plain
+PyTorch on the stored conv output, as the JAX package computes those norms
+with XLA. The blocks hand their consumers ``None`` for the affine, as on
+the norm route, and ``use_pallas_norm`` applies to norm_type 1 only. A
+block's ``Norm`` sits at the reference's Sequential index beside its conv
+(``conv.1`` of a ConvNormAct; ``conv.{1,4,7}`` of a DoubleConv); only
+norm_type 2 has parameters and buffers there.
+
 The norm route (``use_pallas_norm``, VAESEG_PALLAS=1, the JAX package's
 switch) is the JAX package's logical route with that switch on
 (blocks.py:518-534, 886-921, 954-989 with no stats and no fold): every conv
@@ -52,11 +63,14 @@ for a volume that is whole on the rank: ``sharding.mark_replicated``) they
 run on the whole volume, as the JAX wraps fall back to the unsharded op,
 and hand on this rank's planes wherever the next stage's D splits. On the
 norm route each norm adds its slab's f64 sums over the data row before
-the fold (``instance_norm_act``'s ``mesh``).
+the fold (``instance_norm_act``'s ``mesh``). A GSNorm is voxel-local and
+runs on the slabs; a BatchNorm raises under any mesh (no JAX step runs
+one).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 from typing import Optional, Sequence, Tuple
@@ -103,6 +117,132 @@ def apply_affine_relu(x: torch.Tensor, aff: Affine,
                    + t[:, None, None, None, :])
     return sharding.like(y.to(x.dtype), x)
 
+
+
+def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Parameter-free InstanceNorm over the spatial dims of [B, D, H, W, C]
+    (the JAX package's ``blocks.instance_norm``): mean and biased variance
+    in f32, the per-(B, C) scale and shift cast to x.dtype, one
+    multiply-add in x.dtype. The models' norm_type 1 takes its statistics
+    from K1's epilogue or the norm kernels instead; this is ``Norm(1)``."""
+    x32 = x.float()
+    mean = x32.mean(dim=(1, 2, 3), keepdim=True)
+    var = x32.var(dim=(1, 2, 3), unbiased=False, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    return x * rstd.to(x.dtype) + (-mean * rstd).to(x.dtype)
+
+
+def gs_norm(x: torch.Tensor, num_group: int = 1,
+            eps: float = 1e-4) -> torch.Tensor:
+    """Group-sum normalization (reference joint_model.py:17-33; the JAX
+    package's ``blocks.gs_norm``): within each of `num_group` channel
+    groups, x divided by the group's channel sum + eps, summed in f32 and
+    cast back to x.dtype. Voxel-local. A sum near -eps gives very large
+    values: the JAX function does the same."""
+    c = x.shape[-1]
+    x32 = x.float().reshape(*x.shape[:-1], num_group, c // num_group)
+    denom = x32.sum(dim=-1, keepdim=True) + eps
+    return (x32 / denom).reshape(x.shape).to(x.dtype)
+
+
+_IN_STEP = False
+
+
+@contextlib.contextmanager
+def refusing_batch_norm():
+    """Within (every train step and eval of ``train/steps.py`` and
+    ``eval/evaluate.py``): a norm_type 2 ``Norm`` raises ValueError. The
+    JAX package's steps and evals apply ``{"params": p}`` alone, which a
+    BatchNorm's ``batch_stats`` collection refuses, so no JAX step runs
+    one; norm_type 3 is stateless and runs."""
+    global _IN_STEP
+    prev, _IN_STEP = _IN_STEP, True
+    try:
+        yield
+    finally:
+        _IN_STEP = prev
+
+
+class Norm(nn.Module):
+    """The norm dispatch (reference joint_model.py:9-15; the JAX package's
+    ``blocks.Norm``): norm_type 1 InstanceNorm (``instance_norm``), 2
+    BatchNorm, 3 GSNorm (``gs_norm`` with `num_group`).
+
+    The BatchNorm follows flax's ``nn.BatchNorm`` as the JAX package
+    builds it (momentum 0.9, epsilon 1e-5, ``use_fast_variance`` and f32
+    reductions): the statistics over (B, D, H, W) in f32 with var =
+    mean(x^2) - mean^2 clipped at 0, y = (x - mean) * (rsqrt(var + eps) *
+    weight) + bias in f32 cast to x.dtype, and each batch-statistics
+    forward updates ``running = 0.9 * running + 0.1 * batch`` with the
+    biased variance (torch's own update takes the unbiased one). Its keys
+    are torch ``BatchNorm3d``'s (``weight``, ``bias``, ``running_mean``,
+    ``running_var``, ``num_batches_tracked``), so a reference checkpoint
+    loads strictly. The JAX models build every Norm with
+    ``use_running_average=False``, so a port model normalises with batch
+    statistics and updates its running buffers on every forward, whatever
+    ``self.training`` is; ``use_running_average=True`` reads the buffers
+    and updates nothing. A BatchNorm raises under an active mesh."""
+
+    def __init__(self, norm_type: int, channels: int = 0, num_group: int = 1,
+                 use_running_average: bool = False):
+        super().__init__()
+        if norm_type not in (1, 2, 3):
+            raise ValueError(f"unknown norm_type={norm_type}")
+        self.norm_type = norm_type
+        self.num_group = num_group
+        self.use_running_average = use_running_average
+        if norm_type == 2:
+            self.weight = nn.Parameter(torch.ones(channels))
+            self.bias = nn.Parameter(torch.zeros(channels))
+            self.register_buffer("running_mean", torch.zeros(channels))
+            self.register_buffer("running_var", torch.ones(channels))
+            self.register_buffer("num_batches_tracked",
+                                 torch.tensor(0, dtype=torch.long))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.norm_type == 1:
+            return instance_norm(x)
+        if self.norm_type == 3:
+            return gs_norm(x, self.num_group)
+        return self._batch_norm(x)
+
+    MOMENTUM, EPS = 0.9, 1e-5
+
+    def _batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        if _IN_STEP:
+            raise ValueError("norm_type 2 (BatchNorm) runs at the model "
+                             "level only: no train step or eval of the JAX "
+                             "package runs one")
+        if sharding.current() is not None:
+            raise ValueError("norm_type 2 (BatchNorm) does not run under a "
+                             "mesh: no train step of the JAX package runs "
+                             "one")
+        x32 = x.float()
+        if self.use_running_average:
+            mean, var = self.running_mean, self.running_var
+        else:
+            dims = tuple(range(x.dim() - 1))
+            mean = x32.mean(dim=dims)
+            var = ((x32 * x32).mean(dim=dims) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                m = self.MOMENTUM
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var
+                                       + (1.0 - m) * var)
+                self.num_batches_tracked += 1
+        y = (x32 - mean) * (torch.rsqrt(var + self.EPS) * self.weight)
+        return (y + self.bias).to(x.dtype)
+
+
+def norm_act(norm: Norm, y: torch.Tensor, soft: bool = False
+             ) -> torch.Tensor:
+    """act(norm(y)) of a norm_type 2 or 3 block (the JAX package's
+    ``_norm_act`` with no fold): ReLU, or softplus in f32 with `soft`,
+    stored in y.dtype."""
+    z = norm(y)
+    z = F.softplus(z.float()).to(y.dtype) if soft else torch.relu(z)
+    return sharding.like(z, y)
 
 
 class _KernelConv(nn.Module):
@@ -275,17 +415,25 @@ class ConvNormAct(nn.Module):
     conv output and its norm affine: the norm+ReLU is applied by the
     consumer (the down1 entry's K2 prologue), so the normalized tensor is
     never stored. On the norm route, and for a soft stage (softplus in
-    place of ReLU): the normalized output and None."""
+    place of ReLU): the normalized output and None. norm_type 2 or 3: K1
+    without the stats epilogue, ``Norm`` (key ``conv.1``), the activation;
+    the normalized output and None."""
 
     def __init__(self, cin: int, cout: int,
                  generator: Optional[torch.Generator] = None,
-                 soft: bool = False):
+                 soft: bool = False, norm_type: int = 1):
         super().__init__()
         self.soft = soft
+        self.norm_type = norm_type
         self.conv = nn.ModuleDict({"0": Conv3(cin, cout, generator)})
+        if norm_type != 1:
+            self.conv["1"] = Norm(norm_type, cout)
 
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, Optional[Affine]]:
+        if self.norm_type != 1:
+            return norm_act(self.conv["1"], self.conv["0"](x), self.soft), \
+                None
         if use_pallas_norm():
             return _norm(self.conv["0"](x), self.soft), None
         y, st = self.conv["0"](x, stats=True)
@@ -293,6 +441,11 @@ class ConvNormAct(nn.Module):
         if self.soft:
             return apply_affine_relu(y, aff, soft=True), None
         return y, aff
+
+
+def _norm_key(conv_key: str) -> str:
+    """The reference's Sequential index of the norm after a conv."""
+    return str(int(conv_key) + 1)
 
 
 class DoubleConv(nn.Module):
@@ -303,21 +456,30 @@ class DoubleConv(nn.Module):
     norm instead of applying it. On the norm route every norm+ReLU is
     ``instance_norm_act`` and defer=True returns (normalized, None). A soft
     chain applies each norm with softplus after its conv (stats epilogue,
-    no prologue) and defer=True returns (normalized, None)."""
+    no prologue) and defer=True returns (normalized, None). norm_type 2 or
+    3: each conv, its ``Norm`` (keys ``conv.{1,4,7}``) and the activation;
+    defer=True returns (normalized, None)."""
 
     _KEYS = ("0", "3", "6")  # reference indices (norm/ReLU at 1, 2, 4, ...)
 
     def __init__(self, cin: int, cout: int,
                  generator: Optional[torch.Generator] = None,
-                 soft: bool = False):
+                 soft: bool = False, norm_type: int = 1):
         super().__init__()
         self.soft = soft
-        self.conv = nn.ModuleDict({
-            "0": Conv3(cin, cout, generator),
-            "3": Conv3(cout, cout, generator),
-            "6": Conv3(cout, cout, generator)})
+        self.norm_type = norm_type
+        self.conv = nn.ModuleDict()
+        for i, key in enumerate(self._KEYS):
+            self.conv[key] = Conv3(cout if i else cin, cout, generator)
+            if norm_type != 1:
+                self.conv[_norm_key(key)] = Norm(norm_type, cout)
 
     def forward(self, x: torch.Tensor, defer: bool = False):
+        if self.norm_type != 1:
+            for key in self._KEYS:
+                x = norm_act(self.conv[_norm_key(key)], self.conv[key](x),
+                             self.soft)
+            return (x, None) if defer else x
         if use_pallas_norm():
             for key in self._KEYS:
                 x = _norm(self.conv[key](x), self.soft)
@@ -342,11 +504,11 @@ class Down(nn.Module):
 
     def __init__(self, cin: int, cout: int,
                  generator: Optional[torch.Generator] = None,
-                 soft: bool = False):
+                 soft: bool = False, norm_type: int = 1):
         super().__init__()
         self.conv = nn.ModuleDict({"0": DownConv(cin, generator),
                                    "1": DoubleConv(cin, cout, generator,
-                                                   soft)})
+                                                   soft, norm_type)})
 
     def forward(self, x: torch.Tensor, pre: Optional[Affine] = None):
         return self.conv["1"](self.conv["0"](x, pre=pre))
@@ -358,11 +520,11 @@ class Up(nn.Module):
 
     def __init__(self, cin: int, cout: int,
                  generator: Optional[torch.Generator] = None,
-                 soft: bool = False):
+                 soft: bool = False, norm_type: int = 1):
         super().__init__()
         self.conv = nn.ModuleDict({"0": TConv2(cin, generator),
                                    "1": DoubleConv(cin, cout, generator,
-                                                   soft)})
+                                                   soft, norm_type)})
 
     def forward(self, x: torch.Tensor, defer: bool = False):
         return self.conv["1"](self.conv["0"](x), defer=defer)

@@ -8,9 +8,10 @@ channel-major flatten to the bottleneck (16384 at 128^3), then fc1
 sigmoid in f32. The dense layers are ``F.linear`` in the compute dtype, as
 the VAE's. ``dim=1`` is the shape discriminator of Joint2
 (``discriminator_train``, ``domain_adaptation_dis``), ``dim=128`` the image
-encoder of Embed (``embed_train``, ``refine_vae``). Under a 'spatial' axis
-the trunk's output is gathered over the data row before the flatten, as the
-VAE's.
+encoder of Embed (``embed_train``, ``refine_vae``). ``norm_type`` 2 or 3
+builds its blocks with that norm (encoder.py:41,52 of the JAX package).
+Under a 'spatial' axis the trunk's output is gathered over the data row
+before the flatten, as the VAE's.
 """
 
 from __future__ import annotations
@@ -76,18 +77,19 @@ class ShapeEncoder(nn.Module):
     def __init__(self, dim: int = 1, fmaps: Sequence[int] = DEFAULT_FMAPS,
                  bottleneck: int = 16384,
                  dtype: torch.dtype = torch.bfloat16, n_channels: int = 1,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 norm_type: int = 1):
         super().__init__()
         f = tuple(fmaps)
         bottleneck_side(bottleneck, f[5])
         self.dtype = dtype
-        g = generator
-        self.in_block = ConvNormAct(n_channels, f[0], g)
-        self.down1 = Down(f[0], f[1], g)
-        self.down2 = Down(f[1], f[2], g)
-        self.down3 = Down(f[2], f[3], g)
-        self.down4 = Down(f[3], f[4], g)
-        self.down5 = Down(f[4], f[5], g)
+        g, nt = generator, norm_type
+        self.in_block = ConvNormAct(n_channels, f[0], g, norm_type=nt)
+        self.down1 = Down(f[0], f[1], g, norm_type=nt)
+        self.down2 = Down(f[1], f[2], g, norm_type=nt)
+        self.down3 = Down(f[2], f[3], g, norm_type=nt)
+        self.down4 = Down(f[3], f[4], g, norm_type=nt)
+        self.down5 = Down(f[4], f[5], g, norm_type=nt)
         self.fc1 = linear(bottleneck, 1024, g)
         self.fc2 = linear(1024, 128, g)
         self.fc_mean = linear(128, dim, g)

@@ -7,8 +7,10 @@ at the stride-2 scale and merged by a conv (``merge``); then SegUNet's body
 (down2-4, up2-5, skip-adds after up3 and up4) and the 3^3 head with the
 class softmax in K1's epilogue, up5's norm+ReLU its prologue. A deferred
 norm cannot cross an add, so both Down outputs, merge's output (the
-up4 skip) and the skip operands are normalized where they are made. Used
-only by ``Embed`` (models/joint.py).
+up4 skip) and the skip operands are normalized where they are made.
+``norm_type`` 2 or 3 builds every block, ``merge`` included, with that norm
+(fusion.py:31,42 of the JAX package). Used only by ``Embed``
+(models/joint.py).
 """
 
 from __future__ import annotations
@@ -29,24 +31,25 @@ class FusionNet(nn.Module):
 
     def __init__(self, n_class: int = 2, fmaps: Sequence[int] = DEFAULT_FMAPS,
                  dtype: torch.dtype = torch.bfloat16, n_channels: int = 1,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 norm_type: int = 1):
         super().__init__()
         f = tuple(fmaps)
         self.n_class = n_class
         self.dtype = dtype
-        g = generator
-        self.in_block = ConvNormAct(n_channels, f[0], g)
-        self.down1 = Down(f[0], f[1], g)
-        self.in_block_mask = ConvNormAct(n_class, f[0], g)
-        self.down1_mask = Down(f[0], f[1], g)
-        self.merge = ConvNormAct(f[1], f[1], g)
-        self.down2 = Down(f[1], f[2], g)
-        self.down3 = Down(f[2], f[3], g)
-        self.down4 = Down(f[3], f[4], g)
-        self.up2 = Up(f[4], f[3], g)
-        self.up3 = Up(f[3], f[2], g)
-        self.up4 = Up(f[2], f[1], g)
-        self.up5 = Up(f[1], f[0], g)
+        g, nt = generator, norm_type
+        self.in_block = ConvNormAct(n_channels, f[0], g, norm_type=nt)
+        self.down1 = Down(f[0], f[1], g, norm_type=nt)
+        self.in_block_mask = ConvNormAct(n_class, f[0], g, norm_type=nt)
+        self.down1_mask = Down(f[0], f[1], g, norm_type=nt)
+        self.merge = ConvNormAct(f[1], f[1], g, norm_type=nt)
+        self.down2 = Down(f[1], f[2], g, norm_type=nt)
+        self.down3 = Down(f[2], f[3], g, norm_type=nt)
+        self.down4 = Down(f[3], f[4], g, norm_type=nt)
+        self.up2 = Up(f[4], f[3], g, norm_type=nt)
+        self.up3 = Up(f[3], f[2], g, norm_type=nt)
+        self.up4 = Up(f[2], f[1], g, norm_type=nt)
+        self.up5 = Up(f[1], f[0], g, norm_type=nt)
         self.out_block = Conv3(f[0], n_class, g)
 
     def forward(self, image: torch.Tensor, mask: torch.Tensor

@@ -19,6 +19,9 @@ Embed: the latent-space segmentation of ``embed_train`` / ``refine_vae``
 the FusionNet of the image and a mask (``init_seg`` in test mode, else
 the ground truth's reconstruction) and the VAE of the detached
 ``init_seg``.
+
+Each takes ``norm_type`` (default 1) and passes it to its networks
+(joint.py:39,78-81,146-155,170-183 of the JAX package).
 """
 
 from __future__ import annotations
@@ -42,16 +45,17 @@ class Joint(nn.Module):
                  bottleneck: int = 16384,
                  dtype: torch.dtype = torch.bfloat16,
                  generator: Optional[torch.Generator] = None,
-                 vae_decoder_dropout: float = 0.0, seg_dropout: float = 0.0):
+                 vae_decoder_dropout: float = 0.0, seg_dropout: float = 0.0,
+                 norm_type: int = 1):
         super().__init__()
         self.n_class = n_class
         self.vae_decoder_dropout = vae_decoder_dropout
         self.seg_dropout = seg_dropout
         self.Seg = SegUNet(n_class=n_class, fmaps=fmaps, dtype=dtype,
-                           generator=generator)
+                           generator=generator, norm_type=norm_type)
         self.Vae = ShapeVAE(n_class=n_class, fmaps=fmaps, dim=dim,
                             bottleneck=bottleneck, dtype=dtype,
-                            generator=generator)
+                            generator=generator, norm_type=norm_type)
 
     def forward(self, image: torch.Tensor, dropout: bool = False,
                 generator: Optional[torch.Generator] = None):
@@ -85,14 +89,15 @@ class Joint2(nn.Module):
                  bottleneck: int = 16384,
                  dtype: torch.dtype = torch.bfloat16,
                  generator: Optional[torch.Generator] = None,
-                 seg_dropout: float = 0.0):
+                 seg_dropout: float = 0.0, norm_type: int = 1):
         super().__init__()
         self.n_class = n_class
         self.seg_dropout = seg_dropout
         self.Seg = SegUNet(n_class=n_class, fmaps=fmaps, dtype=dtype,
-                           generator=generator)
+                           generator=generator, norm_type=norm_type)
         self.Dis = ShapeEncoder(dim=1, fmaps=fmaps, bottleneck=bottleneck,
-                                dtype=dtype, generator=generator)
+                                dtype=dtype, generator=generator,
+                                norm_type=norm_type)
 
     def forward(self, image: torch.Tensor, dropout: bool = False,
                 generator: Optional[torch.Generator] = None):
@@ -108,17 +113,16 @@ class Embed(nn.Module):
                  fmaps: Sequence[int] = DEFAULT_FMAPS,
                  bottleneck: int = 16384,
                  dtype: torch.dtype = torch.bfloat16,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 norm_type: int = 1):
         super().__init__()
         self.n_class = n_class
-        self.Encoder = ShapeEncoder(dim=dim, fmaps=fmaps,
-                                    bottleneck=bottleneck, dtype=dtype,
-                                    generator=generator)
-        self.Vae = ShapeVAE(n_class=n_class, fmaps=fmaps, dim=dim,
-                            bottleneck=bottleneck, dtype=dtype,
-                            generator=generator)
-        self.Fusion = FusionNet(n_class=n_class, fmaps=fmaps, dtype=dtype,
-                                generator=generator)
+        kw = dict(fmaps=fmaps, dtype=dtype, generator=generator,
+                  norm_type=norm_type)
+        self.Encoder = ShapeEncoder(dim=dim, bottleneck=bottleneck, **kw)
+        self.Vae = ShapeVAE(n_class=n_class, dim=dim, bottleneck=bottleneck,
+                            **kw)
+        self.Fusion = FusionNet(n_class=n_class, **kw)
 
     def forward(self, image: torch.Tensor, gt_onehot: torch.Tensor,
                 test_mode: bool = False,

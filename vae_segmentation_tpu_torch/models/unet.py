@@ -8,8 +8,11 @@ entry's prologue and up5's final norm+ReLU the head's prologue
 (unet.py:92-120 of the JAX package); with MC dropout active the norm is
 applied inline and the softmax follows the head's own dropout. On the norm
 route (``blocks.use_pallas_norm``) the blocks return normalized tensors and
-no affine (unet.py:86-137 with ``fold`` false). Under a mesh the blocks'
-shard wraps take the rank's slice; a skip-add keeps its operands' layout.
+no affine (unet.py:86-137 with ``fold`` false), as they do for
+``norm_type`` 2 (BatchNorm) and 3 (GSNorm): each conv, its ``Norm``, the
+activation (unet.py:37,64: the JAX model folds and fuses only at
+norm_type 1). Under a mesh the blocks' shard wraps take the rank's slice;
+a skip-add keeps its operands' layout.
 """
 
 from __future__ import annotations
@@ -31,21 +34,22 @@ class SegUNet(nn.Module):
 
     def __init__(self, n_class: int = 2, fmaps: Sequence[int] = DEFAULT_FMAPS,
                  dtype: torch.dtype = torch.bfloat16, n_channels: int = 1,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 norm_type: int = 1):
         super().__init__()
         f = tuple(fmaps)
         self.n_class = n_class
         self.dtype = dtype
-        g = generator
-        self.in_block = ConvNormAct(n_channels, f[0], g)
-        self.down1 = Down(f[0], f[1], g)
-        self.down2 = Down(f[1], f[2], g)
-        self.down3 = Down(f[2], f[3], g)
-        self.down4 = Down(f[3], f[4], g)
-        self.up2 = Up(f[4], f[3], g)
-        self.up3 = Up(f[3], f[2], g)
-        self.up4 = Up(f[2], f[1], g)
-        self.up5 = Up(f[1], f[0], g)
+        g, nt = generator, norm_type
+        self.in_block = ConvNormAct(n_channels, f[0], g, norm_type=nt)
+        self.down1 = Down(f[0], f[1], g, norm_type=nt)
+        self.down2 = Down(f[1], f[2], g, norm_type=nt)
+        self.down3 = Down(f[2], f[3], g, norm_type=nt)
+        self.down4 = Down(f[3], f[4], g, norm_type=nt)
+        self.up2 = Up(f[4], f[3], g, norm_type=nt)
+        self.up3 = Up(f[3], f[2], g, norm_type=nt)
+        self.up4 = Up(f[2], f[1], g, norm_type=nt)
+        self.up5 = Up(f[1], f[0], g, norm_type=nt)
         self.out_block = Conv3(f[0], n_class, g)
 
     def forward(self, x: torch.Tensor, dropout: float = 0.0,

@@ -15,7 +15,9 @@ is the soft-ReLU VAE of --softrelu 1 (vae.py:58 of the JAX package): every
 norm of its blocks takes softplus in place of ReLU, so none rides into a
 kernel prologue (``models/blocks.py``). On the norm
 route (``blocks.use_pallas_norm``) the blocks return normalized tensors and
-no affine (vae.py:113-166 with ``fold`` false).
+no affine (vae.py:113-166 with ``fold`` false), as they do for
+``norm_type`` 2 and 3 (vae.py:55,84 of the JAX package; with ``soft``:
+the ``Norm``, then softplus).
 
 Under a 'spatial' axis (``parallel.sharding``) the flatten needs the whole
 4^3 volume: the encoder's output is gathered over the data row before
@@ -49,7 +51,7 @@ class ShapeVAE(nn.Module):
                  dim: int = 128, bottleneck: int = 16384,
                  dtype: torch.dtype = torch.bfloat16,
                  generator: Optional[torch.Generator] = None,
-                 soft: bool = False):
+                 soft: bool = False, norm_type: int = 1):
         super().__init__()
         f = tuple(fmaps)
         self.fmaps = f
@@ -57,21 +59,21 @@ class ShapeVAE(nn.Module):
         self.dtype = dtype
         self.soft = soft
         self.side = bottleneck_side(bottleneck, f[5])
-        g = generator
-        self.in_block = ConvNormAct(n_class, f[0], g, soft)
-        self.down1 = Down(f[0], f[1], g, soft)
-        self.down2 = Down(f[1], f[2], g, soft)
-        self.down3 = Down(f[2], f[3], g, soft)
-        self.down4 = Down(f[3], f[4], g, soft)
-        self.down5 = Down(f[4], f[5], g, soft)
+        g, kw = generator, dict(soft=soft, norm_type=norm_type)
+        self.in_block = ConvNormAct(n_class, f[0], g, **kw)
+        self.down1 = Down(f[0], f[1], g, **kw)
+        self.down2 = Down(f[1], f[2], g, **kw)
+        self.down3 = Down(f[2], f[3], g, **kw)
+        self.down4 = Down(f[3], f[4], g, **kw)
+        self.down5 = Down(f[4], f[5], g, **kw)
         self.fc_mean = linear(bottleneck, dim, g)
         self.fc_std = linear(bottleneck, dim, g)
         self.fc2 = linear(dim, bottleneck, g)
-        self.up1 = Up(f[5], f[4], g, soft)
-        self.up2 = Up(f[4], f[3], g, soft)
-        self.up3 = Up(f[3], f[2], g, soft)
-        self.up4 = Up(f[2], f[1], g, soft)
-        self.up5 = Up(f[1], f[0], g, soft)
+        self.up1 = Up(f[5], f[4], g, **kw)
+        self.up2 = Up(f[4], f[3], g, **kw)
+        self.up3 = Up(f[3], f[2], g, **kw)
+        self.up4 = Up(f[2], f[1], g, **kw)
+        self.up5 = Up(f[1], f[0], g, **kw)
         self.out_block = Conv3(f[0], n_class, g)
 
     def _dense(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:

@@ -40,6 +40,12 @@ its scalar loss terms to ``check`` before its backward; outside it nothing
 is checked and nothing waits for the card. A step asked for a display
 panel (``return_display``) returns it detached, on the device: the
 ``Saver`` copies it to the host on a display step only.
+
+Every step runs under ``models.blocks.refusing_batch_norm``: a model with
+a norm_type 2 (BatchNorm) module raises ValueError, as no step of the JAX
+package runs one (it applies ``{"params": p}`` alone); a norm_type 3
+(GSNorm) model runs as in the JAX package. So do the evals
+(``eval/evaluate.py``, ``eval/sliding_window.py``).
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from vae_segmentation_tpu_torch.models.blocks import refusing_batch_norm
 from vae_segmentation_tpu_torch.ops import losses as L
 from vae_segmentation_tpu_torch.parallel import collectives, sharding
 
@@ -144,6 +151,7 @@ def make_vae_train_step(n_class: int, *, scale: float = 0.35,
     'display' [gt class 0, gt class 1, recon class 1] (main_source.py:
     394-396)."""
 
+    @refusing_batch_norm()
     def step(model, optimizer, label, generator):
         onehot = L.one_hot_label(label, n_class)
         optimizer.zero_grad(set_to_none=True)
@@ -176,6 +184,7 @@ def make_seg_train_step(n_class: int, *, eps: float = L.SOURCE_EPS
     optimizer updates the SegUNet `model` in place; aux holds the detached
     'dice_loss'."""
 
+    @refusing_batch_norm()
     def step(model, optimizer, image, label):
         img = image if image.dim() == 5 else image[..., None]
         onehot = L.one_hot_label(label, n_class)
@@ -205,6 +214,7 @@ def make_seg_replay_step(n_class: int, *, eps: float = L.SOURCE_EPS
     adaptation step's optimizer (what it froze stays frozen; the VAE takes
     no part in the loss)."""
 
+    @refusing_batch_norm()
     def step(student, optimizer, image, label):
         img = image if image.dim() == 5 else image[..., None]
         onehot = L.one_hot_label(label, n_class)
@@ -374,6 +384,7 @@ def make_adapt_step(cfg: AdaptConfig, *, variant: str = "train") -> Callable:
     Gradients flow through the frozen student VAE into the student Seg; the
     teacher runs without gradients."""
 
+    @refusing_batch_norm()
     def step(student, teacher, optimizer, image, label, generator, sched):
         img = image if image.dim() == 5 else image[..., None]
         onehot = L.one_hot_label(label, cfg.n_class)
@@ -420,6 +431,7 @@ def make_joint_train_step(n_class: int, *, eps: float = L.SOURCE_EPS
     directly and through the VAE (frozen by the optimizer's parameters).
     aux holds the detached 'recon_loss' and 'dice_loss'."""
 
+    @refusing_batch_norm()
     def step(model, optimizer, image, label, sched):
         img = image if image.dim() == 5 else image[..., None]
         onehot = L.one_hot_label(label, n_class)
@@ -456,6 +468,7 @@ def make_cached_pseudo_adapt_step(cfg: AdaptConfig, *,
     --mode refresh writes it to the cache)."""
     n = cfg.n_class
 
+    @refusing_batch_norm()
     def step(model, optimizer, image, label, pseudo, sched):
         img = image if image.dim() == 5 else image[..., None]
         onehot = L.one_hot_label(label, n)
@@ -501,6 +514,7 @@ def make_sep_joint_train_step(n_class: int) -> Callable:
     'recon_loss' (1 - mean recon_dsc), 'dice_loss' (1 - mean dsc) and
     'final_loss'."""
 
+    @refusing_batch_norm()
     def step(model, teacher, optimizer, image):
         img = image if image.dim() == 5 else image[..., None]
         with torch.no_grad():
@@ -551,6 +565,7 @@ def make_discriminator_step() -> Callable:
     [B] of each case. aux holds the detached 'final_loss' and
     'score_out' [B]."""
 
+    @refusing_batch_norm()
     def step(model, optimizer, mask, score):
         optimizer.zero_grad(set_to_none=True)
         out = model(mask[..., None].float())[:, 0]
@@ -581,6 +596,7 @@ def make_adapt_dis_step(cfg: AdaptConfig) -> Callable:
     'dice_loss' and 'final_loss'."""
     n = cfg.n_class
 
+    @refusing_batch_norm()
     def step(student, teacher_seg, optimizer, image, label, generator,
              sched):
         img = image if image.dim() == 5 else image[..., None]
@@ -630,6 +646,7 @@ def make_embed_train_step(n_class: int) -> Callable:
     terms 'dice_loss1', 'dice_loss2', 'mse_loss', 'inpaint_loss',
     'recon_loss', 'kl_loss' and 'final_loss'."""
 
+    @refusing_batch_norm()
     def step(model, optimizer, image, label, generator, enc_on):
         img = image if image.dim() == 5 else image[..., None]
         onehot = L.one_hot_label(label, n_class)
@@ -672,6 +689,7 @@ def make_refine_vae_step(n_class: int) -> Callable:
     the detached 'recon_loss', 'inpaint_loss', 'init_loss', 'kl_loss' and
     'final_loss'."""
 
+    @refusing_batch_norm()
     def step(model, optimizer, image, label, generator):
         img = image if image.dim() == 5 else image[..., None]
         onehot = L.one_hot_label(label, n_class)
